@@ -1,0 +1,50 @@
+"""The port (r2dm_tpu_torch) and chip_smoke.py stand alone: they import no
+JAX, flax, optax, pydantic, msgpack or anything of the JAX package r2dm_tpu,
+and importing them builds no kernel."""
+
+import ast
+import subprocess
+import sys
+from pathlib import Path
+
+REPO = Path(__file__).resolve().parent.parent
+PKG = REPO / "r2dm_tpu_torch"
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "pydantic", "msgpack", "r2dm_tpu")
+
+
+def test_import_leaves_jax_and_the_jax_package_out():
+    """In a fresh interpreter (tests/conftest.py imports jax here), import
+    the package and every submodule, then look at sys.modules."""
+    code = (
+        "import importlib, pkgutil, sys\n"
+        "import r2dm_tpu_torch\n"
+        "for m in pkgutil.walk_packages(r2dm_tpu_torch.__path__, 'r2dm_tpu_torch.'):\n"
+        "    importlib.import_module(m.name)\n"
+        "bad = sorted(n for n in sys.modules if n.split('.')[0] in %r)\n"
+        "print(len(list(pkgutil.walk_packages(r2dm_tpu_torch.__path__))), bad)\n"
+        "assert not bad, bad\n"
+        "from r2dm_tpu_torch.ops import build\n"
+        "assert not build._libs and not build.build_logs  # nothing built\n" % (FORBIDDEN,)
+    )
+    proc = subprocess.run(
+        [sys.executable, "-c", code], cwd=REPO, capture_output=True, text=True, timeout=300,
+    )
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+def _imports(path: Path):
+    tree = ast.parse(path.read_text())
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for a in node.names:
+                yield a.name
+        elif isinstance(node, ast.ImportFrom) and node.level == 0 and node.module:
+            yield node.module
+
+
+def test_static_scan_finds_no_forbidden_import():
+    files = sorted(PKG.rglob("*.py")) + [REPO / "chip_smoke.py"]
+    assert len(files) > 10
+    for path in files:
+        for name in _imports(path):
+            assert name.split(".")[0] not in FORBIDDEN, f"{path.relative_to(REPO)} imports {name}"
