@@ -18,7 +18,9 @@ Phases (any failure makes the exit code non-zero and suppresses the result):
   5. time each kernel, its plain version and the one PyTorch call that
      computes the same function (library_ms, a yardstick the port never
      calls), beside the least time the card could take (bound_ms);
-  6. profile one batch-8 network forward: device time by kernel source.
+  6. one batch-8 network forward: its time as the host drives it, its
+     device time and each part's (CUDA graphs), the host's time to enqueue
+     it, and the operations that block the host (sync debug mode).
 The line before the last is the kernels JSON; the last line is
 {"ok": true, "device": {...}}. Exits non-zero, printing no result, without a
 CUDA device or without the port's package.
@@ -33,6 +35,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import warnings
 
 B = 8  # batch of every check and of the main path
 PEAK_BF16_FLOPS = 989e12  # H100 SXM dense bf16 tensor-core rate
@@ -80,6 +83,31 @@ def cuda_ms(torch, fn, iters: int = 20, warmup: int = 3) -> float:
     start.record()
     for _ in range(iters):
         fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def graph_ms(torch, fn, iters: int = 20) -> float:
+    """Device time of one ``fn`` call: ``iters`` calls captured into one
+    CUDA graph and replayed, so the host's per-call cost (the wrappers'
+    checks and allocations, Python) does not bound the number."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):  # warm-up off the default stream, as capture requires
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(iters):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    graph.replay()
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
@@ -229,6 +257,13 @@ def phase_main(torch):
     print(f"main path launches {json.dumps(launches)} (expected {json.dumps(expected)})")
     if launches != expected:
         raise AssertionError(f"launch counts {launches} != {expected}")
+    ddim_runs = [ddim_s]  # two more timed runs (host clock); the median is reported
+    for _ in range(2):
+        t0 = time.time()
+        ddpm.sample(batch_size=B, num_steps=16, mode="ddim", seeds=range(B))
+        torch.cuda.synchronize()
+        ddim_runs.append(time.time() - t0)
+    ddim_s = sorted(ddim_runs)[1]
 
     for name, s in (("ddim16", x), ("ddpm4", x2)):
         if tuple(s.shape) != (B, 2, 64, 1024) or not bool(torch.isfinite(s).all()):
@@ -266,34 +301,81 @@ def phase_main(torch):
     if not (rel <= 2e-2 and math.isfinite(rel)):
         raise AssertionError(f"kernel path vs plain path relative L2 {rel}")
     img_s = B / ddim_s
-    print(f"ddim16 b{B}: {ddim_s:.3f} s, {img_s:.3f} img/s")
+    print(f"ddim16 b{B}: runs {json.dumps(ddim_runs)} s, median {ddim_s:.4f} s, {img_s:.4f} img/s")
     return {"launches": launches, "ddim16_img_s": img_s, "ddim16_s": ddim_s, "rel_l2": rel, "ddpm": ddpm}
 
 
-def phase_profile(torch, ddpm):
-    """Where one b8 network forward spends device time (torch.profiler)."""
-    from torch.profiler import ProfilerActivity, profile
+def phase_breakdown(torch, ddpm):
+    """Where one batch-B network forward spends its time: the forward as
+    the host drives it, its device time, and each part's device time on the
+    inputs it receives in a real forward (captured with forward hooks)."""
+    from r2dm_tpu_torch.models.layers import ResidualBlock
 
+    net = ddpm.model
+    parts = {"in_conv": net.in_conv, "out_conv": net.out_conv, "time_embedding": net.time_embedding}
+    for name in ("d_block1", "d_block2", "d_block3", "d_block4", "u_block4", "u_block3", "u_block2", "u_block1"):
+        blk = getattr(net, name)
+        if blk.downsample is not None:
+            parts[f"{name}.down_conv"], parts[f"{name}.fir_down"] = blk.downsample[0], blk.downsample[1]
+        if blk.upsample is not None:
+            parts[f"{name}.fir_up"], parts[f"{name}.up_conv"] = blk.upsample[0], blk.upsample[1]
+        if blk.self_attn_block is not None:
+            parts[f"{name}.attention"] = blk.self_attn_block
+        for i, rb in enumerate(blk.residual_blocks):
+            parts[f"{name}.res{i}"] = rb
+    captured = {}
+
+    def keep_inputs(name):
+        def hook(module, args, output):
+            captured.setdefault(name, args)
+        return hook
+
+    hooks = [m.register_forward_hook(keep_inputs(n)) for n, m in parts.items()]
     xin = randn(torch, (B, 64, 1024, 2), 10)
     cond = torch.linspace(-5.0, 5.0, B, device="cuda")
+    try:
+        with torch.inference_mode():
+            net(xin, cond)
+    finally:
+        for h in hooks:
+            h.remove()
     with torch.inference_mode():
-        fwd_ms = cuda_ms(torch, lambda: ddpm.model(xin, cond), iters=5, warmup=2)
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            ddpm.model(xin, cond)
-            torch.cuda.synchronize()
-    kernels = {}
-    for e in prof.key_averages():
-        us = getattr(e, "self_device_time_total", 0) or 0
-        if us > 0 and str(getattr(e, "device_type", "")).endswith("CUDA"):
-            kernels[e.key] = kernels.get(e.key, 0.0) + us / 1e3
-    device_ms = sum(kernels.values())
-    groups = {"act_ringconv.cu": "act_ringconv_kernel", "gn_silu.cu": "gn_"}
-    share = {name: sum(v for k, v in kernels.items() if pat in k) for name, pat in groups.items()}
-    share["other"] = device_ms - sum(share.values())
-    top = sorted(kernels.items(), key=lambda kv: -kv[1])[:10]
-    print("forward profile b8: " + json.dumps({
-        "forward_ms": fwd_ms, "device_ms": device_ms, "by_source_ms": share,
-        "top_kernels_ms": [[k[:80], v] for k, v in top],
+        forward_ms = cuda_ms(torch, lambda: net(xin, cond), iters=5, warmup=2)
+        # host time to enqueue one forward: below forward_ms, the host keeps
+        # the card fed at this batch
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        net(xin, cond)
+        enqueue_ms = (time.perf_counter() - t0) * 1e3
+        torch.cuda.synchronize()
+        # operations that block the host until the card drains its queue,
+        # in two forwards one after the other and in one 2-step sampling call
+        syncs = {}
+        for what, fn in (("forward", lambda: net(xin, cond)),
+                         ("forward_again", lambda: net(xin, cond)),
+                         ("sample_2_steps", lambda: ddpm.sample(B, 2, seeds=range(B)))):
+            with warnings.catch_warnings(record=True) as caught:
+                warnings.simplefilter("always")
+                torch.cuda.set_sync_debug_mode("warn")
+                try:
+                    fn()
+                finally:
+                    torch.cuda.set_sync_debug_mode("default")
+            syncs[what] = ["/".join(w.filename.split(os.sep)[-3:]) + f":{w.lineno}"
+                           for w in caught if "synchroniz" in str(w.message)]
+        torch.cuda.synchronize()
+        # device time alone (CUDA graphs): of the forward, and of each part
+        device_ms = graph_ms(torch, lambda: net(xin, cond), iters=3)
+        times = {n: graph_ms(torch, lambda m=parts[n], a=captured[n]: m(*a), iters=3) for n in parts}
+    groups = {"residual blocks": [n for n, m in parts.items() if isinstance(m, ResidualBlock)]}
+    for key in ("fir_down", "fir_up", "down_conv", "up_conv", "attention"):
+        groups[key] = [n for n in parts if n.endswith(key)]
+    groups["in/out conv, time embedding"] = ["in_conv", "out_conv", "time_embedding"]
+    summary = {g: sum(times[n] for n in names) for g, names in groups.items()}
+    summary["rest (concat, casts, encoding)"] = device_ms - sum(summary.values())
+    print(f"forward breakdown b{B}: " + json.dumps({
+        "forward_ms": forward_ms, "device_ms": device_ms, "device_idle_share": 1.0 - device_ms / forward_ms,
+        "host_enqueue_ms": enqueue_ms, "host_syncs": syncs, "device_ms_by_part": summary,
     }))
 
 
@@ -322,8 +404,8 @@ def phase_time(torch, launches, errs):
     C, H, W = 64, 64, 1024
     x = randn(torch, (B, H, W, C), 11, torch.bfloat16)
     gain, shift = randn(torch, (C,), 12), randn(torch, (C,), 13)
-    ms = cuda_ms(torch, lambda: gn_silu.gn_coeffs(x, G, eps, gain, shift))
-    plain = cuda_ms(torch, lambda: gn_silu.gn_coeffs_plain(x, G, eps, gain, shift))
+    ms = graph_ms(torch, lambda: gn_silu.gn_coeffs(x, G, eps, gain, shift))
+    plain = graph_ms(torch, lambda: gn_silu.gn_coeffs_plain(x, G, eps, gain, shift))
     row("gn_coeffs", "cuda", ms, plain, x.numel() * 2 + 2 * B * C * 4, 3 * x.numel(), PEAK_FP32_FLOPS,
         None, [B, H, W, C], errs["gn_coeffs"])
 
@@ -331,10 +413,10 @@ def phase_time(torch, launches, errs):
     C, H, W = 512, 8, 128
     x = randn(torch, (B, H, W, C), 14, torch.bfloat16)
     gain, shift = randn(torch, (C,), 15), randn(torch, (C,), 16)
-    ms = cuda_ms(torch, lambda: gn_silu.fused_group_norm_silu(x, gain, shift, G, eps, apply_silu=True))
-    plain = cuda_ms(torch, lambda: gn_silu.fused_group_norm_silu_plain(x, gain, shift, G, eps, apply_silu=True))
+    ms = graph_ms(torch, lambda: gn_silu.fused_group_norm_silu(x, gain, shift, G, eps, apply_silu=True))
+    plain = graph_ms(torch, lambda: gn_silu.fused_group_norm_silu_plain(x, gain, shift, G, eps, apply_silu=True))
     xc = x.permute(0, 3, 1, 2)
-    lib = cuda_ms(torch, lambda: F.silu(F.group_norm(xc, G, gain.to(x.dtype), shift.to(x.dtype), eps)))
+    lib = graph_ms(torch, lambda: F.silu(F.group_norm(xc, G, gain.to(x.dtype), shift.to(x.dtype), eps)))
     row("fused_group_norm_silu", "cuda", ms, plain, 2 * x.numel() * 2, 10 * x.numel(), PEAK_FP32_FLOPS,
         lib, [B, H, W, C], errs["fused_group_norm_silu"])
 
@@ -345,23 +427,27 @@ def phase_time(torch, launches, errs):
         a, b = randn(torch, (B, C), 18, offset=1.0), randn(torch, (B, C), 19)
         k = randn(torch, (3, 3, C, Fo), 20, scale=0.05)
         bias = randn(torch, (Fo,), 21)
-        ms = cuda_ms(torch, lambda: act_ringconv.fused_act_ringconv(x, a, b, k, bias))
-        plain = cuda_ms(torch, lambda: act_ringconv.act_ringconv_plain(x, a, b, k, bias))
+        ms = graph_ms(torch, lambda: act_ringconv.fused_act_ringconv(x, a, b, k, bias))
+        plain = graph_ms(torch, lambda: act_ringconv.act_ringconv_plain(x, a, b, k, bias))
         xp = ring_pad(x, 1).permute(0, 3, 1, 2)
         wt = k.to(torch.bfloat16).permute(3, 2, 0, 1).contiguous(memory_format=torch.channels_last)
         bb = bias.to(torch.bfloat16)
-        lib = cuda_ms(torch, lambda: F.conv2d(xp, wt, bb))
+        lib = graph_ms(torch, lambda: F.conv2d(xp, wt, bb))
         flops = 2 * 9 * C * Fo * B * H * W
         nbytes = (B * H * W * (C + Fo)) * 2 + 9 * C * Fo * 2 + 2 * B * C * 4 + Fo * 4
         bound = max(flops / PEAK_BF16_FLOPS, nbytes / PEAK_BYTES) * 1e3
+        # the norm that feeds this conv's prologue sees the same input
+        gn_ms = graph_ms(torch, lambda: gn_silu.gn_coeffs(x, G, eps, a[0], b[0]))
+        gn_bound = max(x.numel() * 2 / PEAK_BYTES, 3 * x.numel() / PEAK_FP32_FLOPS) * 1e3
         per_shape.append({"cin": C, "f": Fo, "h": H, "w": W, "per_forward": count, "ms": ms,
                           "plain_ms": plain, "library_ms": lib, "bound_ms": bound,
-                          "tflops": flops / ms / 1e9})
+                          "tflops": flops / ms / 1e9, "gn_coeffs_ms": gn_ms, "gn_coeffs_bound_ms": gn_bound})
         if (C, Fo, H, W) == (64, 64, 64, 1024):
             row("fused_act_ringconv", "cuda", ms, plain, nbytes, flops, PEAK_BF16_FLOPS, lib,
                 [B, H, W, C, Fo], errs["fused_act_ringconv"])
-    total = {k: sum(s[k] * s["per_forward"] for s in per_shape) for k in ("ms", "plain_ms", "library_ms", "bound_ms")}
-    print("act_ringconv per shape: " + json.dumps({"shapes": per_shape, "per_forward_total": total}))
+    total = {k: sum(s[k] * s["per_forward"] for s in per_shape)
+             for k in ("ms", "plain_ms", "library_ms", "bound_ms", "gn_coeffs_ms", "gn_coeffs_bound_ms")}
+    print("ResidualBlock kernels per shape: " + json.dumps({"shapes": per_shape, "per_forward_total": total}))
     return rows
 
 
@@ -399,7 +485,7 @@ def main() -> int:
     if main_out is not None and gn_err is not None and conv_err is not None:
         errs = {**gn_err, "fused_act_ringconv": conv_err}
         rows = phases.run("timing", phase_time, torch, main_out["launches"], errs)
-        phases.run("profile", phase_profile, torch, main_out["ddpm"])
+        phases.run("breakdown", phase_breakdown, torch, main_out["ddpm"])
     else:
         rows = None
     if phases.failed:

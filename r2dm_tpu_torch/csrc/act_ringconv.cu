@@ -13,21 +13,24 @@
 // 128-lane MXU and 16 MB VMEM and are not carried over.
 //
 // Design: an implicit GEMM with M = BM output pixels of one (b, h) row
-// segment, N = BN output channels, K = 9 taps x C_in. For each kernel row kh
-// and each BK-channel slice, the block stages the (BM + 2)-pixel input halo of
-// row h + kh - 1 into shared memory once -- W index taken mod W (the ring),
-// the prologue silu(x*a + b) computed in fp32 while staging and rounded to
-// bf16 -- plus the three kw taps' BK x BN weight tiles. The three taps then
-// read the same halo at pixel offsets 0, 1, 2. A kernel row outside [0, H)
-// is skipped: its contribution is exactly zero. Four warps each own a 32x32
-// output sub-tile of 2x2 wmma bf16 16x16x16 fragments with fp32
-// accumulators; the epilogue adds the bias in fp32 and stores bf16.
+// segment, N = BN output channels, K = 9 taps x C_in, walked as slices of
+// (kernel row kh, BK input channels). For each slice the block stages the
+// (BM + 2)-pixel input halo of row h + kh - 1 -- W index taken mod W (the
+// ring), the prologue silu(x*a + b) computed in fp32 while staging and
+// rounded to bf16 -- and the three kw taps' BK x BN weight tiles; the three
+// taps then read the same halo at pixel offsets 0, 1, 2. A kernel row
+// outside [0, H) is skipped: its contribution is exactly zero. The next
+// slice's global loads are issued into registers before the current slice's
+// tensor-core work, so their latency hides behind it. Eight warps each own a
+// 32x32 output sub-tile: ldmatrix from padded (bank-conflict-free) shared
+// rows feeds mma.sync m16n8k16 bf16 with fp32 accumulators; the epilogue
+// adds the bias in fp32 and stores bf16 pairs.
 //
 // Bound on an H100 SXM at config H, level 1, 64 -> 64 channels, per image:
 // 2*9*64*64*65536 = 4.83 GFLOP (4.9 us at 989 TFLOP/s bf16) against 8.4 MB
-// in + 8.4 MB out (5.0 us at 3.35 TB/s). This first version stages with
-// plain synchronous loads (no TMA, no wgmma, no pipelining), so it runs far
-// from that bound; it is the correct baseline that later work speeds up.
+// in + 8.4 MB out (5.0 us at 3.35 TB/s). mma.sync cannot reach the wgmma
+// peak and the loads are not asynchronous copies; TMA, wgmma and a deeper
+// pipeline are the way to that bound.
 //
 // Requirements (checked by the Python wrapper): C_in % 8 == 0, F % 8 == 0,
 // contiguous NHWC x, weight packed as (9*C_in, F) bf16 with row
@@ -35,149 +38,198 @@
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
-#include <mma.h>
 #include <stdint.h>
 
 namespace {
 
-using namespace nvcuda;
-
-constexpr int BM = 64;        // output pixels per block (one row segment)
+constexpr int BM = 128;       // output pixels per block (one row segment)
 constexpr int BN = 64;        // output channels per block
-constexpr int BK = 32;        // input channels per staged slice
-constexpr int LDA = BK + 16;  // 96-byte rows: 32-byte aligned wmma pointers
-constexpr int LDB = BN + 16;
-constexpr int LDC = BN + 8;
-constexpr int kThreads = 128;
+constexpr int BK = 32;        // input channels per slice
+constexpr int LDA = BK + 8;   // 80-byte rows: ldmatrix without bank conflicts
+constexpr int LDB = BN + 8;   // 144-byte rows
+constexpr int kThreads = 256; // 8 warps: 4 along M x 2 along N, 32x32 each
+constexpr int kVecA = (BM + 2) * (BK / 8);  // 16-byte vectors per halo
+constexpr int kVecB = 3 * BK * (BN / 8);    // 16-byte vectors per weight slice
+constexpr int kPerA = (kVecA + kThreads - 1) / kThreads;
+constexpr int kPerB = (kVecB + kThreads - 1) / kThreads;
 
-// Shared memory: the staged halo and weight tiles, and (reusing the same
-// bytes after the main loop) the fp32 output tile for the epilogue.
-constexpr int kBytesA = (BM + 2) * LDA * 2;  // 6336, a multiple of 32
-constexpr int kBytesB = 3 * BK * LDB * 2;
-constexpr int kBytesC = BM * LDC * 4;
-constexpr int kSmemBytes =
-    (kBytesA + kBytesB) > kBytesC ? (kBytesA + kBytesB) : kBytesC;
-
+// silu(x*a + b) on 8 bf16 channels in fp32, rounded to bf16 once. a, b are
+// 32-byte aligned (C_in % 8 == 0), so they load as float4 pairs. The fast
+// divide is within 2 ulp of fp32, far below the bf16 rounding that follows.
 __device__ __forceinline__ uint4 act8(uint4 u, const float* __restrict__ pa,
                                       const float* __restrict__ pb) {
+  const float4 a0 = reinterpret_cast<const float4*>(pa)[0];
+  const float4 a1 = reinterpret_cast<const float4*>(pa)[1];
+  const float4 b0 = reinterpret_cast<const float4*>(pb)[0];
+  const float4 b1 = reinterpret_cast<const float4*>(pb)[1];
+  const float av[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
+  const float bv[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
   __nv_bfloat162* h = reinterpret_cast<__nv_bfloat162*>(&u);
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     float2 f = __bfloat1622float2(h[i]);
-    float s0 = f.x * pa[2 * i] + pb[2 * i];
-    float s1 = f.y * pa[2 * i + 1] + pb[2 * i + 1];
-    s0 = s0 * (1.f / (1.f + __expf(-s0)));
-    s1 = s1 * (1.f / (1.f + __expf(-s1)));
+    float s0 = f.x * av[2 * i] + bv[2 * i];
+    float s1 = f.y * av[2 * i + 1] + bv[2 * i + 1];
+    s0 = __fdividef(s0, 1.f + __expf(-s0));
+    s1 = __fdividef(s1, 1.f + __expf(-s1));
     h[i] = __floats2bfloat162_rn(s0, s1);
   }
   return u;
 }
 
-__global__ void __launch_bounds__(kThreads) act_ringconv_kernel(
+__device__ __forceinline__ void ldmatrix_x4(uint32_t* r, const void* p) {
+  const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(p));
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(a));
+}
+
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t* r, const void* p) {
+  const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(p));
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(a));
+}
+
+__device__ __forceinline__ void mma_bf16(float* c, const uint32_t* a,
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+struct Slice {
+  int kh, c0;
+};
+
+__global__ void __launch_bounds__(kThreads, 2) act_ringconv_kernel(
     const __nv_bfloat16* __restrict__ x, const float* __restrict__ pa,
     const float* __restrict__ pb, const __nv_bfloat16* __restrict__ w,
     const float* __restrict__ bias, __nv_bfloat16* __restrict__ y, int H,
     int W, int Cin, int F, int apply_act) {
-  __shared__ __align__(128) unsigned char smem[kSmemBytes];
-  auto sa = reinterpret_cast<__nv_bfloat16(*)[LDA]>(smem);
-  auto sb = reinterpret_cast<__nv_bfloat16(*)[BK][LDB]>(smem + kBytesA);
-  auto sc = reinterpret_cast<float(*)[LDC]>(smem);
+  __shared__ __align__(128) __nv_bfloat16 sa[BM + 2][LDA];
+  __shared__ __align__(128) __nv_bfloat16 sb[3][BK][LDB];
+
   const int tiles_w = (W + BM - 1) / BM;
   const int h = blockIdx.x / tiles_w;
   const int w0 = (blockIdx.x % tiles_w) * BM;
   const int n0 = blockIdx.y * BN;
   const int b = blockIdx.z;
-  const int warp = threadIdx.x / 32;
-  const int wm = warp / 2, wn = warp % 2;
-
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[2][2];
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int j = 0; j < 2; ++j) wmma::fill_fragment(acc[i][j], 0.f);
-
+  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
+  const int wm = warp % 4, wn = warp / 4;
   const float* pa_b = pa + (size_t)b * Cin;
   const float* pb_b = pb + (size_t)b * Cin;
 
-  for (int kh = 0; kh < 3; ++kh) {
-    const int hin = h + kh - 1;
-    if (hin < 0 || hin >= H) continue;  // zero pad row: block-uniform skip
-    const __nv_bfloat16* xrow = x + ((size_t)b * H + hin) * W * Cin;
-    for (int c0 = 0; c0 < Cin; c0 += BK) {
-      __syncthreads();  // the previous slice's fragments are loaded
-      // input halo: pixels w0-1 .. w0+BM, channels c0 .. c0+BK
-      for (int i = threadIdx.x; i < (BM + 2) * (BK / 8); i += kThreads) {
-        const int r = i / (BK / 8);
-        const int cv = (i % (BK / 8)) * 8;
-        const int c = c0 + cv;
+  // slices (kh, c0), kernel rows that fall in the H padding left out
+  const int kh_lo = h == 0 ? 1 : 0;
+  const int kh_hi = h == H - 1 ? 1 : 2;
+  const int n_c = (Cin + BK - 1) / BK;
+  const int n_slices = (kh_hi - kh_lo + 1) * n_c;
+  auto slice_of = [&](int s) { return Slice{kh_lo + s / n_c, (s % n_c) * BK}; };
+
+  uint4 ra[kPerA], rb[kPerB];
+  auto load = [&](int s) {
+    const Slice sl = slice_of(s);
+    const __nv_bfloat16* xrow = x + ((size_t)b * H + (h + sl.kh - 1)) * W * Cin;
+#pragma unroll
+    for (int k = 0; k < kPerA; ++k) {
+      const int i = tid + k * kThreads;
+      ra[k] = make_uint4(0, 0, 0, 0);
+      if (i < kVecA) {
+        const int r = i / (BK / 8), c = sl.c0 + (i % (BK / 8)) * 8;
         int win = (w0 - 1 + r) % W;
         if (win < 0) win += W;
-        uint4 v = make_uint4(0, 0, 0, 0);
-        if (c < Cin) {
-          v = *reinterpret_cast<const uint4*>(xrow + (size_t)win * Cin + c);
-          if (apply_act) v = act8(v, pa_b + c, pb_b + c);
-        }
-        *reinterpret_cast<uint4*>(&sa[r][cv]) = v;
-      }
-      // weights of the three kw taps of kernel row kh
-      for (int i = threadIdx.x; i < 3 * BK * (BN / 8); i += kThreads) {
-        const int kw = i / (BK * (BN / 8));
-        const int rem = i % (BK * (BN / 8));
-        const int r = rem / (BN / 8);
-        const int nv = (rem % (BN / 8)) * 8;
-        const int c = c0 + r, n = n0 + nv;
-        uint4 v = make_uint4(0, 0, 0, 0);
-        if (c < Cin && n < F)
-          v = *reinterpret_cast<const uint4*>(
-              w + ((size_t)(kh * 3 + kw) * Cin + c) * F + n);
-        *reinterpret_cast<uint4*>(&sb[kw][r][nv]) = v;
-      }
-      __syncthreads();
-#pragma unroll
-      for (int kw = 0; kw < 3; ++kw) {
-#pragma unroll
-        for (int kk = 0; kk < BK; kk += 16) {
-          wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16,
-                         wmma::row_major> fa[2];
-          wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16,
-                         wmma::row_major> fb[2];
-#pragma unroll
-          for (int i = 0; i < 2; ++i)
-            wmma::load_matrix_sync(fa[i], &sa[wm * 32 + i * 16 + kw][kk],
-                                   LDA);
-#pragma unroll
-          for (int j = 0; j < 2; ++j)
-            wmma::load_matrix_sync(fb[j], &sb[kw][kk][wn * 32 + j * 16],
-                                   LDB);
-#pragma unroll
-          for (int i = 0; i < 2; ++i)
-#pragma unroll
-            for (int j = 0; j < 2; ++j)
-              wmma::mma_sync(acc[i][j], fa[i], fb[j], acc[i][j]);
-        }
+        if (c < Cin) ra[k] = *reinterpret_cast<const uint4*>(xrow + (size_t)win * Cin + c);
       }
     }
-  }
-  __syncthreads();  // sc aliases the staging buffers
+#pragma unroll
+    for (int k = 0; k < kPerB; ++k) {
+      const int i = tid + k * kThreads;
+      rb[k] = make_uint4(0, 0, 0, 0);
+      if (i < kVecB) {
+        const int kw = i / (BK * (BN / 8)), rem = i % (BK * (BN / 8));
+        const int c = sl.c0 + rem / (BN / 8), n = n0 + (rem % (BN / 8)) * 8;
+        if (c < Cin && n < F)
+          rb[k] = *reinterpret_cast<const uint4*>(
+              w + ((size_t)(sl.kh * 3 + kw) * Cin + c) * F + n);
+      }
+    }
+  };
+  auto store = [&](int s) {
+    const Slice sl = slice_of(s);
+#pragma unroll
+    for (int k = 0; k < kPerA; ++k) {
+      const int i = tid + k * kThreads;
+      if (i < kVecA) {
+        const int r = i / (BK / 8), cv = (i % (BK / 8)) * 8;
+        uint4 v = ra[k];
+        if (apply_act && sl.c0 + cv < Cin) v = act8(v, pa_b + sl.c0 + cv, pb_b + sl.c0 + cv);
+        *reinterpret_cast<uint4*>(&sa[r][cv]) = v;
+      }
+    }
+#pragma unroll
+    for (int k = 0; k < kPerB; ++k) {
+      const int i = tid + k * kThreads;
+      if (i < kVecB) {
+        const int kw = i / (BK * (BN / 8)), rem = i % (BK * (BN / 8));
+        *reinterpret_cast<uint4*>(&sb[kw][rem / (BN / 8)][(rem % (BN / 8)) * 8]) = rb[k];
+      }
+    }
+  };
+
+  float acc[2][4][4];
 #pragma unroll
   for (int i = 0; i < 2; ++i)
 #pragma unroll
-    for (int j = 0; j < 2; ++j)
-      wmma::store_matrix_sync(&sc[wm * 32 + i * 16][wn * 32 + j * 16],
-                              acc[i][j], LDC, wmma::mem_row_major);
-  __syncthreads();
-  for (int i = threadIdx.x; i < BM * (BN / 8); i += kThreads) {
-    const int m = i / (BN / 8);
-    const int nv = (i % (BN / 8)) * 8;
-    const int wo = w0 + m, n = n0 + nv;
-    if (wo >= W || n >= F) continue;
-    uint4 u;
-    __nv_bfloat162* o = reinterpret_cast<__nv_bfloat162*>(&u);
+    for (int j = 0; j < 4; ++j)
 #pragma unroll
-    for (int k = 0; k < 4; ++k)
-      o[k] = __floats2bfloat162_rn(sc[m][nv + 2 * k] + bias[n + 2 * k],
-                                   sc[m][nv + 2 * k + 1] + bias[n + 2 * k + 1]);
-    *reinterpret_cast<uint4*>(y + (((size_t)b * H + h) * W + wo) * F + n) = u;
+      for (int q = 0; q < 4; ++q) acc[i][j][q] = 0.f;
+
+  if (n_slices > 0) load(0);
+  for (int s = 0; s < n_slices; ++s) {
+    __syncthreads();  // every warp is done reading the previous slice
+    store(s);
+    __syncthreads();
+    if (s + 1 < n_slices) load(s + 1);  // in flight during the mma work
+#pragma unroll
+    for (int kw = 0; kw < 3; ++kw) {
+#pragma unroll
+      for (int kk = 0; kk < BK; kk += 16) {
+        uint32_t af[2][4], bf[2][4];
+#pragma unroll
+        for (int i = 0; i < 2; ++i)
+          ldmatrix_x4(af[i], &sa[wm * 32 + i * 16 + kw + lane % 16][kk + (lane / 16) * 8]);
+#pragma unroll
+        for (int j = 0; j < 2; ++j)
+          ldmatrix_x4_trans(bf[j], &sb[kw][kk + lane % 16][wn * 32 + j * 16 + (lane / 16) * 8]);
+#pragma unroll
+        for (int i = 0; i < 2; ++i)
+#pragma unroll
+          for (int j = 0; j < 4; ++j)
+            mma_bf16(acc[i][j], af[i], bf[j / 2][(j % 2) * 2], bf[j / 2][(j % 2) * 2 + 1]);
+      }
+    }
+  }
+
+  // epilogue: thread holds rows lane/4 (+8), channel pairs 2*(lane%4)
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const int wo = w0 + wm * 32 + i * 16 + lane / 4 + half * 8;
+      if (wo >= W) continue;
+      __nv_bfloat16* yrow = y + (((size_t)b * H + h) * W + wo) * F;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int n = n0 + wn * 32 + j * 8 + 2 * (lane % 4);
+        if (n >= F) continue;
+        *reinterpret_cast<__nv_bfloat162*>(yrow + n) = __floats2bfloat162_rn(
+            acc[i][j][2 * half] + bias[n], acc[i][j][2 * half + 1] + bias[n + 1]);
+      }
+    }
   }
 }
 

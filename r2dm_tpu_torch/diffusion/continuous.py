@@ -120,13 +120,10 @@ class ContinuousTimeGaussianDiffusion(GaussianDiffusion):
         ddim_eta: float = 0.0,
         generator: Generators = None,
         noise: Optional[torch.Tensor] = None,
-        return_all: bool = False,
-    ):
+    ) -> torch.Tensor:
         """``p_step`` over the boundary times ``ts_seg`` ((K+1,)); ``noise``
-        ((K, B, H, W, C)) replaces the generator's draws. Returns x, or
-        (x, (K, B, H, W, C) stack) with ``return_all``."""
+        ((K, B, H, W, C)) replaces the generator's draws."""
         stochastic = mode == "ddpm" or ddim_eta != 0.0
-        xs = []
         for i in range(ts_seg.shape[0] - 1):
             if noise is not None:
                 n = noise[i]
@@ -135,10 +132,6 @@ class ContinuousTimeGaussianDiffusion(GaussianDiffusion):
             else:
                 n = None
             x = self.p_step(x, ts_seg[i], ts_seg[i + 1], noise=n, mode=mode, ddim_eta=ddim_eta)
-            if return_all:
-                xs.append(x)
-        if return_all:
-            return x, torch.stack(xs)
         return x
 
     @torch.inference_mode()
@@ -151,12 +144,10 @@ class ContinuousTimeGaussianDiffusion(GaussianDiffusion):
         generator: Generators = None,
         x_T: Optional[torch.Tensor] = None,
         noise: Optional[torch.Tensor] = None,
-        return_all: bool = False,
         device=None,
     ) -> torch.Tensor:
-        """The full reverse chain (reference continuous_time.py:234-258).
-        Returns (B, H, W, C) fp32 in [-1, 1], or (num_steps+1, B, H, W, C)
-        with ``return_all``."""
+        """The full reverse chain (reference continuous_time.py:234-258):
+        (B, H, W, C) fp32 in [-1, 1]."""
         if device is None:
             device = next(self.model.parameters()).device
         if x_T is None:
@@ -164,7 +155,4 @@ class ContinuousTimeGaussianDiffusion(GaussianDiffusion):
         else:
             x = x_T.to(device=device, dtype=torch.float32)
         ts = torch.linspace(1.0, 0.0, num_steps + 1, dtype=torch.float32, device=device)
-        out = self.sample_segment(x, ts, mode, ddim_eta, generator, noise, return_all)
-        if return_all:
-            return torch.cat([x[None], out[1]], dim=0)
-        return out
+        return self.sample_segment(x, ts, mode, ddim_eta, generator, noise)

@@ -26,9 +26,7 @@ from .diffusion.base import Generators
 from .lidar import LiDARUtility
 from .models.efficient_unet import EfficientUNet
 from .ops.encoding import get_hdl64e_linear_ray_angles
-from .utils.weights import load_reference_checkpoint, reference_unet_state_dict
-
-PRETRAINED_CONFIGS = ("r2dm-h-kitti360-300k", "r2dm-h-kittiraw-300k")
+from .utils.weights import reference_unet_state_dict
 
 
 def count_parameters(model: torch.nn.Module) -> int:
@@ -56,7 +54,6 @@ def build_model(cfg: config_lib.Config, dtype: Optional[torch.dtype] = None, dev
         gn_eps=cfg.model.gn_eps,
         attn_num_heads=cfg.model.attn_num_heads,
         coords_encoding=cfg.model.coords_encoding,
-        ring=True,
         dtype=dtype,
     )
     return model.to(device).eval()
@@ -105,14 +102,7 @@ class DDPM:
     def sampling_shape(self):
         return self.diffusion.sampling_shape
 
-    @property
-    def coords(self) -> torch.Tensor:
-        """(1, 2, H, W) coordinate buffer of the network."""
-        return self.model.coords
-
-    def _generators(self, seeds: Optional[Sequence[int]], generator: Generators) -> Generators:
-        if generator is not None:
-            return generator
+    def _generators(self, seeds: Optional[Sequence[int]]) -> Generators:
         if seeds is not None:
             return [torch.Generator(self.device).manual_seed(int(s)) for s in seeds]
         # no explicit randomness: advance an internal stream so repeated
@@ -125,17 +115,14 @@ class DDPM:
         batch_size: int,
         num_steps: int,
         seeds: Optional[Sequence[int]] = None,
-        generator: Generators = None,
         mode: str = "ddpm",
         ddim_eta: float = 0.0,
-        return_all: bool = False,
         data_format: str = "NCHW",
         batch_chunk: Optional[int] = None,
         x_T: Optional[torch.Tensor] = None,
         noise: Optional[torch.Tensor] = None,
     ) -> torch.Tensor:
-        """Generate scans: (B, C, H, W) fp32 (NCHW) or (B, H, W, C) (NHWC),
-        or the (num_steps+1, B, ...) chain with ``return_all``.
+        """Generate scans: (B, C, H, W) fp32 (NCHW) or (B, H, W, C) (NHWC).
 
         ``batch_chunk`` runs the batch as sequential chunks of that many
         images; with ``seeds`` the result does not depend on the chunking.
@@ -148,7 +135,7 @@ class DDPM:
             raise ValueError(f"{len(seeds)} seeds for a batch of {batch_size}")
         if batch_chunk is not None and batch_chunk < 1:
             raise ValueError(f"batch_chunk must be >= 1, got {batch_chunk}")
-        gens = self._generators(seeds, generator)
+        gens = self._generators(seeds)
         chunk = batch_size if batch_chunk is None else batch_chunk
         outs = []
         for lo in range(0, batch_size, chunk):
@@ -158,12 +145,10 @@ class DDPM:
                 generator=gens if isinstance(gens, torch.Generator) else gens[lo:hi],
                 x_T=None if x_T is None else x_T[lo:hi],
                 noise=None if noise is None else noise[:, lo:hi],
-                return_all=return_all, device=self.device,
+                device=self.device,
             ))
-        x = torch.cat(outs, dim=1 if return_all else 0)
-        if data_format == "NCHW":
-            x = x.permute(0, 1, 4, 2, 3) if return_all else x.permute(0, 3, 1, 2)
-        return x.contiguous()
+        x = torch.cat(outs)
+        return x.permute(0, 3, 1, 2).contiguous() if data_format == "NCHW" else x
 
 
 def setup_model(
@@ -176,7 +161,7 @@ def setup_model(
         path = str(ckpt)
         if not path.endswith((".pth", ".pt", ".ckpt")):
             raise ValueError(f"{path}: the port reads reference-layout .pth checkpoints")
-        ckpt = load_reference_checkpoint(path)
+        ckpt = torch.load(path, map_location="cpu", weights_only=False)
     _check_dtype(device, dtype)
     cfg = config_lib.from_dict(ckpt["cfg"]) if isinstance(ckpt.get("cfg"), dict) else ckpt["cfg"]
     weights = ckpt.get("ema_weights" if ema else "weights") or ckpt.get("weights")

@@ -8,8 +8,6 @@ NHWC or NCHW for every method; the hub surface uses NCHW.
 from __future__ import annotations
 
 import math
-from typing import Optional
-
 import numpy as np
 import torch
 
@@ -37,8 +35,10 @@ class LiDARUtility:
         data_format: str = "NHWC",
         device=None,
     ):
-        assert depth_format in ("log_depth", "inverse_depth", "depth")
-        assert data_format in ("NHWC", "NCHW")
+        if depth_format not in ("log_depth", "inverse_depth", "depth"):
+            raise ValueError(f"unknown depth_format {depth_format!r}")
+        if data_format not in ("NHWC", "NCHW"):
+            raise ValueError(f"data_format must be NHWC or NCHW, got {data_format!r}")
         self.resolution = tuple(resolution)
         self.depth_format = depth_format
         self.min_depth = float(min_depth)
@@ -50,10 +50,10 @@ class LiDARUtility:
             if isinstance(ray_angles, torch.Tensor):
                 ray_angles = ray_angles.detach().cpu().numpy()
             angles = np.asarray(ray_angles, dtype=np.float32)
-            if angles.ndim == 4:  # reference layout (1, 2, H, W)
-                assert angles.shape[:2] == (1, 2)
+            if angles.ndim == 4 and angles.shape[:2] == (1, 2):  # reference layout
                 angles = np.transpose(angles[0], (1, 2, 0))
-            assert angles.ndim == 3 and angles.shape[-1] == 2
+            if angles.ndim != 3 or angles.shape[-1] != 2:
+                raise ValueError(f"ray_angles must be (H, W, 2) or (1, 2, H, W), got {angles.shape}")
         angles = nearest_exact_resize_hw(angles, self.resolution)
         self.ray_angles = torch.as_tensor(np.ascontiguousarray(angles), dtype=torch.float32, device=device)
 
@@ -78,35 +78,24 @@ class LiDARUtility:
         """1.0 where min_depth < depth < max_depth."""
         return ((metric > self.min_depth) & (metric < self.max_depth)).to(torch.float32)
 
-    def convert_depth(
-        self, metric: torch.Tensor, mask: Optional[torch.Tensor] = None,
-        depth_format: Optional[str] = None,
-    ) -> torch.Tensor:
-        """Metric depth -> normalized [0, 1]."""
-        depth_format = depth_format or self.depth_format
-        if mask is None:
-            mask = self.get_mask(metric)
-        if depth_format == "log_depth":
+    def convert_depth(self, metric: torch.Tensor) -> torch.Tensor:
+        """Metric depth -> normalized [0, 1], invalid depths zeroed."""
+        if self.depth_format == "log_depth":
             normalized = torch.log2(metric + 1.0) / math.log2(self.max_depth + 1.0)
-        elif depth_format == "inverse_depth":
+        elif self.depth_format == "inverse_depth":
             normalized = self.min_depth / (metric + 1e-8)
-        elif depth_format == "depth":
+        else:
             normalized = metric / self.max_depth
-        else:
-            raise ValueError(depth_format)
-        return torch.clamp(normalized, 0.0, 1.0) * mask
+        return torch.clamp(normalized, 0.0, 1.0) * self.get_mask(metric)
 
-    def revert_depth(self, normalized: torch.Tensor, depth_format: Optional[str] = None) -> torch.Tensor:
+    def revert_depth(self, normalized: torch.Tensor) -> torch.Tensor:
         """Normalized [0, 1] -> metric depth, invalid depths zeroed."""
-        depth_format = depth_format or self.depth_format
-        if depth_format == "log_depth":
+        if self.depth_format == "log_depth":
             metric = torch.exp2(normalized * math.log2(self.max_depth + 1.0)) - 1.0
-        elif depth_format == "inverse_depth":
+        elif self.depth_format == "inverse_depth":
             metric = self.min_depth / (normalized + 1e-8)
-        elif depth_format == "depth":
-            metric = normalized * self.max_depth
         else:
-            raise ValueError(depth_format)
+            metric = normalized * self.max_depth
         return metric * self.get_mask(metric)
 
     def to_xyz(self, metric: torch.Tensor) -> torch.Tensor:

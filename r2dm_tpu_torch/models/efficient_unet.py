@@ -18,7 +18,7 @@ import torch
 import torch.nn as nn
 
 from ..ops import encoding as enc
-from ..ops.resample import downsample2x, upsample2x
+from ..ops.resample import downsample2x, fir_kernel, upsample2x
 from .layers import Dense, ResidualBlock, RingConv, SelfAttentionBlock
 
 
@@ -45,14 +45,17 @@ class TimeEmbedding(nn.Sequential):
 
 
 class Resample(nn.Module):
-    def __init__(self, up: int = 1, down: int = 1, ring: bool = True):
+    """2x FIR upsample (``up``) or downsample with ring margins."""
+
+    def __init__(self, up: bool):
         super().__init__()
-        self.up, self.down, self.ring = up, down, ring
+        self.up = up
+        # kept on the module's device: a filter built per call would be
+        # copied from the host, which blocks the host until the card is idle
+        self.register_buffer("fir", fir_kernel(up=2 if up else 1), persistent=False)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        if self.up > 1:
-            return upsample2x(x, ring=self.ring)
-        return downsample2x(x, ring=self.ring)
+        return upsample2x(x, self.fir) if self.up else downsample2x(x, self.fir)
 
 
 class UNetBlock(nn.Module):
@@ -62,22 +65,20 @@ class UNetBlock(nn.Module):
     def __init__(
         self, in_channels: int, out_channels: int, num_residual_blocks: int,
         emb_channels: int, gn_num_groups: int = 8, gn_eps: float = 1e-6,
-        attn: bool = False, attn_num_heads: int = 8, up: int = 1, down: int = 1,
-        ring: bool = True, dtype: Optional[torch.dtype] = None,
+        attn: bool = False, attn_num_heads: int = 8, up: bool = False, down: bool = False,
+        dtype: Optional[torch.dtype] = None,
     ):
         super().__init__()
-        assert up in (1, 2) and down in (1, 2)
         self.downsample = None
-        if down > 1:
+        if down:
             self.downsample = nn.Sequential(
-                RingConv(in_channels, out_channels, ring=ring, dtype=dtype),
-                Resample(down=down, ring=ring),
+                RingConv(in_channels, out_channels, dtype=dtype), Resample(up=False)
             )
             in_channels = out_channels
         self.residual_blocks = nn.ModuleList(
             ResidualBlock(
                 in_channels if i == 0 else out_channels, out_channels, emb_channels,
-                gn_num_groups, gn_eps, ring=ring, dtype=dtype,
+                gn_num_groups, gn_eps, dtype=dtype,
             )
             for i in range(num_residual_blocks)
         )
@@ -86,10 +87,9 @@ class UNetBlock(nn.Module):
             if attn else None
         )
         self.upsample = None
-        if up > 1:
+        if up:
             self.upsample = nn.Sequential(
-                Resample(up=up, ring=ring),
-                RingConv(out_channels, out_channels, ring=ring, dtype=dtype),
+                Resample(up=True), RingConv(out_channels, out_channels, dtype=dtype)
             )
 
     def forward(self, h: torch.Tensor, temb: torch.Tensor) -> torch.Tensor:
@@ -120,7 +120,6 @@ class EfficientUNet(nn.Module):
         gn_eps: float = 1e-6,
         attn_num_heads: int = 8,
         coords_encoding: Optional[str] = "fourier_features",
-        ring: bool = True,
         dtype: Optional[torch.dtype] = None,
     ):
         super().__init__()
@@ -129,7 +128,6 @@ class EfficientUNet(nn.Module):
         self.in_channels = in_channels
         self.resolution = tuple(resolution)
         self.coords_encoding = coords_encoding
-        self.dtype = dtype
         temb = base_channels * 4 if temb_channels is None else temb_channels
         self.time_embedding = TimeEmbedding(base_channels, temb, dtype=dtype)
         # (1, 2, H, W) coordinate buffer in the reference layout; the polar
@@ -143,19 +141,19 @@ class EfficientUNet(nn.Module):
         N = tuple(num_residual_blocks)
         cfg = dict(
             emb_channels=temb, gn_num_groups=gn_num_groups, gn_eps=gn_eps,
-            attn_num_heads=attn_num_heads, ring=ring, dtype=dtype,
+            attn_num_heads=attn_num_heads, dtype=dtype,
         )
-        self.in_conv = RingConv(in_channels + self.coords_channels(), C[0], ring=ring, dtype=dtype)
+        self.in_conv = RingConv(in_channels + self.coords_channels(), C[0], dtype=dtype)
         self.d_block1 = UNetBlock(C[0], C[1], N[0], **cfg)
-        self.d_block2 = UNetBlock(C[1], C[2], N[1], down=2, **cfg)
-        self.d_block3 = UNetBlock(C[2], C[3], N[2], down=2, **cfg)
-        self.d_block4 = UNetBlock(C[3], C[4], N[3], down=2, attn=True, **cfg)
-        self.u_block4 = UNetBlock(C[4], C[3], N[3], up=2, attn=True, **cfg)
-        self.u_block3 = UNetBlock(C[3] * 2, C[2], N[2], up=2, **cfg)
-        self.u_block2 = UNetBlock(C[2] * 2, C[1], N[1], up=2, **cfg)
+        self.d_block2 = UNetBlock(C[1], C[2], N[1], down=True, **cfg)
+        self.d_block3 = UNetBlock(C[2], C[3], N[2], down=True, **cfg)
+        self.d_block4 = UNetBlock(C[3], C[4], N[3], down=True, attn=True, **cfg)
+        self.u_block4 = UNetBlock(C[4], C[3], N[3], up=True, attn=True, **cfg)
+        self.u_block3 = UNetBlock(C[3] * 2, C[2], N[2], up=True, **cfg)
+        self.u_block2 = UNetBlock(C[2] * 2, C[1], N[1], up=True, **cfg)
         self.u_block1 = UNetBlock(C[1] * 2, C[0], N[0], **cfg)
         out_ch = in_channels if out_channels is None else out_channels
-        self.out_conv = RingConv(C[0], out_ch, ring=ring, dtype=dtype)
+        self.out_conv = RingConv(C[0], out_ch, dtype=dtype)
         nn.init.zeros_(self.out_conv.weight)
 
     def coords_channels(self) -> int:

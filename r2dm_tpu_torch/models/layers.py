@@ -59,14 +59,13 @@ class RingConv(nn.Module):
 
     def __init__(
         self, in_channels: int, out_channels: int, kernel_size: int = 3,
-        ring: bool = True, dtype: Optional[torch.dtype] = None,
+        dtype: Optional[torch.dtype] = None,
     ):
         super().__init__()
         assert kernel_size in (1, 3)
         self.weight = nn.Parameter(torch.empty(out_channels, in_channels, kernel_size, kernel_size))
         self.bias = nn.Parameter(torch.zeros(out_channels))
         nn.init.kaiming_uniform_(self.weight, a=math.sqrt(5))
-        self.ring = ring
         self.compute_dtype = dtype
 
     def hwio(self) -> torch.Tensor:
@@ -77,20 +76,19 @@ class RingConv(nn.Module):
         cd = _compute_dtype(self.compute_dtype, x, self.weight)
         x = x.to(cd)
         if self.weight.shape[-1] == 3:
-            x = ring_pad(x, 1, ring=self.ring)
+            x = ring_pad(x, 1)
         y = F.conv2d(x.permute(0, 3, 1, 2), self.weight.to(cd), self.bias.to(cd))
         return y.permute(0, 2, 3, 1).contiguous()
 
 
 class GroupNorm(nn.Module):
-    """Affine GroupNorm (torch nn.GroupNorm semantics) with optional SiLU,
-    through the ``fused_group_norm_silu`` kernel."""
+    """Affine GroupNorm (torch nn.GroupNorm semantics) through the
+    ``fused_group_norm_silu`` kernel; ``coeffs`` gives its folded (a, b)."""
 
-    def __init__(self, num_groups: int, num_channels: int, eps: float = 1e-6, silu: bool = False):
+    def __init__(self, num_groups: int, num_channels: int, eps: float = 1e-6):
         super().__init__()
         self.num_groups = num_groups
         self.eps = eps
-        self.silu = silu
         self.weight = nn.Parameter(torch.ones(num_channels))
         self.bias = nn.Parameter(torch.zeros(num_channels))
 
@@ -100,36 +98,28 @@ class GroupNorm(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return fused_group_norm_silu(
-            x, self.weight, self.bias, self.num_groups, self.eps, apply_silu=self.silu
+            x, self.weight, self.bias, self.num_groups, self.eps, apply_silu=False
         )
 
 
 class AdaGN(nn.Module):
     """Adaptive GroupNorm (reference ops.AdaGN, models/ops.py:176-200):
     non-affine GN, then h*(1 + scale) + shift with (scale, shift) =
-    Linear(SiLU(emb)) split in that order."""
+    Linear(SiLU(emb)) split in that order, as folded fp32 (a, b)."""
 
     def __init__(
         self, num_groups: int, num_channels: int, emb_channels: int,
-        eps: float = 1e-6, silu: bool = False, dtype: Optional[torch.dtype] = None,
+        eps: float = 1e-6, dtype: Optional[torch.dtype] = None,
     ):
         super().__init__()
         self.num_groups = num_groups
         self.eps = eps
-        self.silu = silu
         self.proj = nn.Sequential(nn.SiLU(), Dense(emb_channels, 2 * num_channels, dtype=dtype))
 
-    def _gain_shift(self, emb: torch.Tensor):
-        scale, shift = self.proj(emb).chunk(2, dim=-1)
-        return 1.0 + scale.to(torch.float32), shift.to(torch.float32)
-
     def coeffs(self, x: torch.Tensor, emb: torch.Tensor):
-        gain, shift = self._gain_shift(emb)
-        return gn_coeffs(x, self.num_groups, self.eps, gain, shift)
-
-    def forward(self, x: torch.Tensor, emb: torch.Tensor) -> torch.Tensor:
-        gain, shift = self._gain_shift(emb)
-        return fused_group_norm_silu(x, gain, shift, self.num_groups, self.eps, apply_silu=self.silu)
+        scale, shift = self.proj(emb).chunk(2, dim=-1)
+        gain = 1.0 + scale.to(torch.float32)
+        return gn_coeffs(x, self.num_groups, self.eps, gain, shift.to(torch.float32))
 
 
 class SelfAttention(nn.Module):
@@ -188,19 +178,14 @@ class ResidualBlock(nn.Module):
     skip when channels change, (skip + h) / sqrt(2)."""
 
     def __init__(
-        self, in_channels: int, out_channels: int, emb_channels: Optional[int],
-        gn_num_groups: int = 8, gn_eps: float = 1e-6, ring: bool = True,
-        dtype: Optional[torch.dtype] = None,
+        self, in_channels: int, out_channels: int, emb_channels: int,
+        gn_num_groups: int = 8, gn_eps: float = 1e-6, dtype: Optional[torch.dtype] = None,
     ):
         super().__init__()
-        assert ring, "the fused ring-conv path implements ring convolutions only"
         self.compute_dtype = dtype
-        self.norm1 = GroupNorm(gn_num_groups, in_channels, gn_eps, silu=True)
+        self.norm1 = GroupNorm(gn_num_groups, in_channels, gn_eps)
         self.conv1 = RingConv(in_channels, out_channels, dtype=dtype)
-        if emb_channels is not None:
-            self.norm2 = AdaGN(gn_num_groups, out_channels, emb_channels, gn_eps, silu=True, dtype=dtype)
-        else:
-            self.norm2 = GroupNorm(gn_num_groups, out_channels, gn_eps, silu=True)
+        self.norm2 = AdaGN(gn_num_groups, out_channels, emb_channels, gn_eps, dtype=dtype)
         self.conv2 = RingConv(out_channels, out_channels, dtype=dtype)
         nn.init.zeros_(self.conv2.weight)
         self.skip = (
@@ -213,12 +198,8 @@ class ResidualBlock(nn.Module):
         a, b = coeffs
         return fused_act_ringconv(xc, a, b, conv.hwio(), conv.bias, apply_act=True)
 
-    def forward(self, x: torch.Tensor, emb: Optional[torch.Tensor] = None) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, emb: torch.Tensor) -> torch.Tensor:
         h = self._conv(self.conv1, x, self.norm1.coeffs(x))
-        if isinstance(self.norm2, AdaGN):
-            coeffs2 = self.norm2.coeffs(h, emb)
-        else:
-            coeffs2 = self.norm2.coeffs(h)
-        h = self._conv(self.conv2, h, coeffs2)
+        h = self._conv(self.conv2, h, self.norm2.coeffs(h, emb))
         skip = self.skip(x) if self.skip is not None else x
         return (skip + h) * _scale_in(h, RESIDUAL_SCALE)

@@ -2,18 +2,9 @@
 hand-written CUDA kernels (``gn_silu``, ``act_ringconv``)."""
 
 from .act_ringconv import fused_act_ringconv
-from .encoding import (
-    fourier_feature_frequencies,
-    fourier_features,
-    generate_polar_coords,
-    get_hdl64e_linear_ray_angles,
-    spherical_harmonics,
-    timestep_embedding,
-)
 from .gn_silu import fused_group_norm_silu, gn_coeffs
-from .pad import ring_pad
-from .resample import downsample2x, fir_resample, upsample2x
 
+# every wrapper that launches a CUDA kernel; each counts its launches
 KERNEL_WRAPPERS = (gn_coeffs, fused_group_norm_silu, fused_act_ringconv)
 
 
@@ -21,21 +12,3 @@ def reset_launch_counts() -> None:
     for fn in KERNEL_WRAPPERS:
         fn.launches = 0
 
-
-__all__ = [
-    "KERNEL_WRAPPERS",
-    "downsample2x",
-    "fir_resample",
-    "fourier_feature_frequencies",
-    "fourier_features",
-    "fused_act_ringconv",
-    "fused_group_norm_silu",
-    "generate_polar_coords",
-    "get_hdl64e_linear_ray_angles",
-    "gn_coeffs",
-    "reset_launch_counts",
-    "ring_pad",
-    "spherical_harmonics",
-    "timestep_embedding",
-    "upsample2x",
-]

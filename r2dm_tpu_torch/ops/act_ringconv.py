@@ -72,6 +72,9 @@ def _check(x, a, b, kernel, bias, apply_act):
     for t in tensors:
         if t.device != x.device:
             raise ValueError(f"act_ringconv: operands on {t.device} and {x.device}")
+    for t in [x] + tensors[2:]:  # 16-byte vector loads of x, a and b
+        if t.data_ptr() % 16:
+            raise ValueError("act_ringconv: x, a and b must start on a 16-byte boundary")
 
 
 def fused_act_ringconv(x, a, b, kernel, bias, apply_act: bool = True):

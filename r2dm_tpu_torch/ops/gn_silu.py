@@ -93,6 +93,8 @@ def _check(x, num_groups, gain, shift):
         raise TypeError(f"gn_silu: the CUDA kernel takes bfloat16 activations, got {x.dtype}")
     if x.dim() != 4 or not x.is_contiguous():
         raise ValueError(f"gn_silu: expected a contiguous NHWC tensor, got shape {tuple(x.shape)}")
+    if x.data_ptr() % 16:  # 16-byte vector loads
+        raise ValueError("gn_silu: x must start on a 16-byte boundary")
     B, H, W, C = x.shape
     if C % 8 or C > _MAX_C or C % num_groups:
         raise ValueError(f"gn_silu: C={C} must be a multiple of 8 and of G={num_groups}, at most {_MAX_C}")

@@ -15,9 +15,8 @@ def ring_pad(
     x: torch.Tensor,
     padding: int | tuple[int, int, int, int],
     ring: bool = True,
-    mode: str = "constant",
 ) -> torch.Tensor:
-    """Pad (B, H, W, C): W circularly (if ``ring``) and H with ``mode``.
+    """Pad (B, H, W, C): W circularly (zeros without ``ring``), H with zeros.
 
     ``padding`` is an int or (left, right, top, bottom), torch's F.pad order.
     """
@@ -31,7 +30,7 @@ def ring_pad(
             idx = torch.arange(-left, W + right, device=x.device) % W
             x = x.index_select(2, idx)
         else:
-            x = F.pad(x, (0, 0, left, right), mode=mode)
+            x = F.pad(x, (0, 0, left, right))
     if top or bottom:
-        x = F.pad(x, (0, 0, 0, 0, top, bottom), mode=mode)
+        x = F.pad(x, (0, 0, 0, 0, top, bottom))
     return x

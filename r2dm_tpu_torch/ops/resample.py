@@ -55,6 +55,27 @@ def _dilate_pad(x: torch.Tensor, dim: int, up: int, lo: int, hi: int) -> torch.T
     return x
 
 
+def fir_kernel(
+    up: int | tuple[int, int] = 1,
+    window: tuple[float, ...] = (1.0, 3.0, 3.0, 1.0),
+    normalize: bool = True,
+    direction: str = "hw",
+) -> torch.Tensor:
+    """The (k_h, k_w) fp32 filter ``fir_resample`` applies: the outer product
+    of the window over the resampled axes, scaled by sqrt(up_h * up_w) per
+    application (models/ops.py:94)."""
+    assert direction in ("h", "w", "hw")
+    up = (up, up) if isinstance(up, int) else tuple(up)
+    up_h = up[0] if "h" in direction else 1
+    up_w = up[1] if "w" in direction else 1
+    kernel = torch.tensor(window, dtype=torch.float32)
+    if normalize:
+        kernel = kernel / kernel.sum()
+    kernel = kernel * (up_h * up_w) ** 0.5
+    ones = torch.ones(1, dtype=torch.float32)
+    return torch.outer(kernel if "h" in direction else ones, kernel if "w" in direction else ones)
+
+
 def fir_resample(
     x: torch.Tensor,
     up: int | tuple[int, int] = 1,
@@ -63,21 +84,19 @@ def fir_resample(
     ring: bool = True,
     normalize: bool = True,
     direction: str = "hw",
+    kernel: torch.Tensor | None = None,
 ) -> torch.Tensor:
-    """Anti-aliased resample of (B, H, W, C) by ``up``/``down`` per axis."""
+    """Anti-aliased resample of (B, H, W, C) by ``up``/``down`` per axis.
+    ``kernel`` is ``fir_kernel(up, window, normalize, direction)``, passed in
+    where it already lies on x's device."""
     assert direction in ("h", "w", "hw")
     up = (up, up) if isinstance(up, int) else tuple(up)
     down = (down, down) if isinstance(down, int) else tuple(down)
     n_taps = len(window)
     k_h, up_h, down_h = (n_taps, up[0], down[0]) if "h" in direction else (1, 1, 1)
     k_w, up_w, down_w = (n_taps, up[1], down[1]) if "w" in direction else (1, 1, 1)
-
-    kernel = torch.tensor(window, dtype=torch.float32)
-    if normalize:
-        kernel = kernel / kernel.sum()
-    kernel = kernel * (up_h * up_w) ** 0.5  # per application, models/ops.py:94
-    ones = torch.ones(1, dtype=torch.float32)
-    k2 = torch.outer(kernel if k_h > 1 else ones, kernel if k_w > 1 else ones)
+    if kernel is None:
+        kernel = fir_kernel(up, window, normalize, direction)
 
     ph0, ph1 = _axis_params(k_h, up_h, down_h)
     pw0, pw1 = _axis_params(k_w, up_w, down_w)
@@ -88,16 +107,18 @@ def fir_resample(
     xc = x.permute(0, 3, 1, 2)
     xc = _dilate_pad(xc, 2, up_h, ph0 - margin * up_h, ph1 + up_h - 1 - margin * up_h)
     xc = _dilate_pad(xc, 3, up_w, pw0 - margin * up_w, pw1 + up_w - 1 - margin * up_w)
-    weight = k2.to(device=x.device, dtype=x.dtype).expand(C, 1, k_h, k_w)
+    weight = kernel.to(device=x.device, dtype=x.dtype).expand(C, 1, k_h, k_w)
     y = F.conv2d(xc, weight, stride=(down_h, down_w), groups=C)
     return y.permute(0, 2, 3, 1).contiguous()
 
 
-def upsample2x(x: torch.Tensor, ring: bool = True) -> torch.Tensor:
-    """2x FIR upsample, both axes (reference Resample(up=2))."""
-    return fir_resample(x, up=2, ring=ring)
+def upsample2x(x: torch.Tensor, kernel: torch.Tensor | None = None) -> torch.Tensor:
+    """2x FIR upsample, both axes (reference Resample(up=2)); ``kernel`` is
+    ``fir_kernel(up=2)``."""
+    return fir_resample(x, up=2, kernel=kernel)
 
 
-def downsample2x(x: torch.Tensor, ring: bool = True) -> torch.Tensor:
-    """2x anti-aliased downsample, both axes (reference Resample(down=2))."""
-    return fir_resample(x, down=2, ring=ring)
+def downsample2x(x: torch.Tensor, kernel: torch.Tensor | None = None) -> torch.Tensor:
+    """2x anti-aliased downsample, both axes (reference Resample(down=2));
+    ``kernel`` is ``fir_kernel()``."""
+    return fir_resample(x, down=2, kernel=kernel)

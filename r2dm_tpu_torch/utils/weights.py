@@ -47,11 +47,6 @@ def reference_unet_state_dict(weights: Mapping[str, Any]) -> dict[str, torch.Ten
     return sd
 
 
-def load_reference_checkpoint(path: str) -> dict:
-    """Read a reference-layout ``.pth`` ({cfg, weights, ema_weights, ...})."""
-    return torch.load(path, map_location="cpu", weights_only=False)
-
-
 def state_dict_from_jax(variables: Mapping[str, Any]) -> dict[str, torch.Tensor]:
     """A flax EfficientUNet ``{'params', 'buffers'}`` tree of numpy arrays ->
     the port's ``state_dict`` (r2dm_tpu/utils/torch_import.py:281-365)."""

@@ -80,4 +80,9 @@ def test_cuda_tensors_never_reach_the_plain_version(dev):
     with pytest.raises(ValueError):  # not contiguous
         xb = torch.zeros((1, 4, 32, 16), device=dev, dtype=torch.bfloat16)[:, :, ::2]
         gn_silu.fused_group_norm_silu(xb, ab[0], ab[0], 4, 1e-6)
+    shifted = torch.zeros(1 + 4 * 16 * 16, device=dev, dtype=torch.bfloat16)[1:].view(1, 4, 16, 16)
+    with pytest.raises(ValueError):  # not on a 16-byte boundary
+        act_ringconv.fused_act_ringconv(shifted, ab, ab, k.to(torch.bfloat16), torch.zeros(16, device=dev))
+    with pytest.raises(ValueError):
+        gn_silu.gn_coeffs(shifted, 4, 1e-6, ab[0], ab[0])
     assert act_ringconv.fused_act_ringconv.launches == n

@@ -25,7 +25,6 @@ TINY = dict(
     num_residual_blocks=(1, 1, 1, 1),
     gn_num_groups=4,
     attn_num_heads=4,
-    ring=True,
 )
 
 

@@ -22,7 +22,7 @@ from r2dm_tpu_torch.lidar import LiDARUtility
 from r2dm_tpu_torch.models.layers import AdaGN, RingConv
 from r2dm_tpu_torch.ops import encoding as enc
 from r2dm_tpu_torch.ops.pad import ring_pad
-from r2dm_tpu_torch.ops.resample import fir_resample
+from r2dm_tpu_torch.ops.resample import fir_kernel, fir_resample
 
 GOLDEN = Path(__file__).parent / "golden"
 ATOL = 1e-5
@@ -83,6 +83,8 @@ def test_fir_resample_matches_golden_and_jax(name, kwargs):
     x = nhwc(g["x"])
     got = fir_resample(t(x), **kwargs).numpy()
     np.testing.assert_allclose(got, nhwc(g[name]), atol=ATOL)
+    kernel = fir_kernel(kwargs.get("up", 1), direction=kwargs.get("direction", "hw"))
+    np.testing.assert_array_equal(fir_resample(t(x), kernel=kernel, **kwargs).numpy(), got)
     np.testing.assert_allclose(got, np.asarray(jax_fir_resample(jnp.asarray(x), **kwargs)), atol=ATOL)
 
 
@@ -129,7 +131,8 @@ def test_ring_conv_and_adagn_match_golden():
     ada = AdaGN(num_groups=3, num_channels=6, emb_channels=12, eps=1e-5)
     ada.load_state_dict({"proj.1.weight": t(g["adagn_w"]), "proj.1.bias": t(g["adagn_b"])})
     with torch.no_grad():
-        got = ada(x, t(g["emb"])).numpy()
+        a, b = ada.coeffs(x, t(g["emb"]))
+    got = (x * a[:, None, None, :] + b[:, None, None, :]).numpy()
     np.testing.assert_allclose(got, nhwc(g["adagn_out"]), atol=ATOL)
 
 

@@ -84,6 +84,10 @@ def test_ddpm_steps_with_injected_noise_match_jax(both):
         2, 2, mode="ddpm", x_T=torch.from_numpy(x), noise=torch.from_numpy(noise), data_format="NHWC"
     )
     np.testing.assert_allclose(got.numpy(), np.asarray(ref), atol=1e-4)
+    steps = np.array([0.3, 0.8], np.float32)
+    q_ref = jddpm.diffusion.q_step_from_x_0(jnp.asarray(x), jnp.asarray(steps), jnp.asarray(noise[0]))
+    q = ddpm.diffusion.q_step_from_x_0(torch.from_numpy(x), torch.from_numpy(steps), torch.from_numpy(noise[0]))
+    np.testing.assert_allclose(q.numpy(), np.asarray(q_ref), atol=1e-5)
 
 
 def test_samples_to_points_match_jax_and_golden(both):
