@@ -6,6 +6,8 @@
 Phases (any failure makes the exit code non-zero and suppresses the result):
   1. print the card's name and power limit; build both CUDA kernels from
      r2dm_tpu_torch/csrc with nvcc (one process per source, in parallel);
+     print each library's HGMMA count (cuobjdump -sass) and each kernel's
+     registers, spill bytes and shared memory (ptxas);
   2. kernel 1 (gn_silu.cu) against its plain version at the config-H shapes;
   3. kernel 2 (act_ringconv.cu) against its plain version at every
      (C_in, F, H, W) of the config-H ResidualBlocks;
@@ -31,6 +33,7 @@ from __future__ import annotations
 import json
 import math
 import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -65,7 +68,7 @@ CONV_SHAPES = {
 SOURCES = {
     "gn_coeffs": ("r2dm_tpu_torch/csrc/gn_silu.cu", "r2dm_tpu/ops/pallas_gn.py:50"),
     "fused_group_norm_silu": ("r2dm_tpu_torch/csrc/gn_silu.cu", "r2dm_tpu/ops/pallas_gn.py:107"),
-    "fused_act_ringconv": ("r2dm_tpu_torch/csrc/act_ringconv.cu", "r2dm_tpu/ops/pallas_resconv.py:173"),
+    "fused_act_ringconv": ("r2dm_tpu_torch/csrc/act_ringconv.cu", "r2dm_tpu/ops/pallas_resconv.py:174"),
 }
 
 
@@ -138,6 +141,29 @@ class Phases:
         return out
 
 
+def ptxas_kernels(log_text: str) -> dict:
+    """Registers, spill bytes and static shared memory of each kernel, from
+    nvcc's -Xptxas -v output."""
+    kernels, name = {}, None
+    for line in log_text.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            mangled = m.group(1)
+            short = re.match(r"_Z(?:N12_GLOBAL__N_1)?(\d+)", mangled)
+            name = mangled[short.end():short.end() + int(short.group(1))] if short else mangled
+            kernels[name] = {"registers": None, "spill_bytes": 0, "smem_bytes": 0}
+        elif name is not None:
+            m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+            if m:
+                kernels[name]["spill_bytes"] = int(m.group(1)) + int(m.group(2))
+            m = re.search(r"Used (\d+) registers", line)
+            if m:
+                kernels[name]["registers"] = int(m.group(1))
+                smem = re.search(r"(\d+) bytes smem", line)
+                kernels[name]["smem_bytes"] = int(smem.group(1)) if smem else 0
+    return kernels
+
+
 def phase_build():
     from r2dm_tpu_torch.ops import build
 
@@ -145,9 +171,21 @@ def phase_build():
     build.build_all()
     seconds = time.time() - t0
     print(f"kernels built in {seconds:.1f} s (nvcc, sm_90a, one process per source)")
-    for name, out in build.build_logs.items():
-        for line in out.splitlines():
-            if "registers" in line or "spill" in line or "error" in line.lower():
+    cuobjdump = os.path.join(os.path.dirname(build._nvcc()), "cuobjdump")
+    for name in build.SOURCES:
+        lib = str(build._target(name))
+        sass = subprocess.run([cuobjdump, "-sass", lib], capture_output=True, text=True, timeout=120)
+        if sass.returncode != 0:
+            raise RuntimeError(f"cuobjdump -sass {lib}: {sass.stderr.strip()}")
+        info = {"hgmma": sum("HGMMA" in line for line in sass.stdout.splitlines()),
+                "kernels": ptxas_kernels(build.build_logs.get(name, ""))}
+        if name == "act_ringconv":  # dynamic shared memory, which ptxas does not see
+            info["dynamic_smem_bytes"] = build.load(name).act_ringconv_smem_bytes()
+        print(f"build {name}: {json.dumps(info)}")
+        if name == "act_ringconv" and info["hgmma"] == 0:
+            raise RuntimeError("the ring-conv library has no HGMMA instruction: wgmma was not compiled")
+        for line in build.build_logs.get(name, "").splitlines():
+            if "warning" in line.lower() or "wgmma" in line.lower():
                 log(f"[{name}] {line.strip()}")
     return seconds
 

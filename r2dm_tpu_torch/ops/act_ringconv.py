@@ -48,6 +48,16 @@ def act_ringconv_plain(x, a, b, kernel, bias, apply_act: bool = True):
     return y.permute(0, 2, 3, 1).contiguous()
 
 
+def pack_weight(kernel, dtype=torch.bfloat16):
+    """HWIO (3, 3, C, F) -> (F, 9*C), column (kh*3 + kw)*C + c: each output
+    channel's taps with the input channels innermost, so one 16-byte copy
+    reads 8 input channels of one output channel (the kernel's K-major
+    operand). One cast-and-copy pass into a new tensor."""
+    packed = torch.empty(kernel.shape[3], *kernel.shape[:3], dtype=dtype, device=kernel.device)
+    packed.copy_(kernel.permute(3, 0, 1, 2))
+    return packed.view(kernel.shape[3], -1)
+
+
 def _check(x, a, b, kernel, bias, apply_act):
     if not x.is_cuda:
         raise ValueError(f"act_ringconv: expected a CPU or CUDA tensor, got {x.device}")
@@ -85,7 +95,7 @@ def fused_act_ringconv(x, a, b, kernel, bias, apply_act: bool = True):
     lib = _lib()
     B, H, W, C = x.shape
     Fo = kernel.shape[3]
-    w = kernel.to(torch.bfloat16).reshape(9 * C, Fo).contiguous()
+    w = pack_weight(kernel)
     bias32 = bias.to(torch.float32).contiguous()
     y = torch.empty((B, H, W, Fo), dtype=torch.bfloat16, device=x.device)
     pa = a.data_ptr() if apply_act else None

@@ -50,13 +50,21 @@ def test_gn_kernels_match_plain(dev, shape, groups, per_batch):
         torch.testing.assert_close(y.float(), ref.float(), rtol=2e-2, atol=2e-2)
 
 
-@pytest.mark.parametrize("shape,F", [((2, 8, 64, 64), 64), ((2, 4, 96, 128), 72), ((1, 3, 40, 16), 24)])
+# (B, H, W, C_in), F, shift of b. The kernel's tile is 128 pixels x 64
+# channels x 32 input channels a slice: one block (the descriptor check),
+# W < 128 and W % 128 != 0, C_in % 32 != 0, F % 64 != 0, H = 1 and 2 with
+# silu(b) far from 0 (a non-zero H-pad row would show), B = 1 and 3.
+@pytest.mark.parametrize("shape,F,b_shift", [
+    ((2, 8, 64, 64), 64, 0.0), ((2, 4, 96, 128), 72, 0.0), ((1, 3, 40, 16), 24, 0.0),
+    ((1, 1, 128, 32), 64, 0.0), ((3, 2, 200, 72), 24, 4.0), ((1, 1, 40, 24), 72, 4.0),
+    ((1, 2, 256, 64), 128, 4.0),
+])
 @pytest.mark.parametrize("apply_act", [True, False])
-def test_act_ringconv_kernel_matches_plain(dev, shape, F, apply_act):
+def test_act_ringconv_kernel_matches_plain(dev, shape, F, b_shift, apply_act):
     B, C = shape[0], shape[-1]
     x = _randn(shape, dev, 0, torch.bfloat16)
     a = 1.0 + 0.5 * _randn((B, C), dev, 1)
-    b = 0.2 * _randn((B, C), dev, 2)
+    b = b_shift + 0.2 * _randn((B, C), dev, 2)
     k = _randn((3, 3, C, F), dev, 3) * (9 * C) ** -0.5
     bias = 0.1 * _randn((F,), dev, 4)
     n = act_ringconv.fused_act_ringconv.launches

@@ -101,3 +101,37 @@ def test_act_ringconv_pads_h_after_the_activation():
     k[0] = k[2] = 1.0  # taps that only ever read the H pad rows
     got = act_ringconv.fused_act_ringconv(t(x), t(a), t(b), t(k), torch.zeros(8))
     np.testing.assert_array_equal(got.numpy(), 0.0)
+
+
+@pytest.mark.parametrize("apply_act", [True, False])
+@pytest.mark.parametrize("B,H,W,C,F", [(2, 3, 20, 16, 24), (1, 1, 8, 8, 8)])
+def test_packed_weight_implicit_gemm_matches_plain(B, H, W, C, F, apply_act):
+    """The conv rebuilt as the CUDA kernel computes it, in fp32: for each
+    output row h and kernel row kh whose input row lies inside [0, H) (rows
+    in the H padding are skipped), each tap kw multiplies the ring-wrapped
+    halo (W index taken mod W) by its (F, C) block of the packed weight."""
+    rng = np.random.default_rng(4)
+    x = t(rng.standard_normal((B, H, W, C), np.float32))
+    a = t(rng.standard_normal((B, C), np.float32) * 0.5 + 1.0)
+    b = t(rng.standard_normal((B, C), np.float32) * 0.5 + 2.0)  # silu(b) far from 0
+    k = t(rng.standard_normal((3, 3, C, F), np.float32) * 0.1)
+    bias = t(rng.standard_normal((F,), np.float32) * 0.1)
+    wp = act_ringconv.pack_weight(k, torch.float32)
+    assert wp.shape == (F, 9 * C) and wp.is_contiguous()
+    if apply_act:
+        s = x * a[:, None, None, :] + b[:, None, None, :]
+        s = s * torch.sigmoid(s)
+    else:
+        s = x
+    y = bias.expand(B, H, W, F).clone()
+    for h in range(H):
+        for kh in range(3):
+            row = h + kh - 1
+            if not 0 <= row < H:
+                continue
+            for kw in range(3):
+                halo = s[:, row, (torch.arange(W) + kw - 1) % W, :]
+                tap = (kh * 3 + kw) * C
+                y[:, h] += halo @ wp[:, tap:tap + C].T
+    ref = act_ringconv.act_ringconv_plain(x, a, b, k, bias, apply_act=apply_act)
+    torch.testing.assert_close(y, ref, rtol=1e-5, atol=1e-5)
