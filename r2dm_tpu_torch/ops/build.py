@@ -69,7 +69,17 @@ def _finish(name: str, job) -> None:
     build_logs[name] = out
     if proc.returncode != 0:
         raise RuntimeError(f"nvcc failed for csrc/{name}.cu:\n{out}")
+    target.with_suffix(".log").write_text(out)
     os.replace(tmp, target)
+
+
+def build_log(name: str) -> str:
+    """nvcc's output for ``name`` (ptxas: registers, spills, shared memory),
+    also for a library an earlier process built: the log is kept beside it."""
+    if name in build_logs:
+        return build_logs[name]
+    log = _target(name).with_suffix(".log")
+    return log.read_text() if log.exists() else ""
 
 
 def build_all(names=SOURCES) -> None:

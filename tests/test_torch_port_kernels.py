@@ -3,6 +3,7 @@ kernels run in interpret mode, on the CPU. The CUDA kernels themselves are
 held against these plain versions on the card (tests/test_torch_port_cuda.py
 and chip_smoke.py)."""
 
+import chip_smoke
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -135,3 +136,16 @@ def test_packed_weight_implicit_gemm_matches_plain(B, H, W, C, F, apply_act):
                 y[:, h] += halo @ wp[:, tap:tap + C].T
     ref = act_ringconv.act_ringconv_plain(x, a, b, k, bias, apply_act=apply_act)
     torch.testing.assert_close(y, ref, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("edit", sorted(chip_smoke.CONV_EDITS))
+def test_ringconv_variant_edits_apply(edit):
+    """Each named edit of ``chip_smoke.py --variants`` (the kernel variants
+    that PERF.md reports) still applies to the kernel source, alone and on
+    top of the L1-bypassing copies."""
+    from r2dm_tpu_torch.ops import build
+
+    base = (build.CSRC / "act_ringconv.cu").read_text()
+    for name in (edit, f"cg+{edit}" if edit != "cg" else "cg+act0"):
+        text = chip_smoke.variant_source(base, name)
+        assert text != base and "act_ringconv_launch" in text
