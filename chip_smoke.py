@@ -218,7 +218,7 @@ def ptxas_kernels(log_text: str) -> dict:
 
 
 def phase_build():
-    from r2dm_tpu_torch.ops import build
+    from r2dm_tpu_torch.ops import act_ringconv, build
 
     t0 = time.time()
     build.build_all()
@@ -233,7 +233,7 @@ def phase_build():
         info = {"hgmma": sum("HGMMA" in line for line in sass.stdout.splitlines()),
                 "kernels": ptxas_kernels(build.build_log(name))}
         if name == "act_ringconv":  # dynamic shared memory, which ptxas does not see
-            info["dynamic_smem_bytes"] = build.load(name).act_ringconv_smem_bytes()
+            info["dynamic_smem_bytes"] = act_ringconv._lib().act_ringconv_smem_bytes()
         print(f"build {name}: {json.dumps(info)}")
         if name == "act_ringconv" and info["hgmma"] == 0:
             raise RuntimeError("the ring-conv library has no HGMMA instruction: wgmma was not compiled")
@@ -598,7 +598,8 @@ def phase_variants(torch, names, v21_path):
         a, b = randn(torch, (B, C), 18, offset=1.0), randn(torch, (B, C), 19)
         k = randn(torch, (3, 3, C, Fo), 20, scale=(9 * C) ** -0.5)
         bias = randn(torch, (Fo,), 21, scale=0.1)
-        weights = {"v3": act_ringconv.pack_weight(k), "v21": k.to(torch.bfloat16).reshape(9 * C, Fo).contiguous()}
+        kb = k.to(torch.bfloat16)
+        weights = {"v3": act_ringconv.pack_weight(kb), "v21": kb.reshape(9 * C, Fo)}
         y = torch.empty((B, H, W, Fo), dtype=torch.bfloat16, device="cuda")
         for name, lib in libs.items():
             edits = name.split("+")

@@ -75,9 +75,8 @@ def _finish(name: str, job) -> None:
 
 def build_log(name: str) -> str:
     """nvcc's output for ``name`` (ptxas: registers, spills, shared memory),
-    also for a library an earlier process built: the log is kept beside it."""
-    if name in build_logs:
-        return build_logs[name]
+    kept beside the library, so a library an earlier process built reports
+    it too."""
     log = _target(name).with_suffix(".log")
     return log.read_text() if log.exists() else ""
 

@@ -117,7 +117,7 @@ def test_packed_weight_implicit_gemm_matches_plain(B, H, W, C, F, apply_act):
     b = t(rng.standard_normal((B, C), np.float32) * 0.5 + 2.0)  # silu(b) far from 0
     k = t(rng.standard_normal((3, 3, C, F), np.float32) * 0.1)
     bias = t(rng.standard_normal((F,), np.float32) * 0.1)
-    wp = act_ringconv.pack_weight(k, torch.float32)
+    wp = act_ringconv.pack_weight(k)
     assert wp.shape == (F, 9 * C) and wp.is_contiguous()
     if apply_act:
         s = x * a[:, None, None, :] + b[:, None, None, :]
