@@ -26,16 +26,10 @@ Phases (any failure makes the exit code non-zero and suppresses the result):
 The line before the last is the kernels JSON; the last line is
 {"ok": true, "device": {...}}. Exits non-zero, printing no result, without a
 CUDA device or without the port's package.
-
-    python3 chip_smoke.py --variants v3,act0,cg,S4,no_wgmma+no_copy_A
-
-instead builds variants of the ring-conv kernel (source edits named in
-CONV_EDITS) and times each at every config-H shape, one line a variant.
 """
 
 from __future__ import annotations
 
-import argparse
 import json
 import math
 import os
@@ -76,41 +70,6 @@ SOURCES = {
     "fused_group_norm_silu": ("r2dm_tpu_torch/csrc/gn_silu.cu", "r2dm_tpu/ops/pallas_gn.py:107"),
     "fused_act_ringconv": ("r2dm_tpu_torch/csrc/act_ringconv.cu", "r2dm_tpu/ops/pallas_resconv.py:174"),
 }
-
-
-# Edits of csrc/act_ringconv.cu for --variants. A variant is a "+"-joined
-# list of these names; "v3" is the source as it is, "act0" launches it with
-# apply_act = 0, and "v21" is the v2.1 source given by --v21.
-_OVERLAP = """    issue(s + S - 1);
-    cp_wait<S - 2>();
-    transform(s + 1);
-    fence_proxy_async();
-    wgmma_wait0();
-    fence_acc(acc);
-"""
-_WAIT = _OVERLAP.index("    wgmma_wait0")
-CONV_EDITS = {
-    "cg": [("cp.async.ca.shared", "cp.async.cg.shared")],  # copies bypass L1
-    "nozfill": [("[%1], 16, %2;", "[%1], 16;")],  # no src-size operand
-    "S4": [("constexpr int S = 3;", "constexpr int S = 4;")],
-    "S5": [("constexpr int S = 3;", "constexpr int S = 5;")],
-    "BK64": [("constexpr int BK = 32;", "constexpr int BK = 64;")],
-    "BM256": [("constexpr int BM = 128;", "constexpr int BM = 256;"),
-              ("constexpr int kThreads = 256;", "constexpr int kThreads = 512;"),
-              ("__launch_bounds__(kThreads, 2)", "__launch_bounds__(kThreads, 1)")],
-    # ablations: wrong results, for timing only
-    "no_wgmma": [("        wgmma_m64n64k16(acc,", "        if (W < 0) wgmma_m64n64k16(acc,")],
-    "no_copy_A": [("          cp16(st + (ch * A_ROWS", "          if (W < 0) cp16(st + (ch * A_ROWS")],
-    "no_copy_B": [("          cp16(st + A_BYTES", "          if (W < 0) cp16(st + A_BYTES")],
-    # the weight read as one linear run a slice, as a pre-tiled packing would be
-    "B_linear": [("ok ? w + (size_t)(n0 + n) * 9 * Cin + (kh * 3 + tap) * Cin + c : w;",
-                  "w + ((size_t)(blockIdx.y * 3 + kh) * n_c + s % n_c) * (3 * BK * BN) + j * 8;"),
-                 ("A_BYTES + tap * B_TAP_BYTES + (ch * B_ROWS + n) * 16, src, ok ? 16 : 0);",
-                  "A_BYTES + j * 16, src, 16);")],
-    # the prologue of slice s + 1 after the wait on slice s's wgmma, not beside it
-    "sync_prologue": [(_OVERLAP, _OVERLAP[_WAIT:] + _OVERLAP[:_WAIT])],
-}
-ABLATIONS = ("no_wgmma", "no_copy_A", "no_copy_B", "B_linear")
 
 
 def log(msg: str) -> None:
@@ -182,20 +141,6 @@ class Phases:
         return out
 
 
-def kernel_name(mangled: str) -> str:
-    """The last component of a mangled kernel name (_Z<len><name>... or
-    _ZN<len><namespace><len><name>E...)."""
-    nested = mangled.startswith("_ZN")
-    i, name = (3 if nested else 2), mangled
-    while m := re.match(r"\d+", mangled[i:]):
-        start = i + m.end()
-        i = start + int(m.group(0))
-        name = mangled[start:i]
-        if not nested:
-            break
-    return name
-
-
 def ptxas_kernels(log_text: str) -> dict:
     """Registers, spill bytes and static shared memory of each kernel, from
     nvcc's -Xptxas -v output."""
@@ -203,7 +148,7 @@ def ptxas_kernels(log_text: str) -> dict:
     for line in log_text.splitlines():
         m = re.search(r"Compiling entry function '(\w+)'", line)
         if m:
-            name = kernel_name(m.group(1))
+            name = m.group(1)
             kernels[name] = {"registers": None, "spill_bytes": 0, "smem_bytes": 0}
         elif name is not None:
             m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
@@ -218,7 +163,7 @@ def ptxas_kernels(log_text: str) -> dict:
 
 
 def phase_build():
-    from r2dm_tpu_torch.ops import act_ringconv, build
+    from r2dm_tpu_torch.ops import build
 
     t0 = time.time()
     build.build_all()
@@ -232,8 +177,6 @@ def phase_build():
             raise RuntimeError(f"cuobjdump -sass {lib}: {sass.stderr.strip()}")
         info = {"hgmma": sum("HGMMA" in line for line in sass.stdout.splitlines()),
                 "kernels": ptxas_kernels(build.build_log(name))}
-        if name == "act_ringconv":  # dynamic shared memory, which ptxas does not see
-            info["dynamic_smem_bytes"] = act_ringconv._lib().act_ringconv_smem_bytes()
         print(f"build {name}: {json.dumps(info)}")
         if name == "act_ringconv" and info["hgmma"] == 0:
             raise RuntimeError("the ring-conv library has no HGMMA instruction: wgmma was not compiled")
@@ -542,98 +485,7 @@ def phase_time(torch, launches, errs):
     return rows
 
 
-def variant_source(base: str, name: str) -> str:
-    """The ring-conv source ``base`` with the edits of variant ``name``."""
-    text = base
-    for edit in name.split("+"):
-        if edit in ("v3", "act0"):
-            continue
-        for old, new in CONV_EDITS[edit]:
-            if old not in text:
-                raise ValueError(f"variant {name}: edit {edit} does not apply")
-            text = text.replace(old, new)
-    return text
-
-
-def phase_variants(torch, names, v21_path):
-    """Time variants of the ring-conv kernel (CONV_EDITS) at every config-H
-    shape in one process, CUDA-graph replay of the bare launch (no weight
-    packing), each against the plain version."""
-    import ctypes
-
-    from r2dm_tpu_torch.ops import act_ringconv, build
-
-    base = (build.CSRC / "act_ringconv.cu").read_text()
-    sources = {}
-    for name in names:
-        if name == "v21":
-            if not v21_path:
-                raise ValueError("variant v21 needs --v21")
-            with open(v21_path) as f:
-                sources[name] = f.read()
-        else:
-            sources[name] = variant_source(base, name)
-    out_dir = build.BUILD_DIR / "variants"
-    out_dir.mkdir(parents=True, exist_ok=True)
-    jobs = {}
-    for name, text in sources.items():
-        stem = out_dir / name.replace("+", "_")
-        stem.with_suffix(".cu").write_text(text)
-        jobs[name] = subprocess.Popen(
-            [build._nvcc(), *build.NVCC_FLAGS, "-o", f"{stem}.so", f"{stem}.cu"],
-            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-    libs = {}
-    for name, proc in jobs.items():
-        out, _ = proc.communicate()
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed for variant {name}:\n{out}")
-        print(f"variant {name}: {json.dumps(ptxas_kernels(out))}")
-        lib = ctypes.CDLL(str(out_dir / name.replace("+", "_")) + ".so")
-        lib.act_ringconv_launch.argtypes = act_ringconv._ARGS
-        libs[name] = lib
-    torch.backends.cudnn.allow_tf32 = False
-    rows = {name: [] for name in names}
-    for (C, Fo, H, W), count in CONV_SHAPES.items():
-        x = randn(torch, (B, H, W, C), 17, torch.bfloat16)
-        a, b = randn(torch, (B, C), 18, offset=1.0), randn(torch, (B, C), 19)
-        k = randn(torch, (3, 3, C, Fo), 20, scale=(9 * C) ** -0.5)
-        bias = randn(torch, (Fo,), 21, scale=0.1)
-        kb = k.to(torch.bfloat16)
-        weights = {"v3": act_ringconv.pack_weight(kb), "v21": kb.reshape(9 * C, Fo)}
-        y = torch.empty((B, H, W, Fo), dtype=torch.bfloat16, device="cuda")
-        for name, lib in libs.items():
-            edits = name.split("+")
-            act = 0 if "act0" in edits else 1
-            w = weights["v21" if name == "v21" else "v3"]
-
-            def launch(lib=lib, w=w, act=act):
-                rc = lib.act_ringconv_launch(x.data_ptr(), a.data_ptr(), b.data_ptr(), w.data_ptr(),
-                                             bias.data_ptr(), y.data_ptr(), B, H, W, C, Fo, act,
-                                             torch.cuda.current_stream().cuda_stream)
-                if rc != 0:
-                    raise RuntimeError(f"variant {name}: launch failed with CUDA error {rc}")
-
-            launch()
-            torch.cuda.synchronize()
-            ref = act_ringconv.act_ringconv_plain(x, a, b, k, bias, apply_act=bool(act)).float()
-            err = ((y.float() - ref).abs().max() / ref.abs().max()).item()
-            if err > 1e-2 and not any(e in ABLATIONS for e in edits):
-                raise AssertionError(f"variant {name} at {(C, Fo, H, W)}: max|err|/max|ref| {err:.3e}")
-            rows[name].append({"ms": graph_ms(torch, launch), "count": count, "rel_err": err})
-    for name, r in rows.items():
-        print(f"variant {name}: " + json.dumps({
-            "per_forward_ms": sum(s["ms"] * s["count"] for s in r),
-            "max_rel_err": max(s["rel_err"] for s in r), "ms": [s["ms"] for s in r]}))
-
-
 def main() -> int:
-    parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    parser.add_argument("--variants", help="instead of the smoke run, time these comma-separated "
-                        "variants of the ring-conv kernel: '+'-joined names of CONV_EDITS, 'v3' "
-                        "(the source as it is), 'act0' (apply_act = 0), 'v21' (needs --v21)")
-    parser.add_argument("--v21", help="the v2.1 ring-conv source, which reads the weight as "
-                        "(9*C_in, F): git show 0f70a83:r2dm_tpu_torch/csrc/act_ringconv.cu")
-    args = parser.parse_args()
     try:
         import torch
     except ImportError:
@@ -657,11 +509,6 @@ def main() -> int:
     torch.manual_seed(0)
 
     phases = Phases()
-    if args.variants:
-        phases.run("ring-conv variants", phase_variants, torch, args.variants.split(","), args.v21)
-        for line in phases.failed:
-            log(f"FAILED {line}")
-        return 1 if phases.failed else 0
     if phases.run("build", phase_build) is None:
         for line in phases.failed:
             log(f"FAILED {line}")

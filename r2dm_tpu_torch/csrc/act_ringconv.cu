@@ -36,18 +36,24 @@
 //   channel chunk), and tap kw is the same A descriptor moved by kw x 16 B:
 //   the three taps read one staged halo. (A 128-byte swizzle would break
 //   under a one-pixel shift.) Two pad rows per chunk make the copies' shared
-//   stores bank-conflict free.
+//   stores bank-conflict free. Three stages of 20,992 B are 62,976 B of
+//   dynamic shared memory, asked for once by the launcher.
 // - Epilogue: bias in fp32, bf16 pairs from the wgmma accumulator layout,
 //   ragged W and F masked.
 //
 // Bound on an H100 SXM at config H, level 1, 64 -> 64 channels, per image:
 // 2*9*64*64*65536 = 4.83 GFLOP (4.9 us at 989 TFLOP/s bf16) against 8.4 MB
-// in + 8.4 MB out (5.0 us at 3.35 TB/s). What bounds v3: every thread both
-// copies and computes, one barrier per slice, and the short K loop of the
-// narrow layers (6 slices at C_in = 64) leaves the pipeline's fill and the
-// epilogue exposed in every block. Next: TMA for the weights, a producer
-// warp with setmaxnreg, a persistent grid that overlaps one tile's epilogue
-// with the next tile's copies.
+// in + 8.4 MB out (5.0 us at 3.35 TB/s). What bounds v3, from ablations on
+// an H100 80GB HBM3 at 700 W (summed over the 48 launches of a b8 forward,
+// 7.6 ms in all against a 1.47 ms bound; PERF.md): the wgmma skeleton alone
+// takes 3.7 ms, with a full wgmma.wait_group 0 and a barrier every slice;
+// the prologue adds 3.0 ms, SFU-bound, because each x element is activated
+// again for every 64 output channels and every kernel row that reads it;
+// the copies add 0.9 ms. Deep layers (48 slices a block) run no faster than
+// level 1 (6 slices), so pipeline fill is not the limit. Next, in order:
+// take the prologue out of the conv (the GN statistics pass writes the
+// activated x once), pack the weight once instead of per call, then TMA,
+// a producer warp with setmaxnreg, and a persistent grid.
 //
 // Requirements (checked by the Python wrapper): C_in % 8 == 0, F % 8 == 0,
 // contiguous NHWC x and a, b on 16-byte boundaries, weight packed as
@@ -300,8 +306,6 @@ extern "C" {
 const char* cuda_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
-
-int act_ringconv_smem_bytes() { return SMEM_BYTES; }
 
 int act_ringconv_launch(const void* x, const void* a, const void* b,
                         const void* w, const void* bias, void* y, int B, int H,

@@ -31,8 +31,6 @@ def _lib():
     if lib.act_ringconv_launch.argtypes is None:
         lib.act_ringconv_launch.argtypes = _ARGS
         lib.act_ringconv_launch.restype = ctypes.c_int
-        lib.act_ringconv_smem_bytes.argtypes = []
-        lib.act_ringconv_smem_bytes.restype = ctypes.c_int
     return lib
 
 
@@ -50,12 +48,12 @@ def act_ringconv_plain(x, a, b, kernel, bias, apply_act: bool = True):
     return y.permute(0, 2, 3, 1).contiguous()
 
 
-def pack_weight(kernel):
-    """HWIO (3, 3, C, F) -> (F, 9*C), column (kh*3 + kw)*C + c: each output
-    channel's taps with the input channels innermost, so one 16-byte copy
-    reads 8 input channels of one output channel (the kernel's K-major
-    operand). One copy into a new tensor of kernel's dtype."""
-    packed = torch.empty(kernel.shape[3], *kernel.shape[:3], dtype=kernel.dtype, device=kernel.device)
+def pack_weight(kernel, dtype=torch.bfloat16):
+    """HWIO (3, 3, C, F) -> (F, 9*C) in ``dtype``, column (kh*3 + kw)*C + c:
+    each output channel's taps with the input channels innermost, so one
+    16-byte copy reads 8 input channels of one output channel (the kernel's
+    K-major operand). One pass: the cast and the permute are one copy."""
+    packed = torch.empty(kernel.shape[3], *kernel.shape[:3], dtype=dtype, device=kernel.device)
     packed.copy_(kernel.permute(3, 0, 1, 2))
     return packed.view(kernel.shape[3], -1)
 
@@ -97,7 +95,7 @@ def fused_act_ringconv(x, a, b, kernel, bias, apply_act: bool = True):
     lib = _lib()
     B, H, W, C = x.shape
     Fo = kernel.shape[3]
-    w = pack_weight(kernel.to(torch.bfloat16))
+    w = pack_weight(kernel)
     bias32 = bias.to(torch.float32).contiguous()
     y = torch.empty((B, H, W, Fo), dtype=torch.bfloat16, device=x.device)
     pa = a.data_ptr() if apply_act else None

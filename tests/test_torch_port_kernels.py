@@ -3,7 +3,6 @@ kernels run in interpret mode, on the CPU. The CUDA kernels themselves are
 held against these plain versions on the card (tests/test_torch_port_cuda.py
 and chip_smoke.py)."""
 
-import chip_smoke
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -105,7 +104,7 @@ def test_act_ringconv_pads_h_after_the_activation():
 
 
 @pytest.mark.parametrize("apply_act", [True, False])
-@pytest.mark.parametrize("B,H,W,C,F", [(2, 3, 20, 16, 24), (1, 1, 8, 8, 8)])
+@pytest.mark.parametrize("B,H,W,C,F", [(2, 3, 20, 16, 24), (1, 1, 8, 8, 8), (3, 2, 12, 24, 72)])
 def test_packed_weight_implicit_gemm_matches_plain(B, H, W, C, F, apply_act):
     """The conv rebuilt as the CUDA kernel computes it, in fp32: for each
     output row h and kernel row kh whose input row lies inside [0, H) (rows
@@ -117,7 +116,7 @@ def test_packed_weight_implicit_gemm_matches_plain(B, H, W, C, F, apply_act):
     b = t(rng.standard_normal((B, C), np.float32) * 0.5 + 2.0)  # silu(b) far from 0
     k = t(rng.standard_normal((3, 3, C, F), np.float32) * 0.1)
     bias = t(rng.standard_normal((F,), np.float32) * 0.1)
-    wp = act_ringconv.pack_weight(k)
+    wp = act_ringconv.pack_weight(k, torch.float32)
     assert wp.shape == (F, 9 * C) and wp.is_contiguous()
     if apply_act:
         s = x * a[:, None, None, :] + b[:, None, None, :]
@@ -138,14 +137,12 @@ def test_packed_weight_implicit_gemm_matches_plain(B, H, W, C, F, apply_act):
     torch.testing.assert_close(y, ref, rtol=1e-5, atol=1e-5)
 
 
-@pytest.mark.parametrize("edit", sorted(chip_smoke.CONV_EDITS))
-def test_ringconv_variant_edits_apply(edit):
-    """Each named edit of ``chip_smoke.py --variants`` (the kernel variants
-    that PERF.md reports) still applies to the kernel source, alone and on
-    top of the L1-bypassing copies."""
-    from r2dm_tpu_torch.ops import build
-
-    base = (build.CSRC / "act_ringconv.cu").read_text()
-    for name in (edit, f"cg+{edit}" if edit != "cg" else "cg+act0"):
-        text = chip_smoke.variant_source(base, name)
-        assert text != base and "act_ringconv_launch" in text
+@pytest.mark.parametrize("C,F", [(8, 16), (24, 72)])
+def test_pack_weight_casts_in_the_same_pass(C, F):
+    """The default packing (bf16, what the kernel reads) is the fp32 packing
+    rounded to bf16, element for element, from a kernel of any dtype."""
+    k = t(np.random.default_rng(5).standard_normal((3, 3, C, F), np.float32))
+    wp = act_ringconv.pack_weight(k)
+    assert wp.dtype == torch.bfloat16 and wp.shape == (F, 9 * C) and wp.is_contiguous()
+    torch.testing.assert_close(wp, act_ringconv.pack_weight(k, torch.float32).to(torch.bfloat16), rtol=0, atol=0)
+    torch.testing.assert_close(act_ringconv.pack_weight(k.to(torch.bfloat16)), wp, rtol=0, atol=0)
