@@ -7,7 +7,8 @@ Phases (any failure makes the exit code non-zero and suppresses the result):
   1. print the card's name and power limit; build both CUDA kernels from
      r2dm_tpu_torch/csrc with nvcc (one process per source, in parallel);
      print each library's HGMMA count (cuobjdump -sass) and each kernel's
-     registers, spill bytes and shared memory (ptxas);
+     registers, spill bytes and shared memory (ptxas), and the GroupNorm
+     kernel's cluster size with cudaOccupancyMaxActiveClusters;
   2. kernel 1 (gn_silu.cu) against its plain version at the config-H shapes;
   3. kernel 2 (act_ringconv.cu) against its plain version at every
      (C_in, F, H, W) of the config-H ResidualBlocks;
@@ -183,6 +184,14 @@ def phase_build():
         for line in build.build_log(name).splitlines():
             if "warning" in line.lower() or "wgmma" in line.lower():
                 log(f"[{name}] {line.strip()}")
+    # the GroupNorm kernel runs one cluster of K CTAs per sample; b8 needs
+    # 8 clusters at once
+    from r2dm_tpu_torch.ops import gn_silu
+
+    fit = {C: gn_silu.max_active_clusters(C) for C in (64, 128, 256, 512)}
+    print(f"build gn_silu clusters: {json.dumps({'cluster_ctas': gn_silu.CLUSTER, 'max_active_clusters': fit})}")
+    if min(fit.values()) < B:
+        raise RuntimeError(f"fewer than {B} GroupNorm clusters fit the card at once: {fit}")
     return seconds
 
 
@@ -473,14 +482,19 @@ def phase_time(torch, launches, errs):
         # the norm that feeds this conv's prologue sees the same input
         gn_ms = graph_ms(torch, lambda: gn_silu.gn_coeffs(x, G, eps, a[0], b[0]))
         gn_bound = max(x.numel() * 2 / PEAK_BYTES, 3 * x.numel() / PEAK_FP32_FLOPS) * 1e3
+        # the whole function at the same input: x read once, y written once
+        gn_silu_ms = graph_ms(torch, lambda: gn_silu.fused_group_norm_silu(x, a[0], b[0], G, eps))
+        gn_silu_bound = max(2 * x.numel() * 2 / PEAK_BYTES, 10 * x.numel() / PEAK_FP32_FLOPS) * 1e3
         per_shape.append({"cin": C, "f": Fo, "h": H, "w": W, "per_forward": count, "ms": ms,
                           "plain_ms": plain, "library_ms": lib, "bound_ms": bound,
-                          "tflops": flops / ms / 1e9, "gn_coeffs_ms": gn_ms, "gn_coeffs_bound_ms": gn_bound})
+                          "tflops": flops / ms / 1e9, "gn_coeffs_ms": gn_ms, "gn_coeffs_bound_ms": gn_bound,
+                          "gn_silu_ms": gn_silu_ms, "gn_silu_bound_ms": gn_silu_bound})
         if (C, Fo, H, W) == (64, 64, 64, 1024):
             row("fused_act_ringconv", "cuda", ms, plain, nbytes, flops, PEAK_BF16_FLOPS, lib,
                 [B, H, W, C, Fo], errs["fused_act_ringconv"])
     total = {k: sum(s[k] * s["per_forward"] for s in per_shape)
-             for k in ("ms", "plain_ms", "library_ms", "bound_ms", "gn_coeffs_ms", "gn_coeffs_bound_ms")}
+             for k in ("ms", "plain_ms", "library_ms", "bound_ms", "gn_coeffs_ms", "gn_coeffs_bound_ms",
+                       "gn_silu_ms", "gn_silu_bound_ms")}
     print("ResidualBlock kernels per shape: " + json.dumps({"shapes": per_shape, "per_forward_total": total}))
     return rows
 

@@ -2,38 +2,82 @@
 //
 // Replaces the TPU kernel r2dm_tpu/ops/pallas_gn.py::fused_group_norm_silu
 // (Pallas body _gn_silu_kernel, pallas_gn.py:50-104), which kept one whole
-// sample resident in VMEM. Here:
-//   phase A  gn_stats_kernel: split-HW fp32 sums of x and x^2 per (sample,
-//            channel); many blocks per sample, each writes its own partial
-//            row (no atomics, so the result does not depend on block order);
-//   fold     gn_fold_kernel: one block per sample adds the partial rows,
-//            forms group mean and E[x^2]-E[x]^2 (clamped >= 0, eps inside the
-//            rsqrt, count H*W*C/G, as models/layers.py:417-427) and folds the
-//            affine into a = rstd*gain, b = -mean*rstd*gain + shift
-//            (layers.py:478-489);
-//   phase B  gn_apply_kernel: y = x*a + b (+ SiLU) in fp32, rounded to bf16
-//            once.
-// gn_coeffs_launch runs phase A + fold (the ResidualBlock feeds (a, b) to the
-// conv prologue of act_ringconv.cu); gn_silu_launch runs all three.
+// sample resident in VMEM and so read x once.
 //
-// Bound on an H100 SXM (3.35 TB/s): memory. Phase A reads the activation
-// once, phase B reads it again and writes it once; the TPU kernel's single
-// read would need a whole sample (8.4 MB at 64x1024x64) in one SM's 227 KB,
-// so the design pays one extra read and spreads each sample over many SMs.
-// Loads and stores are 16 bytes per thread (8 channels), C % 8 == 0.
+// v2: one kernel, gn_kernel<APPLY>, one launch per call. The grid is K CTAs
+// per sample times B samples; the K CTAs of a sample form one thread block
+// cluster, and CTA rank r streams the contiguous pixel rows
+// [r*rows, min((r+1)*rows, HW)) of its sample (empty when HW < K).
+//   1. statistics: fp32 sums of x and x^2 per channel; thread t owns the
+//      8-channel vector t % (C/8) of every (512/(C/8))-th row, 16-byte
+//      loads, kUnroll of them in flight a thread (64 KB a CTA); the CTA
+//      reduces them over its threads through shared memory into s1[C], s2[C];
+//   2. fold through distributed shared memory: after a cluster barrier, rank
+//      g mod K owns group g: it adds that group's channels of s1/s2 from all
+//      K CTAs (each thread a fixed subset, then a fixed-order CTA sum: the
+//      result is deterministic, with no atomics), forms the mean and
+//      E[x^2]-E[x]^2 (clamped at 0, eps inside the rsqrt, count H*W*C/G, as
+//      r2dm_tpu/models/layers.py:417-427) and folds the affine into
+//      a = rstd*gain, b = -mean*rstd*gain + shift (layers.py:478-489).
+//      gn_coeffs writes them to global memory; APPLY pushes them into every
+//      CTA's shared memory. A second cluster barrier ends all remote access,
+//      so a CTA may leave after it with no third barrier (fetching (a, b)
+//      from the owners after the barrier instead cost 3-6 us a call);
+//   3. APPLY: each thread reads the (a, b) of its 8 channels from its own
+//      shared memory into registers, and the CTA walks its rows again, last
+//      to first: y = x*a + b, [SiLU], in fp32, rounded to bf16 once, 16-byte
+//      stores.
+// Why a cluster: the fold needs every CTA's sums of the sample. v1 wrote
+// them to global memory as fp32 partial rows (half the size of x at
+// 8x8x128x512) and folded them in a second launch on B blocks; here they
+// never leave the SMs, and the whole call is one launch.
+//
+// Bound on an H100 SXM (3.35 TB/s): memory. gn_coeffs must read x once; the
+// whole function must read x once and write y once. This kernel reads x
+// twice in APPLY mode: the second read of a CTA's share is an L2 hit where
+// the activation fits the 50 MB L2 (config H, b8: levels 2-4, 4-34 MB); at
+// level 1 (67-134 MB) the walk from the last row finds the rows read last
+// in L2 and reads the rest from HBM again.
+//
+// The launch arithmetic (K, rows per CTA, threads per pixel row, rows per
+// pass, dynamic shared memory) comes from the wrapper, ops/gn_silu.py
+// _launch_args. K is its CLUSTER constant, 8, the portable cluster size:
+// at K = 16 cudaOccupancyMaxActiveClusters reports 7 co-resident clusters
+// on an H100 SXM, and b8 needs 8 (gn_max_active_clusters reports it).
+// A refused cluster launch returns its error; nothing retries.
 
+#include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+namespace cg = cooperative_groups;
+
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kVec = 8;           // bf16 channels per 16-byte vector
-constexpr int kMaxC = kThreads * kVec;  // 2048 channels
+constexpr int kThreads = 512;
+constexpr int kWarps = kThreads / 32;
+constexpr int kVec = 8;     // bf16 channels per 16-byte vector
+constexpr int kUnroll = 8;  // 16-byte loads in flight per thread
 
-__device__ __forceinline__ void load8(const __nv_bfloat16* p, float* f) {
-  uint4 u = *reinterpret_cast<const uint4*>(p);
+struct Params {
+  const __nv_bfloat16* x;
+  __nv_bfloat16* y;      // APPLY only
+  const float* gain;     // element (b, c) at b*gstride + c (gstride 0: (C,))
+  const float* shift;
+  float* a_out;          // !APPLY only: (B, C) fp32
+  float* b_out;
+  int gstride;
+  int HW, C, G;
+  int rows;              // pixel rows per CTA
+  int tpr;               // threads per pixel row, C / 8
+  int rpp;               // pixel rows per pass, kThreads / tpr
+  float count;           // elements per group, H*W*C/G
+  float eps;
+  int silu;
+};
+
+__device__ __forceinline__ void unpack8(const uint4& u, float* f) {
   const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&u);
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
@@ -43,137 +87,232 @@ __device__ __forceinline__ void load8(const __nv_bfloat16* p, float* f) {
   }
 }
 
-__device__ __forceinline__ void store8(__nv_bfloat16* p, const float* f) {
+__device__ __forceinline__ uint4 pack8(const float* f) {
   uint4 u;
   __nv_bfloat162* h = reinterpret_cast<__nv_bfloat162*>(&u);
 #pragma unroll
   for (int i = 0; i < 4; ++i) h[i] = __floats2bfloat162_rn(f[2 * i], f[2 * i + 1]);
-  *reinterpret_cast<uint4*>(p) = u;
+  return u;
 }
 
-// partial: (B, nchunks, 2, C) fp32; block (chunk, b) sums rows
-// [chunk*rows_per_chunk, ...) of sample b.
-__global__ void __launch_bounds__(kThreads) gn_stats_kernel(
-    const __nv_bfloat16* __restrict__ x, float* __restrict__ partial, int HW,
-    int C, int rows_per_chunk, int nchunks) {
-  __shared__ float sh[2][kMaxC];
-  const int chunk = blockIdx.x, b = blockIdx.y, t = threadIdx.x;
-  const int tpr = C / kVec;         // threads per pixel row
-  const int rpp = kThreads / tpr;   // pixel rows per pass
-  const int v = t % tpr, r = t / tpr;
-  float s1[kVec], s2[kVec];
+// z*sigmoid(z) = z*(0.5 + 0.5*tanh(z/2)): one MUFU operation an element
+// (tanh.approx, max relative error 2^-11, under a fifth of the bf16 output's
+// rounding step) where exp + reciprocal take two
+__device__ __forceinline__ float silu(float z) {
+  float th;
+  asm("tanh.approx.f32 %0, %1;" : "=f"(th) : "f"(0.5f * z));
+  return z * fmaf(0.5f, th, 0.5f);
+}
+
+// Sum of u1 and u2 over the CTA, in a fixed order, returned to every
+// thread. ws: 2*kWarps floats of shared memory, free again on return.
+__device__ __forceinline__ void block_sum2(float& u1, float& u2, float* ws) {
 #pragma unroll
-  for (int i = 0; i < kVec; ++i) s1[i] = s2[i] = 0.f;
-  const int row0 = chunk * rows_per_chunk;
-  const int row1 = min(row0 + rows_per_chunk, HW);
-  if (r < rpp) {
-    const __nv_bfloat16* base = x + (size_t)b * HW * C + v * kVec;
-    for (int row = row0 + r; row < row1; row += rpp) {
-      float f[kVec];
-      load8(base + (size_t)row * C, f);
+  for (int off = 16; off; off >>= 1) {
+    u1 += __shfl_xor_sync(0xffffffffu, u1, off);
+    u2 += __shfl_xor_sync(0xffffffffu, u2, off);
+  }
+  const int w = threadIdx.x / 32;
+  if (threadIdx.x % 32 == 0) {
+    ws[w] = u1;
+    ws[kWarps + w] = u2;
+  }
+  __syncthreads();
+  u1 = 0.f;
+  u2 = 0.f;
 #pragma unroll
-      for (int i = 0; i < kVec; ++i) {
-        s1[i] += f[i];
-        s2[i] += f[i] * f[i];
+  for (int i = 0; i < kWarps; ++i) {
+    u1 += ws[i];
+    u2 += ws[kWarps + i];
+  }
+  __syncthreads();
+}
+
+template <bool APPLY>
+__global__ void __launch_bounds__(kThreads, 1) gn_kernel(const Params p) {
+  extern __shared__ __align__(16) float smem[];
+  __shared__ float ws[2 * kWarps];
+  const int C = p.C, rpp = p.rpp;
+  // [2][rpp][C]: per-thread-row sums; after the first cluster barrier the
+  // first 2*C floats take every channel's folded (a, b) (APPLY)
+  float* red = smem;
+  float* s1 = smem + 2 * rpp * C;  // [C] this CTA's sums of x
+  float* s2 = s1 + C;              // [C] ... and of x^2
+
+  cg::cluster_group cluster = cg::this_cluster();
+  const int rank = (int)cluster.block_rank();
+  const int K = (int)cluster.num_blocks();
+  const int b = blockIdx.y, t = threadIdx.x;
+  const int v = t % p.tpr, r = t / p.tpr;
+  const bool active = r < rpp;
+  const int row0 = min(rank * p.rows, p.HW);
+  const int row1 = min(row0 + p.rows, p.HW);
+  const __nv_bfloat16* xs = p.x + (size_t)b * p.HW * C + v * kVec;
+
+  // 1. statistics over this CTA's rows
+  float a1[kVec], a2[kVec];
+#pragma unroll
+  for (int i = 0; i < kVec; ++i) a1[i] = a2[i] = 0.f;
+  if (active) {
+    for (int row = row0 + r; row < row1; row += kUnroll * rpp) {
+      uint4 u[kUnroll];
+#pragma unroll
+      for (int k = 0; k < kUnroll; ++k) {
+        const int rr = row + k * rpp;
+        u[k] = rr < row1 ? __ldg(reinterpret_cast<const uint4*>(xs + (size_t)rr * C))
+                         : make_uint4(0u, 0u, 0u, 0u);
+      }
+#pragma unroll
+      for (int k = 0; k < kUnroll; ++k) {
+        float f[kVec];
+        unpack8(u[k], f);
+#pragma unroll
+        for (int i = 0; i < kVec; ++i) {
+          a1[i] += f[i];
+          a2[i] = fmaf(f[i], f[i], a2[i]);
+        }
       }
     }
+    float4* d1 = reinterpret_cast<float4*>(red + r * C + v * kVec);
+    float4* d2 = reinterpret_cast<float4*>(red + (rpp + r) * C + v * kVec);
+    d1[0] = make_float4(a1[0], a1[1], a1[2], a1[3]);
+    d1[1] = make_float4(a1[4], a1[5], a1[6], a1[7]);
+    d2[0] = make_float4(a2[0], a2[1], a2[2], a2[3]);
+    d2[1] = make_float4(a2[4], a2[5], a2[6], a2[7]);
+  }
+  __syncthreads();
+  // rows -> P partial rows per channel (in place: element q*C + c is read
+  // only by the thread that writes it), then -> one
+  const int P = max(1, kThreads / C);
+  for (int i = t; i < P * C; i += kThreads) {
+    const int c = i % C, q = i / C;
+    float u1 = 0.f, u2 = 0.f;
+    for (int rr = q; rr < rpp; rr += P) {
+      u1 += red[rr * C + c];
+      u2 += red[(rpp + rr) * C + c];
+    }
+    red[q * C + c] = u1;
+    red[(rpp + q) * C + c] = u2;
+  }
+  __syncthreads();
+  for (int c = t; c < C; c += kThreads) {
+    float u1 = 0.f, u2 = 0.f;
+    for (int q = 0; q < P; ++q) {
+      u1 += red[q * C + c];
+      u2 += red[(rpp + q) * C + c];
+    }
+    s1[c] = u1;
+    s2[c] = u2;
+  }
+  cluster.sync();  // every CTA's s1/s2 complete and visible to the cluster
+
+  // 2. fold: this rank owns the groups g = rank, rank + K, ...; the
+  // K*cpg remote reads of a group are spread over all threads
+  const int cpg = C / p.G;
+  float* ca = red;  // [C] every channel's folded a, pushed by its owner
+  float* cb = red + C;
+  for (int g = rank; g < p.G; g += K) {
+    float u1 = 0.f, u2 = 0.f;
+    for (int i = t; i < K * cpg; i += kThreads) {
+      const int c = g * cpg + i % cpg;
+      const int k = i / cpg;
+      u1 += cluster.map_shared_rank(s1, k)[c];
+      u2 += cluster.map_shared_rank(s2, k)[c];
+    }
+    block_sum2(u1, u2, ws);
+    const float mean = u1 / p.count;
+    const float var = fmaxf(u2 / p.count - mean * mean, 0.f);
+    const float rstd = rsqrtf(var + p.eps);
+    // gn_coeffs: (a, b) to global memory. APPLY: pushed into every CTA's
+    // ca/cb (stores to distributed shared memory, so that after the next
+    // barrier no CTA reads another's shared memory)
+    for (int i = t; i < (APPLY ? K : 1) * cpg; i += kThreads) {
+      const int c = g * cpg + i % cpg;
+      const float gn = p.gain[(size_t)b * p.gstride + c];
+      const float sh = p.shift[(size_t)b * p.gstride + c];
+      const float av = rstd * gn;
+      const float bv = (-mean * rstd) * gn + sh;
+      if constexpr (APPLY) {
+        const int k = i / cpg;
+        cluster.map_shared_rank(ca, k)[c] = av;
+        cluster.map_shared_rank(cb, k)[c] = bv;
+      } else {
+        p.a_out[(size_t)b * C + c] = av;
+        p.b_out[(size_t)b * C + c] = bv;
+      }
+    }
+  }
+  // every remote read and write of the cluster is done: after this barrier
+  // a CTA may leave, and ca/cb hold all C channels (APPLY)
+  cluster.sync();
+  if constexpr (APPLY) {
+    // 3. apply, walking this thread's rows from the last: the stats pass
+    // read them first to last, so the most recent (still in L2) come first
+    if (!active) return;
+    float fa[kVec], fb[kVec];
 #pragma unroll
     for (int i = 0; i < kVec; ++i) {
-      sh[0][r * C + v * kVec + i] = s1[i];
-      sh[1][r * C + v * kVec + i] = s2[i];
+      fa[i] = ca[v * kVec + i];
+      fb[i] = cb[v * kVec + i];
     }
-  }
-  __syncthreads();
-  float* out = partial + ((size_t)b * nchunks + chunk) * 2 * C;
-  for (int c = t; c < C; c += kThreads) {
-    float a1 = 0.f, a2 = 0.f;
-    for (int rr = 0; rr < rpp; ++rr) {
-      a1 += sh[0][rr * C + c];
-      a2 += sh[1][rr * C + c];
-    }
-    out[c] = a1;
-    out[C + c] = a2;
-  }
-}
-
-// One block per sample. gain/shift: fp32, element (b, c) at b*gstride + c
-// (gstride 0 broadcasts a (C,) vector).
-__global__ void __launch_bounds__(kThreads) gn_fold_kernel(
-    const float* __restrict__ partial, const float* __restrict__ gain,
-    const float* __restrict__ shift, int gstride, float* __restrict__ a_out,
-    float* __restrict__ b_out, int C, int G, int nchunks, float count,
-    float eps) {
-  __shared__ float s1[kMaxC], s2[kMaxC];
-  __shared__ float gmean[kMaxC], grstd[kMaxC];
-  const int b = blockIdx.x, t = threadIdx.x;
-  const float* p = partial + (size_t)b * nchunks * 2 * C;
-  for (int c = t; c < C; c += kThreads) {
-    float a1 = 0.f, a2 = 0.f;
-    for (int k = 0; k < nchunks; ++k) {
-      a1 += p[(size_t)k * 2 * C + c];
-      a2 += p[(size_t)k * 2 * C + C + c];
-    }
-    s1[c] = a1;
-    s2[c] = a2;
-  }
-  __syncthreads();
-  const int cpg = C / G;
-  for (int g = t; g < G; g += kThreads) {
-    float g1 = 0.f, g2 = 0.f;
-    for (int c = g * cpg; c < (g + 1) * cpg; ++c) {
-      g1 += s1[c];
-      g2 += s2[c];
-    }
-    const float mean = g1 / count;
-    const float var = fmaxf(g2 / count - mean * mean, 0.f);
-    gmean[g] = mean;
-    grstd[g] = rsqrtf(var + eps);
-  }
-  __syncthreads();
-  for (int c = t; c < C; c += kThreads) {
-    const int g = c / cpg;
-    const float gn = gain[(size_t)b * gstride + c];
-    const float sh = shift[(size_t)b * gstride + c];
-    a_out[(size_t)b * C + c] = grstd[g] * gn;
-    b_out[(size_t)b * C + c] = (-gmean[g] * grstd[g]) * gn + sh;
-  }
-}
-
-__global__ void __launch_bounds__(kThreads) gn_apply_kernel(
-    const __nv_bfloat16* __restrict__ x, const float* __restrict__ a,
-    const float* __restrict__ bb, __nv_bfloat16* __restrict__ y,
-    long long n_vec, long long hwc, int C, int silu) {
-  const long long stride = (long long)gridDim.x * blockDim.x;
-  for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-       i < n_vec; i += stride) {
-    const long long e = i * kVec;
-    const long long b = e / hwc;
-    const int c = (int)(e % C);
-    const float* ab = a + b * C + c;
-    const float* bp = bb + b * C + c;
-    float f[kVec];
-    load8(x + e, f);
+    __nv_bfloat16* ys = p.y + (size_t)b * p.HW * C + v * kVec;
+    const int first = row0 + r;
+    const int n = first < row1 ? (row1 - first + rpp - 1) / rpp : 0;
+    for (int j0 = n - 1; j0 >= 0; j0 -= kUnroll) {
+      uint4 u[kUnroll];
 #pragma unroll
-    for (int k = 0; k < kVec; ++k) {
-      float v = f[k] * ab[k] + bp[k];
-      if (silu) v = v * (1.f / (1.f + __expf(-v)));
-      f[k] = v;
+      for (int k = 0; k < kUnroll; ++k) {
+        const int j = j0 - k;
+        u[k] = j >= 0 ? __ldg(reinterpret_cast<const uint4*>(xs + (size_t)(first + j * rpp) * C))
+                      : make_uint4(0u, 0u, 0u, 0u);
+      }
+#pragma unroll
+      for (int k = 0; k < kUnroll; ++k) {
+        const int j = j0 - k;
+        if (j < 0) break;
+        float f[kVec];
+        unpack8(u[k], f);
+#pragma unroll
+        for (int i = 0; i < kVec; ++i) {
+          const float z = fmaf(f[i], fa[i], fb[i]);
+          f[i] = p.silu ? silu(z) : z;
+        }
+        *reinterpret_cast<uint4*>(ys + (size_t)(first + j * rpp) * C) = pack8(f);
+      }
     }
-    store8(y + e, f);
   }
 }
 
-void stats_and_fold(const void* x, void* partial, const void* gain,
-                    const void* shift, int gstride, void* a, void* b, int B,
-                    int HW, int C, int G, int rows_per_chunk, int nchunks,
-                    float eps, cudaStream_t s) {
-  gn_stats_kernel<<<dim3(nchunks, B), kThreads, 0, s>>>(
-      static_cast<const __nv_bfloat16*>(x), static_cast<float*>(partial), HW,
-      C, rows_per_chunk, nchunks);
-  gn_fold_kernel<<<B, kThreads, 0, s>>>(
-      static_cast<const float*>(partial), static_cast<const float*>(gain),
-      static_cast<const float*>(shift), gstride, static_cast<float*>(a),
-      static_cast<float*>(b), C, G, nchunks, (float)HW * (float)(C / G), eps);
+template <bool APPLY>
+cudaError_t prepare(int smem) {
+  return cudaFuncSetAttribute(gn_kernel<APPLY>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+}
+
+void config(cudaLaunchConfig_t& cfg, cudaLaunchAttribute* attr, int K, int B, int smem,
+            cudaStream_t s) {
+  cfg = cudaLaunchConfig_t{};
+  cfg.gridDim = dim3(K, B, 1);
+  cfg.blockDim = dim3(kThreads, 1, 1);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = s;
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = K;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+}
+
+template <bool APPLY>
+int launch(const Params& p, int B, int K, int smem, void* stream) {
+  cudaError_t e = prepare<APPLY>(smem);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  cudaLaunchConfig_t cfg;
+  cudaLaunchAttribute attr[1];
+  config(cfg, attr, K, B, smem, static_cast<cudaStream_t>(stream));
+  e = cudaLaunchKernelEx(&cfg, gn_kernel<APPLY>, p);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -184,32 +323,44 @@ const char* cuda_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
 
-// (a, b) fp32 (B, C) such that GN_affine(x) == x*a + b.
-int gn_coeffs_launch(const void* x, void* partial, const void* gain,
-                     const void* shift, int gstride, void* a, void* b, int B,
-                     int HW, int C, int G, int rows_per_chunk, int nchunks,
-                     float eps, void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  stats_and_fold(x, partial, gain, shift, gstride, a, b, B, HW, C, G,
-                 rows_per_chunk, nchunks, eps, s);
-  return static_cast<int>(cudaGetLastError());
+// apply = 0: (a, b) fp32 (B, C) such that GN_affine(x) == x*a + b (y unused).
+// apply = 1: y = [silu](GN(x)*gain + shift), bf16 NHWC (a, b unused).
+int gn_launch(const void* x, void* y, const void* gain, const void* shift, int gstride,
+              void* a, void* b, int B, int HW, int C, int G, int K, int rows, int tpr,
+              int rpp, int smem, float eps, int apply, int silu, void* stream) {
+  Params p;
+  p.x = static_cast<const __nv_bfloat16*>(x);
+  p.y = static_cast<__nv_bfloat16*>(y);
+  p.gain = static_cast<const float*>(gain);
+  p.shift = static_cast<const float*>(shift);
+  p.a_out = static_cast<float*>(a);
+  p.b_out = static_cast<float*>(b);
+  p.gstride = gstride;
+  p.HW = HW;
+  p.C = C;
+  p.G = G;
+  p.rows = rows;
+  p.tpr = tpr;
+  p.rpp = rpp;
+  p.count = (float)HW * (float)(C / G);
+  p.eps = eps;
+  p.silu = silu;
+  return apply ? launch<true>(p, B, K, smem, stream) : launch<false>(p, B, K, smem, stream);
 }
 
-// y = [silu](GN(x)*gain + shift), bf16 NHWC; a/b are (B, C) fp32 scratch.
-int gn_silu_launch(const void* x, void* partial, const void* gain,
-                   const void* shift, int gstride, void* a, void* b, void* y,
-                   int B, int HW, int C, int G, int rows_per_chunk,
-                   int nchunks, float eps, int silu, int apply_blocks,
-                   void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  stats_and_fold(x, partial, gain, shift, gstride, a, b, B, HW, C, G,
-                 rows_per_chunk, nchunks, eps, s);
-  const long long hwc = (long long)HW * C;
-  gn_apply_kernel<<<apply_blocks, kThreads, 0, s>>>(
-      static_cast<const __nv_bfloat16*>(x), static_cast<const float*>(a),
-      static_cast<const float*>(b), static_cast<__nv_bfloat16*>(y),
-      (long long)B * hwc / kVec, hwc, C, silu);
-  return static_cast<int>(cudaGetLastError());
+// cudaOccupancyMaxActiveClusters for clusters of K CTAs with `smem` bytes
+// of dynamic shared memory each; < 0: minus the CUDA error code.
+int gn_max_active_clusters(int K, int smem, int apply) {
+  cudaError_t e = apply ? prepare<true>(smem) : prepare<false>(smem);
+  if (e != cudaSuccess) return -static_cast<int>(e);
+  cudaLaunchConfig_t cfg;
+  cudaLaunchAttribute attr[1];
+  config(cfg, attr, K, 1, smem, nullptr);
+  int n = 0;
+  const void* fn = apply ? reinterpret_cast<const void*>(gn_kernel<true>)
+                         : reinterpret_cast<const void*>(gn_kernel<false>);
+  e = cudaOccupancyMaxActiveClusters(&n, fn, &cfg);
+  return e == cudaSuccess ? n : -static_cast<int>(e);
 }
 
 }  // extern "C"

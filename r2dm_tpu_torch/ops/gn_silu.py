@@ -2,10 +2,11 @@
 ``csrc/gn_silu.cu`` and its plain PyTorch version.
 
 Replaces the TPU kernel ``r2dm_tpu/ops/pallas_gn.py::fused_group_norm_silu``.
-Two entries:
+Two entries, each one launch of the same kernel (one thread block cluster
+of ``CLUSTER`` CTAs per sample; ``_launch_args`` holds the arithmetic):
 
 - ``gn_coeffs(x, G, eps, gain, shift) -> (a, b)``: fp32 (B, C) coefficients
-  with GN_affine(x) == x*a + b (statistics phase + fold). ``ResidualBlock``
+  with GN_affine(x) == x*a + b (statistics + fold). ``ResidualBlock``
   feeds them to the conv prologue of ``act_ringconv``.
 - ``fused_group_norm_silu(x, gain, shift, G, eps, apply_silu)``: the TPU
   kernel's whole function, used by ``SelfAttentionBlock``'s norm.
@@ -17,30 +18,38 @@ raises. Each wrapper counts its kernel launches in ``.launches``.
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 
 import torch
 
 from . import build
 
-_ARGS_COEFFS = (
+_ARGS = (
     [ctypes.c_void_p] * 4 + [ctypes.c_int] + [ctypes.c_void_p] * 2
-    + [ctypes.c_int] * 6 + [ctypes.c_float, ctypes.c_void_p]
+    + [ctypes.c_int] * 9 + [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
 )
-_ARGS_SILU = (
-    [ctypes.c_void_p] * 4 + [ctypes.c_int] + [ctypes.c_void_p] * 3
-    + [ctypes.c_int] * 6 + [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
-)
-_TARGET_BLOCKS = 1056  # 8 statistics blocks per SM of an H100 SXM (132 SMs)
+# CTAs per sample, one thread block cluster. 8 is the portable size: at 16
+# only 7 clusters fit an H100 SXM at once, and b8 needs 8.
+CLUSTER = 8
+THREADS = 512  # per CTA, kThreads of csrc/gn_silu.cu
 _MAX_C = 2048
+
+
+class Launch(NamedTuple):
+    cluster: int  # K
+    rows_per_cta: int  # CTA rank r takes pixel rows [r*rows, min((r+1)*rows, H*W))
+    threads_per_row: int  # C/8: one 16-byte vector of 8 channels a thread
+    rows_per_pass: int  # THREADS // threads_per_row
+    smem_bytes: int  # dynamic shared memory: 2*rows_per_pass*C + 2*C fp32
 
 
 def _lib():
     lib = build.load("gn_silu")
-    if lib.gn_coeffs_launch.argtypes is None:
-        lib.gn_coeffs_launch.argtypes = _ARGS_COEFFS
-        lib.gn_coeffs_launch.restype = ctypes.c_int
-        lib.gn_silu_launch.argtypes = _ARGS_SILU
-        lib.gn_silu_launch.restype = ctypes.c_int
+    if lib.gn_launch.argtypes is None:
+        lib.gn_launch.argtypes = _ARGS
+        lib.gn_launch.restype = ctypes.c_int
+        lib.gn_max_active_clusters.argtypes = [ctypes.c_int] * 3
+        lib.gn_max_active_clusters.restype = ctypes.c_int
     return lib
 
 
@@ -105,22 +114,49 @@ def _check(x, num_groups, gain, shift):
             raise ValueError(f"gn_silu: {name} shape {tuple(t.shape)} is neither ({C},) nor ({B}, {C})")
 
 
-def _launch_args(x, num_groups, gain, shift):
-    """(partial workspace, gain, shift, gstride, rows_per_chunk, nchunks)."""
-    B, H, W, C = x.shape
+def _launch_args(B: int, H: int, W: int, C: int) -> Launch:
+    """The kernel's launch arithmetic: a cluster of CLUSTER CTAs per sample,
+    each streaming an equal share of the sample's H*W pixel rows (the last
+    shares are short or empty when H*W is not a multiple of CLUSTER)."""
+    tpr = C // 8
+    rpp = THREADS // tpr
+    rows = -(-(H * W) // CLUSTER)
+    return Launch(CLUSTER, rows, tpr, rpp, 4 * (2 * rpp * C + 2 * C))
+
+
+def _affine_args(x, gain, shift):
+    """fp32 contiguous gain/shift and the stride of their batch axis (0 for
+    a (C,) vector)."""
+    B, C = x.shape[0], x.shape[-1]
     if gain.dim() != shift.dim():
         gain, shift = _affine(gain, shift, B, C)
     gain = gain.to(torch.float32).contiguous()
     shift = shift.to(torch.float32).contiguous()
-    gstride = C if gain.dim() == 2 else 0
-    HW = H * W
-    rpp = 256 // (C // 8)
-    per_sample = max(1, -(-_TARGET_BLOCKS // B))
-    rows = max(rpp, -(-HW // per_sample))
-    rows = -(-rows // rpp) * rpp
-    nchunks = -(-HW // rows)
-    partial = torch.empty((B, nchunks, 2, C), dtype=torch.float32, device=x.device)
-    return partial, gain, shift, gstride, rows, nchunks
+    return gain, shift, (C if gain.dim() == 2 else 0)
+
+
+def _launch(x, y, gain, shift, a, b, num_groups, eps, apply, silu, what):
+    lib = _lib()
+    B, H, W, C = x.shape
+    gain, shift, gstride = _affine_args(x, gain, shift)
+    la = _launch_args(B, H, W, C)
+    rc = lib.gn_launch(
+        x.data_ptr(), y, gain.data_ptr(), shift.data_ptr(), gstride, a, b,
+        B, H * W, C, num_groups, la.cluster, la.rows_per_cta, la.threads_per_row,
+        la.rows_per_pass, la.smem_bytes, float(eps), int(apply), int(silu),
+        build.stream_ptr(x.device),
+    )
+    build.check(lib, rc, what)
+
+
+def max_active_clusters(C: int, apply: bool = True) -> int:
+    """cudaOccupancyMaxActiveClusters for the kernel's clusters at C
+    channels (config H at b8 needs 8 co-resident clusters)."""
+    la = _launch_args(1, 1, 1, C)
+    n = _lib().gn_max_active_clusters(la.cluster, la.smem_bytes, int(apply))
+    if n < 0:
+        build.check(_lib(), -n, "gn_max_active_clusters")
+    return n
 
 
 def gn_coeffs(x, num_groups: int, eps: float, gain, shift):
@@ -129,17 +165,10 @@ def gn_coeffs(x, num_groups: int, eps: float, gain, shift):
     if x.device.type == "cpu":
         return gn_coeffs_plain(x, num_groups, eps, gain, shift)
     _check(x, num_groups, gain, shift)
-    lib = _lib()
-    B, H, W, C = x.shape
-    partial, gain, shift, gstride, rows, nchunks = _launch_args(x, num_groups, gain, shift)
+    B, C = x.shape[0], x.shape[-1]
     a = torch.empty((B, C), dtype=torch.float32, device=x.device)
     b = torch.empty_like(a)
-    rc = lib.gn_coeffs_launch(
-        x.data_ptr(), partial.data_ptr(), gain.data_ptr(), shift.data_ptr(), gstride,
-        a.data_ptr(), b.data_ptr(), B, H * W, C, num_groups, rows, nchunks,
-        float(eps), build.stream_ptr(x.device),
-    )
-    build.check(lib, rc, "gn_coeffs")
+    _launch(x, None, gain, shift, a.data_ptr(), b.data_ptr(), num_groups, eps, False, False, "gn_coeffs")
     gn_coeffs.launches += 1
     return a, b
 
@@ -152,20 +181,9 @@ def fused_group_norm_silu(x, gain, shift, num_groups: int, eps: float, apply_sil
     if x.device.type == "cpu":
         return fused_group_norm_silu_plain(x, gain, shift, num_groups, eps, apply_silu)
     _check(x, num_groups, gain, shift)
-    lib = _lib()
-    B, H, W, C = x.shape
-    partial, gain, shift, gstride, rows, nchunks = _launch_args(x, num_groups, gain, shift)
-    a = torch.empty((B, C), dtype=torch.float32, device=x.device)
-    b = torch.empty_like(a)
     y = torch.empty_like(x)
-    n_vec = x.numel() // 8
-    apply_blocks = max(1, min(-(-n_vec // 256), 132 * 16))
-    rc = lib.gn_silu_launch(
-        x.data_ptr(), partial.data_ptr(), gain.data_ptr(), shift.data_ptr(), gstride,
-        a.data_ptr(), b.data_ptr(), y.data_ptr(), B, H * W, C, num_groups, rows,
-        nchunks, float(eps), int(apply_silu), apply_blocks, build.stream_ptr(x.device),
-    )
-    build.check(lib, rc, "fused_group_norm_silu")
+    _launch(x, y.data_ptr(), gain, shift, None, None, num_groups, eps, True, apply_silu,
+            "fused_group_norm_silu")
     fused_group_norm_silu.launches += 1
     return y
 

@@ -29,7 +29,14 @@ def _randn(shape, dev, seed, dtype=torch.float32):
     return torch.randn(shape, generator=g, device=dev).to(dtype)
 
 
-@pytest.mark.parametrize("shape,groups", [((2, 16, 64, 64), 8), ((3, 8, 128, 512), 8), ((2, 4, 24, 40), 5)])
+# config-H-like shapes, then: H*W < CLUSTER (empty shares), C = 8, C = 2048,
+# B = 1, B = 9 (more clusters than fit at once), G = 5 (ranks >= G only
+# wait), G = 32 > CLUSTER (a rank owns two groups)
+@pytest.mark.parametrize("shape,groups", [
+    ((2, 16, 64, 64), 8), ((3, 8, 128, 512), 8), ((2, 4, 24, 40), 5), ((2, 1, 5, 16), 4),
+    ((2, 4, 8, 8), 2), ((2, 2, 8, 2048), 8), ((1, 8, 16, 64), 8), ((9, 8, 128, 64), 8),
+    ((2, 3, 11, 64), 32),
+])
 @pytest.mark.parametrize("per_batch", [False, True])
 def test_gn_kernels_match_plain(dev, shape, groups, per_batch):
     B, C = shape[0], shape[-1]
@@ -74,6 +81,25 @@ def test_act_ringconv_kernel_matches_plain(dev, shape, F, b_shift, apply_act):
     torch.cuda.synchronize()
     err = (y.float() - ref.float()).abs().max().item()
     assert err <= 1e-2 * ref.float().abs().max().item(), err
+
+
+def test_gn_kernels_are_deterministic(dev):
+    """The fold adds the CTAs' sums in rank order, with no atomics: two
+    calls give bitwise equal results."""
+    x = _randn((8, 16, 256, 128), dev, 5, torch.bfloat16)
+    gain, shift = _randn((8, 128), dev, 6), _randn((8, 128), dev, 7)
+    a1, b1 = gn_silu.gn_coeffs(x, 8, 1e-6, gain, shift)
+    a2, b2 = gn_silu.gn_coeffs(x, 8, 1e-6, gain, shift)
+    assert torch.equal(a1, a2) and torch.equal(b1, b2)
+    y1 = gn_silu.fused_group_norm_silu(x, gain, shift, 8, 1e-6)
+    y2 = gn_silu.fused_group_norm_silu(x, gain, shift, 8, 1e-6)
+    assert torch.equal(y1, y2)
+
+
+def test_gn_clusters_fit_the_card(dev):
+    """Config H at b8 runs 8 clusters at once (128 of 132 SMs)."""
+    for C in (64, 128, 256, 512):
+        assert gn_silu.max_active_clusters(C) >= 8
 
 
 def test_cuda_tensors_never_reach_the_plain_version(dev):

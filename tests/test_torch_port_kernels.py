@@ -3,6 +3,9 @@ kernels run in interpret mode, on the CPU. The CUDA kernels themselves are
 held against these plain versions on the card (tests/test_torch_port_cuda.py
 and chip_smoke.py)."""
 
+import importlib.util
+from pathlib import Path
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -16,6 +19,23 @@ from r2dm_tpu_torch.ops import act_ringconv, gn_silu
 
 def t(x):
     return torch.from_numpy(np.ascontiguousarray(x))
+
+
+def _chip_smoke():
+    path = Path(__file__).resolve().parent.parent / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+# (B, H, W, C, G): every GroupNorm input of config H at b8, then odd shapes:
+# H*W < CLUSTER (empty shares), C = 8, C = 2048, C = 40 with G = 5, and
+# G > CLUSTER (a rank owns two groups)
+GN_LAUNCH_SHAPES = [(8, H, W, C, 8) for C, H, W in _chip_smoke().GN_SHAPES] + [
+    (2, 1, 5, 16, 4), (1, 3, 3, 8, 1), (9, 2, 7, 8, 8), (1, 4, 33, 2048, 8),
+    (3, 5, 7, 40, 5), (2, 3, 11, 64, 32),
+]
 
 
 @pytest.mark.parametrize("apply_silu", [True, False])
@@ -146,3 +166,70 @@ def test_pack_weight_casts_in_the_same_pass(C, F):
     assert wp.dtype == torch.bfloat16 and wp.shape == (F, 9 * C) and wp.is_contiguous()
     torch.testing.assert_close(wp, act_ringconv.pack_weight(k, torch.float32).to(torch.bfloat16), rtol=0, atol=0)
     torch.testing.assert_close(act_ringconv.pack_weight(k.to(torch.bfloat16)), wp, rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("B,H,W,C,G", GN_LAUNCH_SHAPES)
+def test_gn_launch_args_cover_every_row_once(B, H, W, C, G):
+    """Every pixel row of a sample lies in exactly one CTA's share, and
+    inside a CTA in exactly one thread row's walk (row0 + r + k*rows_per_pass);
+    every channel vector has a thread; the shared memory fits one SM."""
+    la = gn_silu._launch_args(B, H, W, C)
+    HW = H * W
+    assert la.cluster == gn_silu.CLUSTER
+    assert la.threads_per_row * 8 == C and la.rows_per_pass >= 1
+    assert la.threads_per_row * la.rows_per_pass <= gn_silu.THREADS
+    assert la.smem_bytes <= 232_448
+    seen = np.zeros(HW, np.int64)
+    for rank in range(la.cluster):
+        row0 = min(rank * la.rows_per_cta, HW)
+        row1 = min(row0 + la.rows_per_cta, HW)
+        for r in range(la.rows_per_pass):
+            np.add.at(seen, np.arange(row0 + r, row1, la.rows_per_pass), 1)
+    np.testing.assert_array_equal(seen, 1)
+
+
+def _cluster_coeffs(x, G, eps, gain, shift):
+    """gn_coeffs as the kernel computes it: per-CTA fp32 sums over the
+    shares of _launch_args, then rank g % K folds group g from all K CTAs in
+    rank order, and each channel's (a, b) is read from its owner."""
+    B, H, W, C = x.shape
+    la = gn_silu._launch_args(B, H, W, C)
+    K, cpg = la.cluster, C // G
+    xf = x.reshape(B, H * W, C).double()
+    a = torch.full((B, C), float("nan"), dtype=torch.float64)
+    b = torch.full((B, C), float("nan"), dtype=torch.float64)
+    g_, s_ = gn_silu._affine(gain, shift, B, C)
+    for n in range(B):
+        sums = []
+        for rank in range(K):
+            row0 = min(rank * la.rows_per_cta, H * W)
+            share = xf[n, row0:min(row0 + la.rows_per_cta, H * W)]
+            sums.append((share.sum(0), (share * share).sum(0)))
+        owned = {rank: {} for rank in range(K)}
+        for rank in range(K):
+            for g in range(rank, G, K):
+                ch = slice(g * cpg, (g + 1) * cpg)
+                s1 = sum(sums[k][0][ch] for k in range(K)).sum()
+                s2 = sum(sums[k][1][ch] for k in range(K)).sum()
+                mean = s1 / (H * W * cpg)
+                rstd = torch.rsqrt(torch.clamp(s2 / (H * W * cpg) - mean * mean, min=0.0) + eps)
+                for c in range(g * cpg, (g + 1) * cpg):
+                    owned[rank][c] = (rstd * g_[n, c], -mean * rstd * g_[n, c] + s_[n, c])
+        for c in range(C):
+            a[n, c], b[n, c] = owned[(c // cpg) % K][c]
+    return a.float(), b.float()
+
+
+@pytest.mark.parametrize("B,H,W,C,G", [(2, 1, 5, 16, 4), (3, 5, 7, 40, 5), (2, 3, 11, 64, 32), (1, 8, 16, 24, 3)])
+@pytest.mark.parametrize("per_batch", [False, True])
+def test_gn_cluster_fold_matches_plain(B, H, W, C, G, per_batch):
+    """The kernel's decomposition (shares, owners, fold order) gives the
+    plain version's coefficients, with empty shares, G < K and G > K."""
+    rng = np.random.default_rng(6)
+    x = t(rng.standard_normal((B, H, W, C), np.float32) + 0.3)
+    aff = (B, C) if per_batch else (C,)
+    gain, shift = t(rng.standard_normal(aff, np.float32)), t(rng.standard_normal(aff, np.float32))
+    a, b = _cluster_coeffs(x, G, 1e-6, gain, shift)
+    a_ref, b_ref = gn_silu.gn_coeffs_plain(x, G, 1e-6, gain, shift)
+    torch.testing.assert_close(a, a_ref, rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(b, b_ref, rtol=1e-5, atol=1e-5)
