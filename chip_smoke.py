@@ -295,7 +295,9 @@ def phase_main(torch):
     torch.cuda.synchronize()
     launches = {fn.__name__: fn.launches for fn in ops.KERNEL_WRAPPERS}
     forwards = 16 + 4
-    expected = {"gn_coeffs": 48 * forwards, "fused_group_norm_silu": 2 * forwards,
+    # per forward: 48 ResidualBlock norms and 2 attention norms through the
+    # whole function, 48 convs without their prologue
+    expected = {"gn_coeffs": 0, "fused_group_norm_silu": 50 * forwards,
                 "fused_act_ringconv": 48 * forwards}
     print(f"main path launches {json.dumps(launches)} (expected {json.dumps(expected)})")
     if launches != expected:
@@ -463,37 +465,41 @@ def phase_time(torch, launches, errs):
     row("fused_group_norm_silu", "cuda", ms, plain, 2 * x.numel() * 2, 10 * x.numel(), PEAK_FP32_FLOPS,
         lib, [B, H, W, C], errs["fused_group_norm_silu"])
 
-    # kernel 2: every config-H shape; the JSON row is level 1, 64 -> 64
+    # kernel 2: every config-H shape, as the main path calls it (the input
+    # already activated, apply_act=False; act_ms: with the SiLU prologue);
+    # the JSON row is level 1, 64 -> 64
     per_shape = []
     for (C, Fo, H, W), count in CONV_SHAPES.items():
         x = randn(torch, (B, H, W, C), 17, torch.bfloat16)
         a, b = randn(torch, (B, C), 18, offset=1.0), randn(torch, (B, C), 19)
         k = randn(torch, (3, 3, C, Fo), 20, scale=0.05)
         bias = randn(torch, (Fo,), 21)
-        ms = graph_ms(torch, lambda: act_ringconv.fused_act_ringconv(x, a, b, k, bias))
-        plain = graph_ms(torch, lambda: act_ringconv.act_ringconv_plain(x, a, b, k, bias))
+        ms = graph_ms(torch, lambda: act_ringconv.fused_act_ringconv(x, None, None, k, bias, apply_act=False))
+        act_ms = graph_ms(torch, lambda: act_ringconv.fused_act_ringconv(x, a, b, k, bias))
+        plain = graph_ms(torch, lambda: act_ringconv.act_ringconv_plain(x, None, None, k, bias, apply_act=False))
         xp = ring_pad(x, 1).permute(0, 3, 1, 2)
         wt = k.to(torch.bfloat16).permute(3, 2, 0, 1).contiguous(memory_format=torch.channels_last)
         bb = bias.to(torch.bfloat16)
         lib = graph_ms(torch, lambda: F.conv2d(xp, wt, bb))
         flops = 2 * 9 * C * Fo * B * H * W
-        nbytes = (B * H * W * (C + Fo)) * 2 + 9 * C * Fo * 2 + 2 * B * C * 4 + Fo * 4
+        nbytes = (B * H * W * (C + Fo)) * 2 + 9 * C * Fo * 2 + Fo * 4
         bound = max(flops / PEAK_BF16_FLOPS, nbytes / PEAK_BYTES) * 1e3
-        # the norm that feeds this conv's prologue sees the same input
+        # the norm before this conv sees the same input: its statistics alone
+        # (the coefficients of the conv's prologue) and the whole function
         gn_ms = graph_ms(torch, lambda: gn_silu.gn_coeffs(x, G, eps, a[0], b[0]))
         gn_bound = max(x.numel() * 2 / PEAK_BYTES, 3 * x.numel() / PEAK_FP32_FLOPS) * 1e3
-        # the whole function at the same input: x read once, y written once
+        # bound: x read once, y written once
         gn_silu_ms = graph_ms(torch, lambda: gn_silu.fused_group_norm_silu(x, a[0], b[0], G, eps))
         gn_silu_bound = max(2 * x.numel() * 2 / PEAK_BYTES, 10 * x.numel() / PEAK_FP32_FLOPS) * 1e3
         per_shape.append({"cin": C, "f": Fo, "h": H, "w": W, "per_forward": count, "ms": ms,
-                          "plain_ms": plain, "library_ms": lib, "bound_ms": bound,
+                          "act_ms": act_ms, "plain_ms": plain, "library_ms": lib, "bound_ms": bound,
                           "tflops": flops / ms / 1e9, "gn_coeffs_ms": gn_ms, "gn_coeffs_bound_ms": gn_bound,
                           "gn_silu_ms": gn_silu_ms, "gn_silu_bound_ms": gn_silu_bound})
         if (C, Fo, H, W) == (64, 64, 64, 1024):
             row("fused_act_ringconv", "cuda", ms, plain, nbytes, flops, PEAK_BF16_FLOPS, lib,
                 [B, H, W, C, Fo], errs["fused_act_ringconv"])
     total = {k: sum(s[k] * s["per_forward"] for s in per_shape)
-             for k in ("ms", "plain_ms", "library_ms", "bound_ms", "gn_coeffs_ms", "gn_coeffs_bound_ms",
+             for k in ("ms", "act_ms", "plain_ms", "library_ms", "bound_ms", "gn_coeffs_ms", "gn_coeffs_bound_ms",
                        "gn_silu_ms", "gn_silu_bound_ms")}
     print("ResidualBlock kernels per shape: " + json.dumps({"shapes": per_shape, "per_forward_total": total}))
     return rows

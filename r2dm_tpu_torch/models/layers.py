@@ -7,10 +7,11 @@ carry the reference torch ``state_dict`` names (``norm1.weight``,
 
 Compute dtype: parameters stay fp32 and each op casts them to its compute
 dtype (``dtype``, or the promoted input/parameter dtype when ``dtype`` is
-None), as the JAX modules do. GroupNorm statistics and the conv prologue run
-in fp32. ``ResidualBlock`` always takes the fused structure of
-layers.py:707-730: norm coefficients -> ``fused_act_ringconv`` -> AdaGN
-coefficients -> ``fused_act_ringconv`` -> skip; on CUDA tensors those calls
+None), as the JAX modules do. GroupNorm statistics and the SiLU run in fp32.
+``ResidualBlock`` takes the structure of the JAX package's unfused path
+(layers.py:731-760): ``fused_group_norm_silu`` writes the activated tensor
+once, and ``fused_act_ringconv`` convolves it with ``apply_act=False``
+(GN+SiLU -> conv -> AdaGN+SiLU -> conv -> skip); on CUDA tensors those calls
 are the hand-written kernels.
 """
 
@@ -82,13 +83,15 @@ class RingConv(nn.Module):
 
 
 class GroupNorm(nn.Module):
-    """Affine GroupNorm (torch nn.GroupNorm semantics) through the
-    ``fused_group_norm_silu`` kernel; ``coeffs`` gives its folded (a, b)."""
+    """Affine GroupNorm (torch nn.GroupNorm semantics), followed by SiLU when
+    ``silu`` (JAX's ``silu`` field), through the ``fused_group_norm_silu``
+    kernel; ``coeffs`` gives its folded (a, b)."""
 
-    def __init__(self, num_groups: int, num_channels: int, eps: float = 1e-6):
+    def __init__(self, num_groups: int, num_channels: int, eps: float = 1e-6, silu: bool = False):
         super().__init__()
         self.num_groups = num_groups
         self.eps = eps
+        self.silu = silu
         self.weight = nn.Parameter(torch.ones(num_channels))
         self.bias = nn.Parameter(torch.zeros(num_channels))
 
@@ -98,28 +101,38 @@ class GroupNorm(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return fused_group_norm_silu(
-            x, self.weight, self.bias, self.num_groups, self.eps, apply_silu=False
+            x, self.weight, self.bias, self.num_groups, self.eps, apply_silu=self.silu
         )
 
 
 class AdaGN(nn.Module):
     """Adaptive GroupNorm (reference ops.AdaGN, models/ops.py:176-200):
     non-affine GN, then h*(1 + scale) + shift with (scale, shift) =
-    Linear(SiLU(emb)) split in that order, as folded fp32 (a, b)."""
+    Linear(SiLU(emb)) split in that order; ``forward`` applies it (then SiLU
+    when ``silu``) through ``fused_group_norm_silu`` with (B, C) gain and
+    shift, ``coeffs`` gives the folded fp32 (a, b)."""
 
     def __init__(
         self, num_groups: int, num_channels: int, emb_channels: int,
-        eps: float = 1e-6, dtype: Optional[torch.dtype] = None,
+        eps: float = 1e-6, dtype: Optional[torch.dtype] = None, silu: bool = False,
     ):
         super().__init__()
         self.num_groups = num_groups
         self.eps = eps
+        self.silu = silu
         self.proj = nn.Sequential(nn.SiLU(), Dense(emb_channels, 2 * num_channels, dtype=dtype))
 
-    def coeffs(self, x: torch.Tensor, emb: torch.Tensor):
+    def _affine(self, emb: torch.Tensor):
         scale, shift = self.proj(emb).chunk(2, dim=-1)
-        gain = 1.0 + scale.to(torch.float32)
-        return gn_coeffs(x, self.num_groups, self.eps, gain, shift.to(torch.float32))
+        return 1.0 + scale.to(torch.float32), shift.to(torch.float32)
+
+    def coeffs(self, x: torch.Tensor, emb: torch.Tensor):
+        gain, shift = self._affine(emb)
+        return gn_coeffs(x, self.num_groups, self.eps, gain, shift)
+
+    def forward(self, x: torch.Tensor, emb: torch.Tensor) -> torch.Tensor:
+        gain, shift = self._affine(emb)
+        return fused_group_norm_silu(x, gain, shift, self.num_groups, self.eps, apply_silu=self.silu)
 
 
 class SelfAttention(nn.Module):
@@ -183,9 +196,9 @@ class ResidualBlock(nn.Module):
     ):
         super().__init__()
         self.compute_dtype = dtype
-        self.norm1 = GroupNorm(gn_num_groups, in_channels, gn_eps)
+        self.norm1 = GroupNorm(gn_num_groups, in_channels, gn_eps, silu=True)
         self.conv1 = RingConv(in_channels, out_channels, dtype=dtype)
-        self.norm2 = AdaGN(gn_num_groups, out_channels, emb_channels, gn_eps, dtype=dtype)
+        self.norm2 = AdaGN(gn_num_groups, out_channels, emb_channels, gn_eps, dtype=dtype, silu=True)
         self.conv2 = RingConv(out_channels, out_channels, dtype=dtype)
         nn.init.zeros_(self.conv2.weight)
         self.skip = (
@@ -193,13 +206,12 @@ class ResidualBlock(nn.Module):
             if in_channels != out_channels else None
         )
 
-    def _conv(self, conv: RingConv, x: torch.Tensor, coeffs) -> torch.Tensor:
-        xc = x.to(self.compute_dtype) if self.compute_dtype is not None else x
-        a, b = coeffs
-        return fused_act_ringconv(xc, a, b, conv.hwio(), conv.bias, apply_act=True)
+    def _conv(self, conv: RingConv, h: torch.Tensor) -> torch.Tensor:
+        hc = h.to(self.compute_dtype) if self.compute_dtype is not None else h
+        return fused_act_ringconv(hc, None, None, conv.hwio(), conv.bias, apply_act=False)
 
     def forward(self, x: torch.Tensor, emb: torch.Tensor) -> torch.Tensor:
-        h = self._conv(self.conv1, x, self.norm1.coeffs(x))
-        h = self._conv(self.conv2, h, self.norm2.coeffs(h, emb))
+        h = self._conv(self.conv1, self.norm1(x))
+        h = self._conv(self.conv2, self.norm2(h, emb))
         skip = self.skip(x) if self.skip is not None else x
         return (skip + h) * _scale_in(h, RESIDUAL_SCALE)

@@ -5,11 +5,13 @@ Replaces the TPU kernel ``r2dm_tpu/ops/pallas_gn.py::fused_group_norm_silu``.
 Two entries, each one launch of the same kernel (one thread block cluster
 of ``CLUSTER`` CTAs per sample; ``_launch_args`` holds the arithmetic):
 
-- ``gn_coeffs(x, G, eps, gain, shift) -> (a, b)``: fp32 (B, C) coefficients
-  with GN_affine(x) == x*a + b (statistics + fold). ``ResidualBlock``
-  feeds them to the conv prologue of ``act_ringconv``.
 - ``fused_group_norm_silu(x, gain, shift, G, eps, apply_silu)``: the TPU
-  kernel's whole function, used by ``SelfAttentionBlock``'s norm.
+  kernel's whole function, used by every norm of the network: with SiLU in
+  ``ResidualBlock`` (its output feeds ``act_ringconv`` with
+  ``apply_act=False``), without it in ``SelfAttentionBlock``.
+- ``gn_coeffs(x, G, eps, gain, shift) -> (a, b)``: fp32 (B, C) coefficients
+  with GN_affine(x) == x*a + b (statistics + fold), the input of
+  ``act_ringconv``'s prologue (``apply_act=True``).
 
 A CPU tensor takes the plain version; a CUDA tensor launches the kernel or
 raises. Each wrapper counts its kernel launches in ``.launches``.

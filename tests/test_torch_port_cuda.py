@@ -10,6 +10,8 @@ with the card and without JAX it runs as
 import pytest
 import torch
 
+from r2dm_tpu_torch import ops
+from r2dm_tpu_torch.models import layers
 from r2dm_tpu_torch.ops import act_ringconv, gn_silu
 
 pytestmark = pytest.mark.cuda
@@ -100,6 +102,32 @@ def test_gn_clusters_fit_the_card(dev):
     """Config H at b8 runs 8 clusters at once (128 of 132 SMs)."""
     for C in (64, 128, 256, 512):
         assert gn_silu.max_active_clusters(C) >= 8
+
+
+def test_residual_block_writes_the_activation_once(dev, monkeypatch):
+    """A ResidualBlock forward on the card: GN+SiLU and AdaGN+SiLU through
+    the whole-function kernel, both convs without their prologue, and no
+    coefficients-only launch; it matches the same block on the plain
+    versions (bf16: max|err| <= 1e-2 * max|ref|)."""
+    torch.manual_seed(0)
+    blk = layers.ResidualBlock(64, 128, emb_channels=256, dtype=torch.bfloat16)
+    with torch.no_grad():
+        for prm in blk.parameters():  # conv2 is zero-initialised
+            prm.copy_(0.05 * torch.randn(prm.shape))
+    blk = blk.to(dev)
+    x = _randn((2, 8, 128, 64), dev, 8, torch.bfloat16)
+    emb = _randn((2, 256), dev, 9)
+    before = {fn.__name__: fn.launches for fn in ops.KERNEL_WRAPPERS}
+    with torch.no_grad():
+        y = blk(x, emb)
+    launched = {fn.__name__: fn.launches - before[fn.__name__] for fn in ops.KERNEL_WRAPPERS}
+    assert launched == {"gn_coeffs": 0, "fused_group_norm_silu": 2, "fused_act_ringconv": 2}
+    monkeypatch.setattr(layers, "fused_group_norm_silu", gn_silu.fused_group_norm_silu_plain)
+    monkeypatch.setattr(layers, "fused_act_ringconv", act_ringconv.act_ringconv_plain)
+    with torch.no_grad():
+        ref = blk(x, emb)
+    err = (y.float() - ref.float()).abs().max().item()
+    assert err <= 1e-2 * ref.float().abs().max().item(), err
 
 
 def test_cuda_tensors_never_reach_the_plain_version(dev):
