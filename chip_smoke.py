@@ -330,8 +330,7 @@ def phase_main(torch):
     cond = torch.tensor([2.0, -3.0], device="cuda")
     with torch.inference_mode():
         y_kernel = ddpm.model(xin, cond)
-        patched = {"gn_coeffs": ops.gn_silu.gn_coeffs_plain,
-                   "fused_group_norm_silu": ops.gn_silu.fused_group_norm_silu_plain,
+        patched = {"fused_group_norm_silu": ops.gn_silu.fused_group_norm_silu_plain,
                    "fused_act_ringconv": ops.act_ringconv.act_ringconv_plain}
         saved = {n: getattr(layers, n) for n in patched}
         try:

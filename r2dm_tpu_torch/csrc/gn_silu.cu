@@ -348,18 +348,16 @@ int gn_launch(const void* x, void* y, const void* gain, const void* shift, int g
   return apply ? launch<true>(p, B, K, smem, stream) : launch<false>(p, B, K, smem, stream);
 }
 
-// cudaOccupancyMaxActiveClusters for clusters of K CTAs with `smem` bytes
-// of dynamic shared memory each; < 0: minus the CUDA error code.
-int gn_max_active_clusters(int K, int smem, int apply) {
-  cudaError_t e = apply ? prepare<true>(smem) : prepare<false>(smem);
+// cudaOccupancyMaxActiveClusters for the whole function's clusters of K CTAs
+// with `smem` bytes of dynamic shared memory each; < 0: minus the CUDA error.
+int gn_max_active_clusters(int K, int smem) {
+  cudaError_t e = prepare<true>(smem);
   if (e != cudaSuccess) return -static_cast<int>(e);
   cudaLaunchConfig_t cfg;
   cudaLaunchAttribute attr[1];
   config(cfg, attr, K, 1, smem, nullptr);
   int n = 0;
-  const void* fn = apply ? reinterpret_cast<const void*>(gn_kernel<true>)
-                         : reinterpret_cast<const void*>(gn_kernel<false>);
-  e = cudaOccupancyMaxActiveClusters(&n, fn, &cfg);
+  e = cudaOccupancyMaxActiveClusters(&n, reinterpret_cast<const void*>(gn_kernel<true>), &cfg);
   return e == cudaSuccess ? n : -static_cast<int>(e);
 }
 

@@ -25,7 +25,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from ..ops.act_ringconv import fused_act_ringconv
-from ..ops.gn_silu import fused_group_norm_silu, gn_coeffs
+from ..ops.gn_silu import fused_group_norm_silu
 from ..ops.pad import ring_pad
 
 RESIDUAL_SCALE = float(1 / math.sqrt(2))
@@ -85,7 +85,7 @@ class RingConv(nn.Module):
 class GroupNorm(nn.Module):
     """Affine GroupNorm (torch nn.GroupNorm semantics), followed by SiLU when
     ``silu`` (JAX's ``silu`` field), through the ``fused_group_norm_silu``
-    kernel; ``coeffs`` gives its folded (a, b)."""
+    kernel."""
 
     def __init__(self, num_groups: int, num_channels: int, eps: float = 1e-6, silu: bool = False):
         super().__init__()
@@ -94,10 +94,6 @@ class GroupNorm(nn.Module):
         self.silu = silu
         self.weight = nn.Parameter(torch.ones(num_channels))
         self.bias = nn.Parameter(torch.zeros(num_channels))
-
-    def coeffs(self, x: torch.Tensor):
-        """fp32 (a, b) with GN_affine(x) == x*a + b."""
-        return gn_coeffs(x, self.num_groups, self.eps, self.weight, self.bias)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return fused_group_norm_silu(
@@ -108,9 +104,8 @@ class GroupNorm(nn.Module):
 class AdaGN(nn.Module):
     """Adaptive GroupNorm (reference ops.AdaGN, models/ops.py:176-200):
     non-affine GN, then h*(1 + scale) + shift with (scale, shift) =
-    Linear(SiLU(emb)) split in that order; ``forward`` applies it (then SiLU
-    when ``silu``) through ``fused_group_norm_silu`` with (B, C) gain and
-    shift, ``coeffs`` gives the folded fp32 (a, b)."""
+    Linear(SiLU(emb)) split in that order, then SiLU when ``silu``: one
+    ``fused_group_norm_silu`` with (B, C) gain 1 + scale and shift."""
 
     def __init__(
         self, num_groups: int, num_channels: int, emb_channels: int,
@@ -122,17 +117,12 @@ class AdaGN(nn.Module):
         self.silu = silu
         self.proj = nn.Sequential(nn.SiLU(), Dense(emb_channels, 2 * num_channels, dtype=dtype))
 
-    def _affine(self, emb: torch.Tensor):
-        scale, shift = self.proj(emb).chunk(2, dim=-1)
-        return 1.0 + scale.to(torch.float32), shift.to(torch.float32)
-
-    def coeffs(self, x: torch.Tensor, emb: torch.Tensor):
-        gain, shift = self._affine(emb)
-        return gn_coeffs(x, self.num_groups, self.eps, gain, shift)
-
     def forward(self, x: torch.Tensor, emb: torch.Tensor) -> torch.Tensor:
-        gain, shift = self._affine(emb)
-        return fused_group_norm_silu(x, gain, shift, self.num_groups, self.eps, apply_silu=self.silu)
+        scale, shift = self.proj(emb).chunk(2, dim=-1)
+        gain = 1.0 + scale.to(torch.float32)
+        return fused_group_norm_silu(
+            x, gain, shift.to(torch.float32), self.num_groups, self.eps, apply_silu=self.silu
+        )
 
 
 class SelfAttention(nn.Module):

@@ -50,7 +50,7 @@ def _lib():
     if lib.gn_launch.argtypes is None:
         lib.gn_launch.argtypes = _ARGS
         lib.gn_launch.restype = ctypes.c_int
-        lib.gn_max_active_clusters.argtypes = [ctypes.c_int] * 3
+        lib.gn_max_active_clusters.argtypes = [ctypes.c_int] * 2
         lib.gn_max_active_clusters.restype = ctypes.c_int
     return lib
 
@@ -151,11 +151,11 @@ def _launch(x, y, gain, shift, a, b, num_groups, eps, apply, silu, what):
     build.check(lib, rc, what)
 
 
-def max_active_clusters(C: int, apply: bool = True) -> int:
-    """cudaOccupancyMaxActiveClusters for the kernel's clusters at C
+def max_active_clusters(C: int) -> int:
+    """cudaOccupancyMaxActiveClusters for the whole function's clusters at C
     channels (config H at b8 needs 8 co-resident clusters)."""
     la = _launch_args(1, 1, 1, C)
-    n = _lib().gn_max_active_clusters(la.cluster, la.smem_bytes, int(apply))
+    n = _lib().gn_max_active_clusters(la.cluster, la.smem_bytes)
     if n < 0:
         build.check(_lib(), -n, "gn_max_active_clusters")
     return n
