@@ -4,10 +4,10 @@
 // (Pallas body _gn_silu_kernel, pallas_gn.py:50-104), which kept one whole
 // sample resident in VMEM and so read x once.
 //
-// v2: one kernel, gn_kernel<APPLY>, one launch per call. The grid is K CTAs
-// per sample times B samples; the K CTAs of a sample form one thread block
-// cluster, and CTA rank r streams the contiguous pixel rows
-// [r*rows, min((r+1)*rows, HW)) of its sample (empty when HW < K).
+// v2: one kernel, one launch per call. The grid is K CTAs per sample times
+// B samples; the K CTAs of a sample form one thread block cluster, and CTA
+// rank r streams the contiguous pixel rows [r*rows, min((r+1)*rows, HW)) of
+// its sample (empty when HW < K).
 //   1. statistics: fp32 sums of x and x^2 per channel; thread t owns the
 //      8-channel vector t % (C/8) of every (512/(C/8))-th row, 16-byte
 //      loads, kUnroll of them in flight a thread (64 KB a CTA); the CTA
@@ -17,13 +17,13 @@
 //      K CTAs (each thread a fixed subset, then a fixed-order CTA sum: the
 //      result is deterministic, with no atomics), forms the mean and
 //      E[x^2]-E[x]^2 (clamped at 0, eps inside the rsqrt, count H*W*C/G, as
-//      r2dm_tpu/models/layers.py:417-427) and folds the affine into
-//      a = rstd*gain, b = -mean*rstd*gain + shift (layers.py:478-489).
-//      gn_coeffs writes them to global memory; APPLY pushes them into every
-//      CTA's shared memory. A second cluster barrier ends all remote access,
-//      so a CTA may leave after it with no third barrier (fetching (a, b)
-//      from the owners after the barrier instead cost 3-6 us a call);
-//   3. APPLY: each thread reads the (a, b) of its 8 channels from its own
+//      r2dm_tpu/models/layers.py:417-427), folds the affine into
+//      a = rstd*gain, b = -mean*rstd*gain + shift (layers.py:478-489) and
+//      pushes (a, b) into every CTA's shared memory. A second cluster
+//      barrier ends all remote access, so a CTA may leave after it with no
+//      third barrier (fetching (a, b) from the owners after the barrier
+//      instead cost 3-6 us a call);
+//   3. apply: each thread reads the (a, b) of its 8 channels from its own
 //      shared memory into registers, and the CTA walks its rows again, last
 //      to first: y = x*a + b, [SiLU], in fp32, rounded to bf16 once, 16-byte
 //      stores.
@@ -32,12 +32,11 @@
 // 8x8x128x512) and folded them in a second launch on B blocks; here they
 // never leave the SMs, and the whole call is one launch.
 //
-// Bound on an H100 SXM (3.35 TB/s): memory. gn_coeffs must read x once; the
-// whole function must read x once and write y once. This kernel reads x
-// twice in APPLY mode: the second read of a CTA's share is an L2 hit where
-// the activation fits the 50 MB L2 (config H, b8: levels 2-4, 4-34 MB); at
-// level 1 (67-134 MB) the walk from the last row finds the rows read last
-// in L2 and reads the rest from HBM again.
+// Bound on an H100 SXM (3.35 TB/s): memory, x read once and y written once.
+// This kernel reads x twice: the second read of a CTA's share is an L2 hit
+// where the activation fits the 50 MB L2 (config H, b8: levels 2-4,
+// 4-34 MB); at level 1 (67-134 MB) the walk from the last row finds the
+// rows read last in L2 and reads the rest from HBM again.
 //
 // The launch arithmetic (K, rows per CTA, threads per pixel row, rows per
 // pass, dynamic shared memory) comes from the wrapper, ops/gn_silu.py
@@ -51,6 +50,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <atomic>
+
 namespace cg = cooperative_groups;
 
 namespace {
@@ -59,14 +60,16 @@ constexpr int kThreads = 512;
 constexpr int kWarps = kThreads / 32;
 constexpr int kVec = 8;     // bf16 channels per 16-byte vector
 constexpr int kUnroll = 8;  // 16-byte loads in flight per thread
+// dynamic shared memory of any call: 2*rpp*C <= 2*kThreads*kVec floats of
+// per-thread-row sums, plus s1 and s2 at C <= 2048 (ops/gn_silu.py)
+constexpr int kMaxSmem = 4 * (2 * kThreads * kVec + 2 * 2048);
+constexpr float kLog2e = 1.4426950408889634f;
 
 struct Params {
   const __nv_bfloat16* x;
-  __nv_bfloat16* y;      // APPLY only
+  __nv_bfloat16* y;
   const float* gain;     // element (b, c) at b*gstride + c (gstride 0: (C,))
   const float* shift;
-  float* a_out;          // !APPLY only: (B, C) fp32
-  float* b_out;
   int gstride;
   int HW, C, G;
   int rows;              // pixel rows per CTA
@@ -95,13 +98,20 @@ __device__ __forceinline__ uint4 pack8(const float* f) {
   return u;
 }
 
-// z*sigmoid(z) = z*(0.5 + 0.5*tanh(z/2)): one MUFU operation an element
-// (tanh.approx, max relative error 2^-11, under a fifth of the bf16 output's
-// rounding step) where exp + reciprocal take two
+// z*sigmoid(z) in fp32, accurate to a relative 2e-5 over all z, with one
+// MUFU operation an element: e = exp(-|z|) (ex2.approx), r = 1/(1 + e) by
+// two Newton steps on the FMA pipe from the linear guess 24/17 - 8/17*d,
+// whose relative error on d in [1, 2] is at most 1/17 (then 1/17^4), and
+// sigmoid(z) = r for z >= 0, e*r for z < 0 (no 1 - x cancellation in the
+// negative tail)
 __device__ __forceinline__ float silu(float z) {
-  float th;
-  asm("tanh.approx.f32 %0, %1;" : "=f"(th) : "f"(0.5f * z));
-  return z * fmaf(0.5f, th, 0.5f);
+  float e;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(e) : "f"(-fabsf(z) * kLog2e));
+  const float d = 1.f + e;
+  float r = fmaf(-8.f / 17.f, d, 24.f / 17.f);
+  r = fmaf(r, fmaf(-d, r, 1.f), r);
+  r = fmaf(r, fmaf(-d, r, 1.f), r);
+  return z * (z >= 0.f ? r : e * r);
 }
 
 // Sum of u1 and u2 over the CTA, in a fixed order, returned to every
@@ -128,13 +138,12 @@ __device__ __forceinline__ void block_sum2(float& u1, float& u2, float* ws) {
   __syncthreads();
 }
 
-template <bool APPLY>
 __global__ void __launch_bounds__(kThreads, 1) gn_kernel(const Params p) {
   extern __shared__ __align__(16) float smem[];
   __shared__ float ws[2 * kWarps];
   const int C = p.C, rpp = p.rpp;
   // [2][rpp][C]: per-thread-row sums; after the first cluster barrier the
-  // first 2*C floats take every channel's folded (a, b) (APPLY)
+  // first 2*C floats take every channel's folded (a, b)
   float* red = smem;
   float* s1 = smem + 2 * rpp * C;  // [C] this CTA's sums of x
   float* s2 = s1 + C;              // [C] ... and of x^2
@@ -223,69 +232,68 @@ __global__ void __launch_bounds__(kThreads, 1) gn_kernel(const Params p) {
     const float mean = u1 / p.count;
     const float var = fmaxf(u2 / p.count - mean * mean, 0.f);
     const float rstd = rsqrtf(var + p.eps);
-    // gn_coeffs: (a, b) to global memory. APPLY: pushed into every CTA's
-    // ca/cb (stores to distributed shared memory, so that after the next
-    // barrier no CTA reads another's shared memory)
-    for (int i = t; i < (APPLY ? K : 1) * cpg; i += kThreads) {
+    // pushed into every CTA's ca/cb (stores to distributed shared memory,
+    // so that after the next barrier no CTA reads another's shared memory)
+    for (int i = t; i < K * cpg; i += kThreads) {
       const int c = g * cpg + i % cpg;
+      const int k = i / cpg;
       const float gn = p.gain[(size_t)b * p.gstride + c];
       const float sh = p.shift[(size_t)b * p.gstride + c];
-      const float av = rstd * gn;
-      const float bv = (-mean * rstd) * gn + sh;
-      if constexpr (APPLY) {
-        const int k = i / cpg;
-        cluster.map_shared_rank(ca, k)[c] = av;
-        cluster.map_shared_rank(cb, k)[c] = bv;
-      } else {
-        p.a_out[(size_t)b * C + c] = av;
-        p.b_out[(size_t)b * C + c] = bv;
-      }
+      cluster.map_shared_rank(ca, k)[c] = rstd * gn;
+      cluster.map_shared_rank(cb, k)[c] = (-mean * rstd) * gn + sh;
     }
   }
   // every remote read and write of the cluster is done: after this barrier
-  // a CTA may leave, and ca/cb hold all C channels (APPLY)
+  // a CTA may leave, and ca/cb hold all C channels
   cluster.sync();
-  if constexpr (APPLY) {
-    // 3. apply, walking this thread's rows from the last: the stats pass
-    // read them first to last, so the most recent (still in L2) come first
-    if (!active) return;
-    float fa[kVec], fb[kVec];
+  // 3. apply, walking this thread's rows from the last: the stats pass read
+  // them first to last, so the most recent (still in L2) come first
+  if (!active) return;
+  float fa[kVec], fb[kVec];
 #pragma unroll
-    for (int i = 0; i < kVec; ++i) {
-      fa[i] = ca[v * kVec + i];
-      fb[i] = cb[v * kVec + i];
+  for (int i = 0; i < kVec; ++i) {
+    fa[i] = ca[v * kVec + i];
+    fb[i] = cb[v * kVec + i];
+  }
+  __nv_bfloat16* ys = p.y + (size_t)b * p.HW * C + v * kVec;
+  const int first = row0 + r;
+  const int n = first < row1 ? (row1 - first + rpp - 1) / rpp : 0;
+  for (int j0 = n - 1; j0 >= 0; j0 -= kUnroll) {
+    uint4 u[kUnroll];
+#pragma unroll
+    for (int k = 0; k < kUnroll; ++k) {
+      const int j = j0 - k;
+      u[k] = j >= 0 ? __ldg(reinterpret_cast<const uint4*>(xs + (size_t)(first + j * rpp) * C))
+                    : make_uint4(0u, 0u, 0u, 0u);
     }
-    __nv_bfloat16* ys = p.y + (size_t)b * p.HW * C + v * kVec;
-    const int first = row0 + r;
-    const int n = first < row1 ? (row1 - first + rpp - 1) / rpp : 0;
-    for (int j0 = n - 1; j0 >= 0; j0 -= kUnroll) {
-      uint4 u[kUnroll];
 #pragma unroll
-      for (int k = 0; k < kUnroll; ++k) {
-        const int j = j0 - k;
-        u[k] = j >= 0 ? __ldg(reinterpret_cast<const uint4*>(xs + (size_t)(first + j * rpp) * C))
-                      : make_uint4(0u, 0u, 0u, 0u);
+    for (int k = 0; k < kUnroll; ++k) {
+      const int j = j0 - k;
+      if (j < 0) break;
+      float f[kVec];
+      unpack8(u[k], f);
+#pragma unroll
+      for (int i = 0; i < kVec; ++i) {
+        const float z = fmaf(f[i], fa[i], fb[i]);
+        f[i] = p.silu ? silu(z) : z;
       }
-#pragma unroll
-      for (int k = 0; k < kUnroll; ++k) {
-        const int j = j0 - k;
-        if (j < 0) break;
-        float f[kVec];
-        unpack8(u[k], f);
-#pragma unroll
-        for (int i = 0; i < kVec; ++i) {
-          const float z = fmaf(f[i], fa[i], fb[i]);
-          f[i] = p.silu ? silu(z) : z;
-        }
-        *reinterpret_cast<uint4*>(ys + (size_t)(first + j * rpp) * C) = pack8(f);
-      }
+      *reinterpret_cast<uint4*>(ys + (size_t)(first + j * rpp) * C) = pack8(f);
     }
   }
 }
 
-template <bool APPLY>
-cudaError_t prepare(int smem) {
-  return cudaFuncSetAttribute(gn_kernel<APPLY>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+// The dynamic shared memory attribute, set once per device at the largest
+// size any call takes (not on every launch)
+cudaError_t prepare() {
+  static std::atomic<unsigned long long> done{0};
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return e;
+  const unsigned long long bit = 1ull << (dev & 63);
+  if (done.load(std::memory_order_acquire) & bit) return cudaSuccess;
+  e = cudaFuncSetAttribute(gn_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kMaxSmem);
+  if (e == cudaSuccess) done.fetch_or(bit, std::memory_order_acq_rel);
+  return e;
 }
 
 void config(cudaLaunchConfig_t& cfg, cudaLaunchAttribute* attr, int K, int B, int smem,
@@ -303,18 +311,6 @@ void config(cudaLaunchConfig_t& cfg, cudaLaunchAttribute* attr, int K, int B, in
   cfg.numAttrs = 1;
 }
 
-template <bool APPLY>
-int launch(const Params& p, int B, int K, int smem, void* stream) {
-  cudaError_t e = prepare<APPLY>(smem);
-  if (e != cudaSuccess) return static_cast<int>(e);
-  cudaLaunchConfig_t cfg;
-  cudaLaunchAttribute attr[1];
-  config(cfg, attr, K, B, smem, static_cast<cudaStream_t>(stream));
-  e = cudaLaunchKernelEx(&cfg, gn_kernel<APPLY>, p);
-  if (e != cudaSuccess) return static_cast<int>(e);
-  return static_cast<int>(cudaGetLastError());
-}
-
 }  // namespace
 
 extern "C" {
@@ -323,18 +319,19 @@ const char* cuda_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
 
-// apply = 0: (a, b) fp32 (B, C) such that GN_affine(x) == x*a + b (y unused).
-// apply = 1: y = [silu](GN(x)*gain + shift), bf16 NHWC (a, b unused).
-int gn_launch(const void* x, void* y, const void* gain, const void* shift, int gstride,
-              void* a, void* b, int B, int HW, int C, int G, int K, int rows, int tpr,
-              int rpp, int smem, float eps, int apply, int silu, void* stream) {
+// y = [silu](GN(x)*gain + shift), bf16 NHWC; gain/shift fp32, element
+// (b, c) at b*gstride + c
+int gn_launch(const void* x, void* y, const void* gain, const void* shift, int gstride, int B,
+              int HW, int C, int G, int K, int rows, int tpr, int rpp, int smem, float eps,
+              int silu, void* stream) {
+  if (smem > kMaxSmem) return static_cast<int>(cudaErrorInvalidValue);
+  cudaError_t e = prepare();
+  if (e != cudaSuccess) return static_cast<int>(e);
   Params p;
   p.x = static_cast<const __nv_bfloat16*>(x);
   p.y = static_cast<__nv_bfloat16*>(y);
   p.gain = static_cast<const float*>(gain);
   p.shift = static_cast<const float*>(shift);
-  p.a_out = static_cast<float*>(a);
-  p.b_out = static_cast<float*>(b);
   p.gstride = gstride;
   p.HW = HW;
   p.C = C;
@@ -345,19 +342,24 @@ int gn_launch(const void* x, void* y, const void* gain, const void* shift, int g
   p.count = (float)HW * (float)(C / G);
   p.eps = eps;
   p.silu = silu;
-  return apply ? launch<true>(p, B, K, smem, stream) : launch<false>(p, B, K, smem, stream);
+  cudaLaunchConfig_t cfg;
+  cudaLaunchAttribute attr[1];
+  config(cfg, attr, K, B, smem, static_cast<cudaStream_t>(stream));
+  e = cudaLaunchKernelEx(&cfg, gn_kernel, p);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  return static_cast<int>(cudaGetLastError());
 }
 
-// cudaOccupancyMaxActiveClusters for the whole function's clusters of K CTAs
-// with `smem` bytes of dynamic shared memory each; < 0: minus the CUDA error.
+// cudaOccupancyMaxActiveClusters for clusters of K CTAs with `smem` bytes of
+// dynamic shared memory each; < 0: minus the CUDA error.
 int gn_max_active_clusters(int K, int smem) {
-  cudaError_t e = prepare<true>(smem);
+  cudaError_t e = prepare();
   if (e != cudaSuccess) return -static_cast<int>(e);
   cudaLaunchConfig_t cfg;
   cudaLaunchAttribute attr[1];
   config(cfg, attr, K, 1, smem, nullptr);
   int n = 0;
-  e = cudaOccupancyMaxActiveClusters(&n, reinterpret_cast<const void*>(gn_kernel<true>), &cfg);
+  e = cudaOccupancyMaxActiveClusters(&n, reinterpret_cast<const void*>(gn_kernel), &cfg);
   return e == cudaSuccess ? n : -static_cast<int>(e);
 }
 

@@ -2,10 +2,10 @@
 hand-written CUDA kernels (``gn_silu``, ``act_ringconv``)."""
 
 from .act_ringconv import fused_act_ringconv
-from .gn_silu import fused_group_norm_silu, gn_coeffs
+from .gn_silu import fused_group_norm_silu
 
 # every wrapper that launches a CUDA kernel; each counts its launches
-KERNEL_WRAPPERS = (gn_coeffs, fused_group_norm_silu, fused_act_ringconv)
+KERNEL_WRAPPERS = (fused_group_norm_silu, fused_act_ringconv)
 
 
 def reset_launch_counts() -> None:

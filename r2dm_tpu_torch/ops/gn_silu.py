@@ -2,19 +2,16 @@
 ``csrc/gn_silu.cu`` and its plain PyTorch version.
 
 Replaces the TPU kernel ``r2dm_tpu/ops/pallas_gn.py::fused_group_norm_silu``.
-Two entries, each one launch of the same kernel (one thread block cluster
-of ``CLUSTER`` CTAs per sample; ``_launch_args`` holds the arithmetic):
-
-- ``fused_group_norm_silu(x, gain, shift, G, eps, apply_silu)``: the TPU
-  kernel's whole function, used by every norm of the network: with SiLU in
-  ``ResidualBlock`` (its output feeds ``act_ringconv`` with
-  ``apply_act=False``), without it in ``SelfAttentionBlock``.
-- ``gn_coeffs(x, G, eps, gain, shift) -> (a, b)``: fp32 (B, C) coefficients
-  with GN_affine(x) == x*a + b (statistics + fold), the input of
-  ``act_ringconv``'s prologue (``apply_act=True``).
+``fused_group_norm_silu(x, gain, shift, G, eps, apply_silu)`` is one launch
+of the kernel (one thread block cluster of ``CLUSTER`` CTAs per sample;
+``_launch_args`` holds the arithmetic), used by every norm of the network:
+with SiLU in ``ResidualBlock`` (its output feeds ``act_ringconv`` with
+``apply_act=False``), without it in ``SelfAttentionBlock``.
+``gn_coeffs_plain`` gives the folded fp32 (a, b) with GN_affine(x) ==
+x*a + b, the coefficients of ``act_ringconv``'s prologue (``apply_act=True``).
 
 A CPU tensor takes the plain version; a CUDA tensor launches the kernel or
-raises. Each wrapper counts its kernel launches in ``.launches``.
+raises. The wrapper counts its kernel launches in ``.launches``.
 """
 
 from __future__ import annotations
@@ -26,10 +23,7 @@ import torch
 
 from . import build
 
-_ARGS = (
-    [ctypes.c_void_p] * 4 + [ctypes.c_int] + [ctypes.c_void_p] * 2
-    + [ctypes.c_int] * 9 + [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
-)
+_ARGS = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 10 + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
 # CTAs per sample, one thread block cluster. 8 is the portable size: at 16
 # only 7 clusters fit an H100 SXM at once, and b8 needs 8.
 CLUSTER = 8
@@ -137,22 +131,8 @@ def _affine_args(x, gain, shift):
     return gain, shift, (C if gain.dim() == 2 else 0)
 
 
-def _launch(x, y, gain, shift, a, b, num_groups, eps, apply, silu, what):
-    lib = _lib()
-    B, H, W, C = x.shape
-    gain, shift, gstride = _affine_args(x, gain, shift)
-    la = _launch_args(B, H, W, C)
-    rc = lib.gn_launch(
-        x.data_ptr(), y, gain.data_ptr(), shift.data_ptr(), gstride, a, b,
-        B, H * W, C, num_groups, la.cluster, la.rows_per_cta, la.threads_per_row,
-        la.rows_per_pass, la.smem_bytes, float(eps), int(apply), int(silu),
-        build.stream_ptr(x.device),
-    )
-    build.check(lib, rc, what)
-
-
 def max_active_clusters(C: int) -> int:
-    """cudaOccupancyMaxActiveClusters for the whole function's clusters at C
+    """cudaOccupancyMaxActiveClusters for the kernel's clusters at C
     channels (config H at b8 needs 8 co-resident clusters)."""
     la = _launch_args(1, 1, 1, C)
     n = _lib().gn_max_active_clusters(la.cluster, la.smem_bytes)
@@ -161,31 +141,22 @@ def max_active_clusters(C: int) -> int:
     return n
 
 
-def gn_coeffs(x, num_groups: int, eps: float, gain, shift):
-    """fp32 (a, b) of shape (B, C) with GN_affine(x) == x*a + b; x NHWC,
-    gain/shift (C,) or (B, C)."""
-    if x.device.type == "cpu":
-        return gn_coeffs_plain(x, num_groups, eps, gain, shift)
-    _check(x, num_groups, gain, shift)
-    B, C = x.shape[0], x.shape[-1]
-    a = torch.empty((B, C), dtype=torch.float32, device=x.device)
-    b = torch.empty_like(a)
-    _launch(x, None, gain, shift, a.data_ptr(), b.data_ptr(), num_groups, eps, False, False, "gn_coeffs")
-    gn_coeffs.launches += 1
-    return a, b
-
-
-gn_coeffs.launches = 0
-
-
 def fused_group_norm_silu(x, gain, shift, num_groups: int, eps: float, apply_silu: bool = True):
     """[silu](GN(x) * gain + shift) on NHWC x; gain/shift (C,) or (B, C)."""
     if x.device.type == "cpu":
         return fused_group_norm_silu_plain(x, gain, shift, num_groups, eps, apply_silu)
     _check(x, num_groups, gain, shift)
+    lib = _lib()
+    B, H, W, C = x.shape
+    gain, shift, gstride = _affine_args(x, gain, shift)
+    la = _launch_args(B, H, W, C)
     y = torch.empty_like(x)
-    _launch(x, y.data_ptr(), gain, shift, None, None, num_groups, eps, True, apply_silu,
-            "fused_group_norm_silu")
+    rc = lib.gn_launch(
+        x.data_ptr(), y.data_ptr(), gain.data_ptr(), shift.data_ptr(), gstride,
+        B, H * W, C, num_groups, la.cluster, la.rows_per_cta, la.threads_per_row,
+        la.rows_per_pass, la.smem_bytes, float(eps), int(apply_silu), build.stream_ptr(x.device),
+    )
+    build.check(lib, rc, "fused_group_norm_silu")
     fused_group_norm_silu.launches += 1
     return y
 

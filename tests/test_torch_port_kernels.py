@@ -82,9 +82,7 @@ def test_gn_coeffs_plain_matches_jax(per_batch):
     a_ref, b_ref = _folded_gn_coeffs(
         jnp.asarray(x), 4, 1e-6, jnp.asarray(gain), jnp.asarray(shift), "NHWC"
     )
-    before = gn_silu.gn_coeffs.launches
-    a, b = gn_silu.gn_coeffs(t(x), 4, 1e-6, t(gain), t(shift))
-    assert gn_silu.gn_coeffs.launches == before  # CPU tensors take the plain version
+    a, b = gn_silu.gn_coeffs_plain(t(x), 4, 1e-6, t(gain), t(shift))
     assert a.dtype == b.dtype == torch.float32 and a.shape == (2, 16)
     np.testing.assert_allclose(a.numpy(), np.asarray(a_ref), atol=1e-5)
     np.testing.assert_allclose(b.numpy(), np.asarray(b_ref), atol=1e-5)
@@ -186,50 +184,3 @@ def test_gn_launch_args_cover_every_row_once(B, H, W, C, G):
         for r in range(la.rows_per_pass):
             np.add.at(seen, np.arange(row0 + r, row1, la.rows_per_pass), 1)
     np.testing.assert_array_equal(seen, 1)
-
-
-def _cluster_coeffs(x, G, eps, gain, shift):
-    """gn_coeffs as the kernel computes it: per-CTA fp32 sums over the
-    shares of _launch_args, then rank g % K folds group g from all K CTAs in
-    rank order, and each channel's (a, b) is read from its owner."""
-    B, H, W, C = x.shape
-    la = gn_silu._launch_args(B, H, W, C)
-    K, cpg = la.cluster, C // G
-    xf = x.reshape(B, H * W, C).double()
-    a = torch.full((B, C), float("nan"), dtype=torch.float64)
-    b = torch.full((B, C), float("nan"), dtype=torch.float64)
-    g_, s_ = gn_silu._affine(gain, shift, B, C)
-    for n in range(B):
-        sums = []
-        for rank in range(K):
-            row0 = min(rank * la.rows_per_cta, H * W)
-            share = xf[n, row0:min(row0 + la.rows_per_cta, H * W)]
-            sums.append((share.sum(0), (share * share).sum(0)))
-        owned = {rank: {} for rank in range(K)}
-        for rank in range(K):
-            for g in range(rank, G, K):
-                ch = slice(g * cpg, (g + 1) * cpg)
-                s1 = sum(sums[k][0][ch] for k in range(K)).sum()
-                s2 = sum(sums[k][1][ch] for k in range(K)).sum()
-                mean = s1 / (H * W * cpg)
-                rstd = torch.rsqrt(torch.clamp(s2 / (H * W * cpg) - mean * mean, min=0.0) + eps)
-                for c in range(g * cpg, (g + 1) * cpg):
-                    owned[rank][c] = (rstd * g_[n, c], -mean * rstd * g_[n, c] + s_[n, c])
-        for c in range(C):
-            a[n, c], b[n, c] = owned[(c // cpg) % K][c]
-    return a.float(), b.float()
-
-
-@pytest.mark.parametrize("B,H,W,C,G", [(2, 1, 5, 16, 4), (3, 5, 7, 40, 5), (2, 3, 11, 64, 32), (1, 8, 16, 24, 3)])
-@pytest.mark.parametrize("per_batch", [False, True])
-def test_gn_cluster_fold_matches_plain(B, H, W, C, G, per_batch):
-    """The kernel's decomposition (shares, owners, fold order) gives the
-    plain version's coefficients, with empty shares, G < K and G > K."""
-    rng = np.random.default_rng(6)
-    x = t(rng.standard_normal((B, H, W, C), np.float32) + 0.3)
-    aff = (B, C) if per_batch else (C,)
-    gain, shift = t(rng.standard_normal(aff, np.float32)), t(rng.standard_normal(aff, np.float32))
-    a, b = _cluster_coeffs(x, G, 1e-6, gain, shift)
-    a_ref, b_ref = gn_silu.gn_coeffs_plain(x, G, 1e-6, gain, shift)
-    torch.testing.assert_close(a, a_ref, rtol=1e-5, atol=1e-5)
-    torch.testing.assert_close(b, b_ref, rtol=1e-5, atol=1e-5)
