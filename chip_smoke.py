@@ -10,7 +10,7 @@ Phases (any failure makes the exit code non-zero and suppresses the result):
      registers, spill bytes and shared memory (ptxas), and the GroupNorm
      kernel's cluster size with cudaOccupancyMaxActiveClusters;
   2. kernel 1 (gn_silu.cu) against its plain version at the config-H shapes,
-     and its SiLU over z in [-10, 10] to two bf16 steps;
+     and its SiLU over z in [-10, 10] to one bf16 step;
   3. kernel 2 (act_ringconv.cu) against its plain version at every
      (C_in, F, H, W) of the config-H ResidualBlocks, with and without its
      SiLU prologue (the main path runs it without);
@@ -219,7 +219,7 @@ def phase_gn(torch):
     # the SiLU in both tails: normalised values evenly over [-sqrt(3),
     # sqrt(3)] in every channel (group mean 0, shift 0), z = x*a + b over
     # [-10, 10]; kernel and plain version each round fp32 to bf16 once, so
-    # they may differ by a bf16 step: at most two, relative to the plain value
+    # they may differ by one bf16 step (2^-7 of the value) and no more
     C, H, W = 64, 8, 128
     grid = torch.linspace(-1.0, 1.0, H * W, device="cuda").to(torch.bfloat16)
     x = torch.stack([grid.roll(37 * c) for c in range(C)], dim=-1).reshape(1, H, W, C).expand(B, H, W, C).contiguous()
@@ -227,8 +227,8 @@ def phase_gn(torch):
     y = gn_silu.fused_group_norm_silu(x, gain, shift, G, eps).float()
     ref = gn_silu.fused_group_norm_silu_plain(x, gain, shift, G, eps).float()
     rel = ((y - ref).abs() / ref.abs()).max().item()
-    print(f"gn_silu SiLU over z in [-10, 10]: max relative error {rel:.3e} (limit 2^-6)")
-    if not rel <= 2.0 ** -6:
+    print(f"gn_silu SiLU over z in [-10, 10]: max relative error {rel:.3e} (limit 2^-7)")
+    if not rel <= 2.0 ** -7:
         raise AssertionError(f"gn_silu SiLU tail: max relative error {rel:.3e}")
     torch.cuda.synchronize()
     return worst

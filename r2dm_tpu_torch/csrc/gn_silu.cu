@@ -98,20 +98,15 @@ __device__ __forceinline__ uint4 pack8(const float* f) {
   return u;
 }
 
-// z*sigmoid(z) in fp32, accurate to a relative 2e-5 over all z, with one
-// MUFU operation an element: e = exp(-|z|) (ex2.approx), r = 1/(1 + e) by
-// two Newton steps on the FMA pipe from the linear guess 24/17 - 8/17*d,
-// whose relative error on d in [1, 2] is at most 1/17 (then 1/17^4), and
-// sigmoid(z) = r for z >= 0, e*r for z < 0 (no 1 - x cancellation in the
-// negative tail)
+// z*sigmoid(z) = z/(1 + exp(-z)) in fp32: ex2.approx and rcp.approx, two
+// MUFU operations, each within a few fp32 ulps, with no cancellation in
+// either tail (0.5 + 0.5*tanh(z/2) cancels for z < 0). For z < -88 the
+// exp overflows to inf and the result is -0, as z*sigmoid(z) rounds there.
 __device__ __forceinline__ float silu(float z) {
-  float e;
-  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(e) : "f"(-fabsf(z) * kLog2e));
-  const float d = 1.f + e;
-  float r = fmaf(-8.f / 17.f, d, 24.f / 17.f);
-  r = fmaf(r, fmaf(-d, r, 1.f), r);
-  r = fmaf(r, fmaf(-d, r, 1.f), r);
-  return z * (z >= 0.f ? r : e * r);
+  float e, r;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(e) : "f"(-z * kLog2e));
+  asm("rcp.approx.ftz.f32 %0, %1;" : "=f"(r) : "f"(1.f + e));
+  return z * r;
 }
 
 // Sum of u1 and u2 over the CTA, in a fixed order, returned to every

@@ -103,15 +103,15 @@ def silu_tail_input(dev, B=2, H=8, W=128, C=64):
 
 def test_gn_silu_is_accurate_in_both_tails(dev):
     """The kernel's SiLU against the plain fp32 y*sigmoid(y) over
-    z in [-10, 10]: at most two bf16 steps apart, relative to the plain
-    value (both round an fp32 value to bf16 once), including the negative
-    tail where sigmoid(z) is small."""
+    z in [-10, 10]: at most one bf16 step apart (both round an fp32 value
+    to bf16 once, so a step is all that may separate them), including the
+    negative tail where sigmoid(z) is small."""
     x, gain, shift = silu_tail_input(dev)
     y = gn_silu.fused_group_norm_silu(x, gain, shift, 8, 1e-6).float()
     ref = gn_silu.fused_group_norm_silu_plain(x, gain, shift, 8, 1e-6).float()
     z = gn_silu.fused_group_norm_silu_plain(x, gain, shift, 8, 1e-6, apply_silu=False).float()
     assert z.min().item() < -9.9 and z.max().item() > 9.9
-    bad = (y - ref).abs() > 2.0 ** -6 * ref.abs()
+    bad = (y - ref).abs() > 2.0 ** -7 * ref.abs()
     assert not bool(bad.any()), (z[bad][:8].tolist(), y[bad][:8].tolist(), ref[bad][:8].tolist())
 
 
