@@ -90,7 +90,7 @@ def test_gn_kernels_are_deterministic(dev, apply_silu):
     assert torch.equal(y1, y2)
 
 
-def silu_tail_input(dev, B=2, H=8, W=128, C=64):
+def _silu_tail_input(dev, B=2, H=8, W=128, C=64):
     """x whose normalised values run evenly over [-sqrt(3), sqrt(3)] in every
     channel with a group mean of 0, and a gain that maps them onto
     z = x*a + b in [-10, 10] (shift 0, so z has no cancellation)."""
@@ -106,7 +106,7 @@ def test_gn_silu_is_accurate_in_both_tails(dev):
     z in [-10, 10]: at most one bf16 step apart (both round an fp32 value
     to bf16 once, so a step is all that may separate them), including the
     negative tail where sigmoid(z) is small."""
-    x, gain, shift = silu_tail_input(dev)
+    x, gain, shift = _silu_tail_input(dev)
     y = gn_silu.fused_group_norm_silu(x, gain, shift, 8, 1e-6).float()
     ref = gn_silu.fused_group_norm_silu_plain(x, gain, shift, 8, 1e-6).float()
     z = gn_silu.fused_group_norm_silu_plain(x, gain, shift, 8, 1e-6, apply_silu=False).float()
