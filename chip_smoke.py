@@ -20,10 +20,17 @@ Phases (any failure makes the exit code non-zero and suppresses the result):
      then LiDARUtility denormalize -> revert_depth -> to_xyz. The launch
      counters are zeroed just before and read just after; one network
      forward is compared between the kernel path and the plain path;
-  5. time each kernel, its plain version and the one PyTorch call that
+  5. every other serving path at full width from that checkpoint, each with
+     its seconds and exact launch counts: dpmpp_2m, flow euler and
+     midpoint, discrete ddpm and ddim, return_all, RePaint at b4 over the
+     four masks of completion_demo.py (known pixels kept to 1e-2),
+     ``python -m r2dm_tpu_torch.generate`` (b2, 4 DDIM steps) and
+     ``r2dm_tpu_torch.bench`` (b8, 4 steps, 1 trial); then the peak memory
+     of one sampling step per image against DDPM.MAX_BATCH_PIXELS;
+  6. time each kernel, its plain version and the one PyTorch call that
      computes the same function (library_ms, a yardstick the port never
      calls), beside the least time the card could take (bound_ms);
-  6. one batch-8 network forward: its time as the host drives it, its
+  7. one batch-8 network forward: its time as the host drives it, its
      device time and each part's (CUDA graphs), the host's time to enqueue
      it, and the operations that block the host (sync debug mode).
 The line before the last is the kernels JSON; the last line is
@@ -261,7 +268,7 @@ def phase_conv(torch):
     return worst
 
 
-def phase_main(torch):
+def phase_main(torch, tmp):
     from r2dm_tpu_torch import config as config_lib
     from r2dm_tpu_torch import ops, setup_model
     from r2dm_tpu_torch.inference import build_model, model_coords
@@ -277,18 +284,17 @@ def phase_main(torch):
         else:  # every parameter ~ N(0, 0.05^2), so out_conv is non-zero
             sd[k] = torch.randn(v.shape, generator=g) * 0.05
     del net
-    with tempfile.TemporaryDirectory() as tmp:
-        path = os.path.join(tmp, "r2dm-h-random.pth")
-        torch.save({
-            "cfg": config_lib.asdict(cfg),
-            "weights": {f"model.{k}": v for k, v in sd.items()},
-            "ema_weights": {
-                **{f"ema_model.model.{k}": v for k, v in sd.items()},
-                "initted": torch.tensor(True), "step": torch.tensor(1),
-            },
-            "global_step": 1,
-        }, path)
-        ddpm, lidar, cfg = setup_model(path, dtype=torch.bfloat16, device="cuda")
+    path = os.path.join(tmp, "r2dm-h-random.pth")  # kept for the serving phase
+    torch.save({
+        "cfg": config_lib.asdict(cfg),
+        "weights": {f"model.{k}": v for k, v in sd.items()},
+        "ema_weights": {
+            **{f"ema_model.model.{k}": v for k, v in sd.items()},
+            "initted": torch.tensor(True), "step": torch.tensor(1),
+        },
+        "global_step": 1,
+    }, path)
+    ddpm, lidar, cfg = setup_model(path, dtype=torch.bfloat16, device="cuda")
     print(f"config H on the card: {ddpm.num_parameters} parameters, bf16 compute")
 
     ddpm.sample(batch_size=B, num_steps=1, mode="ddim", seeds=range(B))  # warm-up
@@ -352,7 +358,144 @@ def phase_main(torch):
         raise AssertionError(f"kernel path vs plain path relative L2 {rel}")
     img_s = B / ddim_s
     print(f"ddim16 b{B}: runs {json.dumps(ddim_runs)} s, median {ddim_s:.4f} s, {img_s:.4f} img/s")
-    return {"launches": launches, "ddim16_img_s": img_s, "ddim16_s": ddim_s, "rel_l2": rel, "ddpm": ddpm}
+    return {"launches": launches, "ddim16_img_s": img_s, "ddim16_s": ddim_s, "rel_l2": rel, "ddpm": ddpm,
+            "ckpt": path, "ddim16": x}
+
+
+def _png_size(path: str) -> tuple[int, int]:
+    """(height, width) from a PNG's header; raises if it is not a PNG."""
+    with open(path, "rb") as f:
+        head = f.read(24)
+    if head[:8] != b"\x89PNG\r\n\x1a\n" or head[12:16] != b"IHDR":
+        raise AssertionError(f"{path} is not a PNG")
+    return int.from_bytes(head[20:24], "big"), int.from_bytes(head[16:20], "big")
+
+
+def phase_serving(torch, main_out, tmp):
+    """Every other serving path at full config-H width, from phase_main's
+    random-weight checkpoint: each path's seconds and launch counts (50 GN,
+    48 conv a forward), and the peak memory per image that sets
+    DDPM.MAX_BATCH_PIXELS."""
+    import dataclasses
+    import runpy
+
+    import numpy as np
+
+    from r2dm_tpu_torch import bench, ops
+    from r2dm_tpu_torch.inference import DDPM, build_diffusion
+
+    ddpm = main_out["ddpm"]
+    H, W = ddpm.sampling_shape[:2]
+    seconds = {}
+
+    def family(timestep_type):
+        cfg = dataclasses.replace(ddpm.cfg, diffusion=dataclasses.replace(ddpm.cfg.diffusion, timestep_type=timestep_type))
+        return DDPM(build_diffusion(cfg, ddpm.model), cfg)
+
+    def run(name, forwards, fn, limit=1.02):
+        """Run one path with the counters zeroed; check its launches and that
+        its output is finite with max|x| <= limit."""
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        t0 = time.time()
+        out = fn()
+        torch.cuda.synchronize()
+        seconds[name] = time.time() - t0
+        launches = {fn_.__name__: fn_.launches for fn_ in ops.KERNEL_WRAPPERS}
+        expected = {"fused_group_norm_silu": 50 * forwards, "fused_act_ringconv": 48 * forwards}
+        x = out if isinstance(out, torch.Tensor) else None
+        peak = x.abs().max().item() if x is not None else float("nan")
+        print(f"path {name}: {seconds[name]:.3f} s, {forwards} forwards, launches {json.dumps(launches)}"
+              + (f", shape {list(x.shape)}, max|x| {peak:.4f}" if x is not None else ""))
+        if launches != expected:
+            raise AssertionError(f"{name}: launch counts {launches} != {expected}")
+        if x is not None and not (bool(torch.isfinite(x).all()) and peak <= limit):
+            raise AssertionError(f"{name}: non-finite values or max|x| {peak} > {limit}")
+        return out
+
+    seeds = range(B)
+    run("dpmpp_2m 8 steps b8", 8, lambda: ddpm.sample(B, 8, mode="dpmpp_2m", seeds=seeds))
+    flow = family("flow")  # unclipped ODE: random weights leave [-1, 1]
+    run("flow euler 4 steps b8", 4, lambda: flow.sample(B, 4, mode="euler", seeds=seeds), limit=1e3)
+    run("flow midpoint 2 steps b8", 4, lambda: flow.sample(B, 2, mode="midpoint", seeds=seeds), limit=1e3)
+    discrete = family("discrete")
+    run("discrete ddpm 4 steps b8", 4, lambda: discrete.sample(B, 4, mode="ddpm", seeds=seeds))
+    run("discrete ddim 4 steps b8", 4, lambda: discrete.sample(B, 4, mode="ddim", seeds=seeds))
+    # the stack starts at x_T ~ N(0, 1); the range check is on its last step
+    xs = run("return_all ddim 4 steps b8", 4,
+             lambda: ddpm.sample(B, 4, mode="ddim", seeds=seeds, return_all=True), limit=math.inf)
+    if tuple(xs.shape) != (5, B, 2, H, W) or not xs[-1].abs().max().item() <= 1.02:
+        raise AssertionError(f"return_all: shape {tuple(xs.shape)}, max|x_0| {xs[-1].abs().max().item()}")
+    last = ddpm.sample(B, 4, mode="ddim", seeds=seeds)
+    gap = (xs[-1] - last).abs().max().item()
+    print(f"return_all[-1] against sample: max|diff| {gap:.3e} (limit 1e-3)")
+    if not gap <= 1e-3:
+        raise AssertionError(f"return_all[-1] differs from sample by {gap}")
+
+    # RePaint, b4, over known scans from the main path's DDIM-16 samples with
+    # the four masks of completion_demo.py:70-74 (all, every 4th beam, half
+    # the beams, 10 % of the pixels); T=4, r=2, j=1: 3 x 2 + 1 forwards
+    rng = np.random.default_rng(0)
+    mask = np.zeros((4, 2, H, W), np.float32)
+    mask[0] = 1.0
+    mask[1, :, ::4] = 1.0
+    mask[2] = (rng.uniform(size=(1, H, 1)) < 0.5).astype(np.float32)
+    mask[3] = (rng.uniform(size=(1, H, W)) < 0.1).astype(np.float32)
+    mask = torch.from_numpy(mask).cuda()
+    known = mask * main_out["ddim16"][:4].clamp(-1, 1) + (1 - mask) * -1.0
+    out = run("repaint T4 r2 j1 b4", 7, lambda: ddpm.repaint(known, mask, 4, 2, 1, seeds=range(4)))
+    err = ((out - known).abs() * mask).max().item()
+    print(f"repaint: max|out - known| where mask = 1: {err:.3e} (limit 1e-2)")
+    if not err <= 1e-2:
+        raise AssertionError(f"repaint: known pixels moved by {err}")
+
+    # python -m r2dm_tpu_torch.generate, in this process so the counters see it
+    out_dir = os.path.join(tmp, "generate")
+    argv = ["r2dm_tpu_torch.generate", "--ckpt", main_out["ckpt"], "--batch_size", "2",
+            "--sampling_steps", "4", "--mode", "ddim", "--seed", "0", "--out_dir", out_dir]
+
+    def generate():
+        saved, sys.argv = sys.argv, argv
+        try:
+            runpy.run_module("r2dm_tpu_torch.generate", run_name="__main__", alter_sys=True)
+        except SystemExit as e:
+            if e.code not in (0, None):
+                raise AssertionError(f"python -m r2dm_tpu_torch.generate exited with {e.code}")
+        finally:
+            sys.argv = saved
+
+    run("python -m r2dm_tpu_torch.generate b2 ddim 4", 4, generate)
+    sizes = {n: _png_size(os.path.join(out_dir, n)) for n in ("samples_img.png", "samples_bev.png")}
+    print(f"generate wrote {json.dumps(sizes)}")
+    if sizes != {"samples_img.png": (2 * 2 * H, W), "samples_bev.png": (800, 2 * 800)}:
+        raise AssertionError(f"generate: PNG sizes {sizes}")
+
+    # r2dm_tpu_torch.bench at b8: 2 warm-up steps, 4 DDPM steps, 2 x 4 DDIM steps
+    result = run("r2dm_tpu_torch.bench b8 4 steps 1 trial", 2 + 4 + 2 * 4,
+                 lambda: bench.main(batch=B, steps=4, trials=1, ddim_steps=4))
+    if not (result["trials"] == 1 and result["value"] > 0 and "ddim4_img_per_s" in result):
+        raise AssertionError(f"bench: {result}")
+
+    # peak memory of one DDIM step per image (b8 and b32), against the
+    # chunking bound DDPM.MAX_BATCH_PIXELS
+    peaks = {}
+    for b in (B, 4 * B):
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        ddpm.sample(b, 1, mode="ddim", seeds=range(b))
+        torch.cuda.synchronize()
+        peaks[b] = torch.cuda.max_memory_allocated() - base
+    per_image = (peaks[4 * B] - peaks[B]) / (3 * B)
+    total = torch.cuda.get_device_properties(0).total_memory
+    bound_images = DDPM.MAX_BATCH_PIXELS // (H * W)
+    print(f"memory per image of one sampling step: {json.dumps({'peak_bytes': peaks, 'bytes_per_image': per_image})}"
+          f"; DDPM.MAX_BATCH_PIXELS = {bound_images} images -> {bound_images * per_image / 1e9:.2f} GB"
+          f" of {total / 1e9:.2f} GB")
+    if not bound_images * per_image + peaks[B] <= 0.9 * total:
+        raise AssertionError(f"DDPM.MAX_BATCH_PIXELS ({bound_images} images) does not fit the card")
+    print(f"serving paths seconds: {json.dumps(seconds)}")
+    return {"seconds": seconds, "bytes_per_image": per_image}
 
 
 def phase_breakdown(torch, ddpm):
@@ -513,11 +656,9 @@ def main() -> int:
     except ImportError as e:
         log(f"chip_smoke: the r2dm_tpu_torch package is missing ({e}); run from the repo root")
         return 2
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, timeout=60,
-    )
-    card = smi.stdout.strip().splitlines()[0] if smi.stdout.strip() else "unknown"
+    from r2dm_tpu_torch.bench import card as card_name
+
+    card = card_name()
     print(card)
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, {torch.cuda.get_device_name(0)}")
     torch.manual_seed(0)
@@ -529,7 +670,10 @@ def main() -> int:
         return 1
     gn_err = phases.run("kernel 1 against its plain version", phase_gn, torch)
     conv_err = phases.run("kernel 2 against its plain version", phase_conv, torch)
-    main_out = phases.run("main path", phase_main, torch)
+    with tempfile.TemporaryDirectory() as tmp:
+        main_out = phases.run("main path", phase_main, torch, tmp)
+        if main_out is not None:
+            phases.run("serving paths", phase_serving, torch, main_out, tmp)
     if main_out is not None and gn_err is not None and conv_err is not None:
         errs = {**gn_err, "fused_act_ringconv": conv_err}
         rows = phases.run("timing", phase_time, torch, main_out["launches"], errs)

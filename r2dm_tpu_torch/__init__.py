@@ -2,13 +2,14 @@
 
 Imports torch, numpy and the standard library only. The JAX package
 ``r2dm_tpu`` is the reference the port is tested against; nothing here
-imports it. The two TPU kernels of the sampling path are hand-written CUDA
-kernels (``csrc/``), built with nvcc at first use on a machine with the
-CUDA toolkit.
+imports it. The two TPU kernels, which every sampler runs, are hand-written
+CUDA kernels (``csrc/``), built with nvcc at first use on a machine with the
+CUDA toolkit. ``python -m r2dm_tpu_torch.generate`` and ``python -m
+r2dm_tpu_torch.bench`` are the command-line entry points.
 """
 
 from .config import Config
-from .inference import DDPM, pretrained_r2dm, setup_model
+from .inference import DDPM, PRETRAINED_CONFIGS, pretrained_r2dm, setup_model, setup_rng
 from .lidar import LiDARUtility
 
-__all__ = ["Config", "DDPM", "LiDARUtility", "pretrained_r2dm", "setup_model"]
+__all__ = ["Config", "DDPM", "LiDARUtility", "PRETRAINED_CONFIGS", "pretrained_r2dm", "setup_model", "setup_rng"]

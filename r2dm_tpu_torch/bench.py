@@ -1,0 +1,204 @@
+"""Headline benchmark of the port: 256-step DDPM sampling throughput at
+64x1024 on one card.
+
+    python -m r2dm_tpu_torch.bench [--batch 256] [--steps 256] [--trials 4]
+
+Prints one JSON line with img/s and MFU. The protocol of the repo's
+``bench.py``: batch 256, 256 DDPM steps, the continuous-time cosine schedule,
+config-H EfficientUNet (2x64x1024), a bf16 network with fp32 diffusion
+maths, random weights (N(0, 0.05^2) from seed 0; throughput does not depend
+on them), through ``DDPM.sample``. One warm-up step at the batch, then
+timed chains (CUDA events, a fresh generator each) while the wall-clock
+budget ``$R2DM_BENCH_BUDGET_S`` (default 900 s) covers another, at most
+``--trials``; the value is their median, and the line keeps every trial's
+seconds. A second measurement, ``ddim32_*``,
+times 32-step DDIM chains if the budget allows. The first chain's samples
+must be finite and not constant.
+
+MFU is achieved FLOP/s over the H100 SXM's dense bf16 tensor rate (989
+TFLOP/s), with the FLOP count of a config-H forward computed from the
+port's module shapes (``forward_flops``): its convolutions (3x3, 1x1 and the
+FIR resampling) are 229.0 GFLOP an image, the count of ``bench.py:50-52``
+(229.4, XLA's cost analysis); ``mfu_all`` adds the bottleneck attention
+and the dense layers (234.9 GFLOP).
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import statistics
+import subprocess
+import time
+
+import torch
+
+from . import config as config_lib
+from .inference import DDPM, build_diffusion, build_model, model_coords
+from .models.efficient_unet import EfficientUNet
+from .models.layers import RingConv
+from .ops import build
+
+PEAK_BF16_FLOPS = 989e12  # H100 SXM dense bf16 tensor-core rate
+BATCH = 256
+STEPS = 256
+MAX_TRIALS = 4
+DDIM_STEPS = 32
+FIR_TAPS = 16  # the 4x4 FIR filter of the 2x resampling, one channel at a time
+
+
+def forward_flops(model: EfficientUNet) -> dict[str, int]:
+    """FLOPs of one forward of one image, by kind, from the module shapes:
+    ``conv`` (every 3x3 and 1x1 conv at its level's resolution),
+    ``resample`` (the depthwise FIR filters of the 2x down/upsampling),
+    ``attention`` (the packed projections and the two batched products of
+    each self-attention block) and ``dense`` (time embedding, AdaGN
+    projections). A multiply-add counts 2."""
+
+    def conv(m: RingConv, h: int, w: int) -> int:
+        return 2 * h * w * m.weight.numel()
+
+    h, w = model.resolution
+    flops = {"conv": conv(model.in_conv, h, w) + conv(model.out_conv, h, w), "resample": 0, "attention": 0,
+             "dense": sum(2 * m.weight.numel() for m in model.time_embedding if isinstance(m, torch.nn.Linear))}
+    for name in ("d_block1", "d_block2", "d_block3", "d_block4", "u_block4", "u_block3", "u_block2", "u_block1"):
+        blk = getattr(model, name)
+        if blk.downsample is not None:
+            down_conv = blk.downsample[0]
+            flops["conv"] += conv(down_conv, h, w)
+            h, w = h // 2, w // 2
+            flops["resample"] += 2 * h * w * down_conv.weight.shape[0] * FIR_TAPS
+        for rb in blk.residual_blocks:
+            flops["conv"] += conv(rb.conv1, h, w) + conv(rb.conv2, h, w)
+            if rb.skip is not None:
+                flops["conv"] += conv(rb.skip, h, w)
+            flops["dense"] += 2 * rb.norm2.proj[1].weight.numel()
+        if blk.self_attn_block is not None:
+            attn = blk.self_attn_block.attn
+            n, c = h * w, attn.out_proj.weight.shape[0]
+            flops["attention"] += 2 * n * attn.in_proj_weight.numel() + 2 * 2 * n * n * c + 2 * n * c * c
+        if blk.upsample is not None:
+            up_conv = blk.upsample[1]
+            h, w = h * 2, w * 2
+            flops["resample"] += 2 * h * w * up_conv.weight.shape[0] * FIR_TAPS
+            flops["conv"] += conv(up_conv, h, w)
+    return flops
+
+
+def protocol_flops(flops: dict[str, int]) -> int:
+    """The count MFU uses: the convolutions, as the repo's bench.py counts."""
+    return flops["conv"] + flops["resample"]
+
+
+def random_ddpm(device="cuda", seed: int = 0) -> DDPM:
+    """Config H with every parameter N(0, 0.05^2) from ``seed`` (so the zero-
+    initialised output conv is not zero), bf16 on CUDA."""
+    cfg = config_lib.Config()
+    bf16 = torch.device(device).type == "cuda"
+    model = build_model(cfg, dtype=torch.bfloat16 if bf16 else None, device="cpu")
+    g = torch.Generator().manual_seed(seed)
+    with torch.no_grad():
+        for p in model.parameters():
+            p.copy_(torch.randn(p.shape, generator=g) * 0.05)
+        model.coords.copy_(torch.from_numpy(model_coords(cfg).transpose(2, 0, 1)[None].copy()))
+    model = model.to(device)
+    return DDPM(build_diffusion(cfg, model), cfg)
+
+
+def card() -> str:
+    """``name, power limit`` of the card, as nvidia-smi reports them."""
+    try:
+        out = subprocess.run(
+            ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+            capture_output=True, text=True, timeout=60,
+        ).stdout.strip().splitlines()
+        return out[0] if out else "unknown"
+    except (OSError, subprocess.SubprocessError):
+        return "unknown"
+
+
+def _timed(ddpm: DDPM, batch: int, steps: int, mode: str, seed: int):
+    """One chain through DDPM.sample, device time from CUDA events."""
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    x = ddpm.sample(batch, steps, mode=mode, data_format="NHWC", x_T=torch.randn(
+        (batch, *ddpm.sampling_shape), generator=torch.Generator("cuda").manual_seed(seed), device="cuda"))
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / 1e3, x
+
+
+def main(batch: int = BATCH, steps: int = STEPS, trials: int = MAX_TRIALS, ddim_steps: int = DDIM_STEPS) -> dict:
+    if not torch.cuda.is_available():
+        raise SystemExit("r2dm_tpu_torch.bench: no CUDA device; the benchmark runs on an NVIDIA card")
+    budget_s = float(os.environ.get("R2DM_BENCH_BUDGET_S", "900"))
+    t_start = time.time()
+    build.build_all()
+    ddpm = random_ddpm("cuda")
+    flops = forward_flops(ddpm.model)
+    h, w = ddpm.sampling_shape[:2]
+
+    torch.cuda.reset_peak_memory_stats()
+    _timed(ddpm, batch, 1, "ddpm", 0)  # warm-up: one step at the batch
+    warm_s, _ = _timed(ddpm, batch, 1, "ddpm", 0)
+    est_trial = warm_s * steps
+    times = []
+    for trial in range(trials):
+        remaining = budget_s - (time.time() - t_start)
+        if times and remaining < est_trial * 1.15:
+            break
+        dt, x = _timed(ddpm, batch, steps, "ddpm", trial + 1)
+        if not times:
+            xs = x[:2].float()
+            if not (bool(torch.isfinite(xs).all()) and xs.std().item() > 0.1):
+                raise AssertionError("degenerate samples: non-finite or constant")
+        times.append(dt)
+        est_trial = dt
+        del x
+
+    dt = statistics.median(times)
+    img_per_s = batch / dt
+    per_image = steps * protocol_flops(flops)
+    result = {
+        "metric": f"sampling_throughput_{steps}step_{h}x{w}",
+        "value": img_per_s,
+        "unit": "img/s",
+        "mfu": img_per_s * per_image / PEAK_BF16_FLOPS,
+        "mfu_all": img_per_s * steps * sum(flops.values()) / PEAK_BF16_FLOPS,
+        "gflop_per_forward": protocol_flops(flops) / 1e9,
+        "gflop_per_forward_all": sum(flops.values()) / 1e9,
+        "batch": batch,
+        "steps": steps,
+        "seconds_median": dt,
+        "seconds_min": min(times),
+        "seconds_max": max(times),
+        "seconds_stdev": statistics.stdev(times) if len(times) > 1 else 0.0,
+        "trials": len(times),
+        "seconds_all": times,
+        "warmup_step_s": warm_s,
+        "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
+        "device": torch.cuda.get_device_name(0),
+        "card": card(),
+    }
+    ddim_cost = est_trial * ddim_steps / steps
+    remaining = budget_s - (time.time() - t_start)
+    if remaining < 2.5 * ddim_cost:
+        result[f"ddim{ddim_steps}_skipped"] = f"budget ({remaining:.0f} s left)"
+    else:
+        dts = [_timed(ddpm, batch, ddim_steps, "ddim", 90 + i)[0] for i in range(2)]
+        result[f"ddim{ddim_steps}_img_per_s"] = batch / statistics.median(dts)
+        result[f"ddim{ddim_steps}_seconds_median"] = statistics.median(dts)
+        result[f"ddim{ddim_steps}_trials"] = len(dts)
+    print(json.dumps(result), flush=True)
+    return result
+
+
+if __name__ == "__main__":
+    parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    parser.add_argument("--batch", type=int, default=BATCH, help="images per chain (protocol: 256)")
+    parser.add_argument("--steps", type=int, default=STEPS, help="DDPM steps (protocol: 256)")
+    parser.add_argument("--trials", type=int, default=MAX_TRIALS, help="most timed chains")
+    parser.add_argument("--ddim_steps", type=int, default=DDIM_STEPS, help="steps of the DDIM measurement")
+    a = parser.parse_args()
+    main(a.batch, a.steps, a.trials, a.ddim_steps)

@@ -1,21 +1,32 @@
-"""Shared Gaussian-diffusion machinery: what sampling needs.
+"""Shared Gaussian-diffusion machinery: the constructor fields, ``_clip``, the
+noise sources and the RePaint loops.
 
-The port of ``r2dm_tpu/diffusion/base.py`` for the sampling slice: the
-constructor fields, ``_clip`` and the noise source. Randomness comes from
-explicit ``torch.Generator``s: one generator for the whole batch, or a list
-with one generator per sample, so that row i depends on generator i alone
-(the reference's list-of-generators API, base.py:71-94).
+The port of ``r2dm_tpu/diffusion/base.py``. Randomness comes from explicit
+``torch.Generator``s: one generator for the whole batch, or a list with one
+generator per sample, so that row i depends on generator i alone (the
+reference's list-of-generators API, base.py:71-94). A caller may instead
+pass a noise source (``noise=``): a callable ``shape -> tensor`` or an
+iterator of tensors, drawn from in the order the JAX package splits its
+keys, so that tests can feed both frameworks the same numbers.
+
+The RePaint loops (``repaint``, ``repaint_segment``, ``repaint_final``,
+``_repaint_forward_jumps``; reference continuous_time.py:260-317) are
+generic over two hooks each process supplies: ``q_step`` and
+``_repaint_reverse_jumps``. They are Python loops under
+``torch.inference_mode()``.
 
 Layout: NHWC (B, H, W, C) throughout the diffusion core.
 """
 
 from __future__ import annotations
 
-from typing import Optional, Sequence, Union
+from typing import Callable, Iterable, Optional, Sequence, Union
 
 import torch
 
 Generators = Union[None, torch.Generator, Sequence[torch.Generator]]
+NoiseSource = Union[None, Callable[[tuple], torch.Tensor], Iterable[torch.Tensor]]
+Draw = Callable[[tuple], torch.Tensor]
 
 
 def normal(generator: Generators, shape: tuple[int, ...], device) -> torch.Tensor:
@@ -29,6 +40,41 @@ def normal(generator: Generators, shape: tuple[int, ...], device) -> torch.Tenso
         torch.randn(shape[1:], generator=g, device=device, dtype=torch.float32)
         for g in generator
     ])
+
+
+def noise_drawer(generator: Generators, noise: NoiseSource, device) -> Draw:
+    """``shape -> fp32 standard normal on device``: from ``noise`` (a
+    callable taking the shape, or an iterator) when it is given, else from
+    the generators."""
+    if noise is None:
+        return lambda shape: normal(generator, shape, device)
+    source = noise if callable(noise) else (lambda shape, it=iter(noise): next(it))
+
+    def draw(shape: tuple) -> torch.Tensor:
+        n = source(shape)
+        if tuple(n.shape) != tuple(shape):
+            raise ValueError(f"noise source gave shape {tuple(n.shape)}, the draw needs {tuple(shape)}")
+        return n.to(device=device, dtype=torch.float32)
+
+    return draw
+
+
+def check_repaint_grid(num_steps: int, num_resample_steps: int, jump_length: int) -> None:
+    if num_steps < 1 or num_resample_steps < 1 or jump_length < 1:
+        raise ValueError(
+            f"RePaint needs num_steps, num_resample_steps and jump_length >= 1, got "
+            f"{num_steps}, {num_resample_steps}, {jump_length}"
+        )
+
+
+def stack_steps(xs: list, like: torch.Tensor) -> torch.Tensor:
+    """The per-step stack (K, B, H, W, C) of a segment; empty for K = 0."""
+    return torch.stack(xs) if xs else like.new_empty((0, *like.shape))
+
+
+def _b(x: torch.Tensor) -> torch.Tensor:
+    """(B,) -> (B, 1, 1, 1) against NHWC images."""
+    return x.reshape(-1, 1, 1, 1)
 
 
 class GaussianDiffusion:
@@ -64,7 +110,83 @@ class GaussianDiffusion:
         self.resolution = tuple(resolution)
         self.sampling_shape = (*self.resolution, self.in_channels)
 
+    def _device(self, device=None) -> torch.device:
+        return torch.device(device) if device is not None else next(self.model.parameters()).device
+
     def _clip(self, x_0: torch.Tensor) -> torch.Tensor:
         if self.clip_sample:
             return torch.clamp(x_0, -self.clip_sample_range, self.clip_sample_range)
         return x_0
+
+    # hooks of the RePaint loops ------------------------------------------
+    def q_step(self, x_s, step_t, step_s, noise):
+        """q(z_t | z_s), s < t (more noise at t): the re-noising hook."""
+        raise NotImplementedError
+
+    def _repaint_reverse_jumps(self, known, mask, x, step_t, step_s, draw: Draw, jump_length: int):
+        """One reverse pass t -> s with the known pixels blended in."""
+        raise NotImplementedError
+
+    # RePaint loops (arXiv 2201.09865) ------------------------------------
+    def _repaint_forward_jumps(self, x, step_t, step_s, draw: Draw, jump_length: int):
+        """s -> t re-noising (reference continuous_time.py:309-315)."""
+        interp = torch.linspace(0.0, 1.0, jump_length + 1, dtype=torch.float32, device=x.device)
+        r_steps = step_t + interp * (step_s - step_t)
+        for k in range(jump_length, 0, -1):
+            x = self.q_step(x, r_steps[k - 1], r_steps[k], draw(tuple(x.shape)))
+        return x
+
+    def repaint_segment(
+        self, known, mask, x_t, ts_pairs, draw: Draw,
+        num_resample_steps: int = 1, jump_length: int = 1,
+    ) -> torch.Tensor:
+        """The RePaint outer loop over ``ts_pairs`` ((K, 2) rows of (t, s));
+        chaining segments over ``stack([ts[:-2], ts[1:-1]], 1)`` and then
+        :meth:`repaint_final` is :meth:`repaint`."""
+        known = known.to(torch.float32)
+        mask = mask.to(torch.float32)
+        for step_t, step_s in ts_pairs:
+            for j in range(num_resample_steps):
+                x_s = self._repaint_reverse_jumps(known, mask, x_t, step_t, step_s, draw, jump_length)
+                # re-noise unless this is the last resample of the step
+                if j == num_resample_steps - 1:
+                    x_t = x_s
+                else:
+                    x_t = self._repaint_forward_jumps(x_s, step_t, step_s, draw, jump_length)
+        return x_t
+
+    def repaint_final(self, known, mask, x_t, step_t, step_s, draw: Draw, jump_length: int = 1) -> torch.Tensor:
+        """The last step: one reverse pass, no re-noising (the reference's
+        early break, continuous_time.py:305-307)."""
+        return self._repaint_reverse_jumps(
+            known.to(torch.float32), mask.to(torch.float32), x_t, step_t, step_s, draw, jump_length
+        )
+
+    @torch.inference_mode()
+    def repaint(
+        self,
+        known: torch.Tensor,
+        mask: torch.Tensor,
+        num_steps: int,
+        num_resample_steps: int = 1,
+        jump_length: int = 1,
+        generator: Generators = None,
+        noise: NoiseSource = None,
+        device=None,
+    ) -> torch.Tensor:
+        """RePaint completion: ``known``/``mask`` NHWC; known pixels
+        (mask = 1) are projected onto each noise level, the others follow
+        the reverse process, and between resamples the state is re-noised
+        forward. Draws: x_T, then per reverse sub-step the known noise and
+        (Gaussian processes) the p-step noise, then the re-noise draws."""
+        check_repaint_grid(num_steps, num_resample_steps, jump_length)
+        device = self._device(device)
+        known = known.to(device=device, dtype=torch.float32)
+        mask = mask.to(device=device, dtype=torch.float32)
+        draw = noise_drawer(generator, noise, device)
+        x_t = draw((known.shape[0], *self.sampling_shape))
+        ts = torch.linspace(1.0, 0.0, num_steps + 1, dtype=torch.float32, device=device)
+        if num_steps > 1:
+            ts_pairs = torch.stack([ts[:-2], ts[1:-1]], dim=1)
+            x_t = self.repaint_segment(known, mask, x_t, ts_pairs, draw, num_resample_steps, jump_length)
+        return self.repaint_final(known, mask, x_t, ts[num_steps - 1], ts[num_steps], draw, jump_length)

@@ -1,9 +1,11 @@
-"""Continuous-time Gaussian diffusion (VDM, arXiv 2107.00630): the sampler.
+"""Continuous-time Gaussian diffusion (VDM, arXiv 2107.00630): the samplers.
 
 Port of the sampling half of ``r2dm_tpu/diffusion/continuous.py``
-(reference ``models/diffusion/continuous_time.py:66-258``): log-SNR
-schedules, eps/v/x0 prediction, DDPM and DDIM reverse steps. ``sample`` and
-``sample_segment`` are Python loops over boundary times
+(reference ``models/diffusion/continuous_time.py:66-317``): log-SNR
+schedules, eps/v/x0 prediction, DDPM and DDIM reverse steps, DPM-Solver++
+(2M), and the RePaint hooks (``q_step``, ``_repaint_reverse_jumps``; the
+loops are in ``base.py``). ``sample``, ``sample_segment`` and
+``dpmpp_2m_segment`` are Python loops over boundary times
 ``linspace(1, 0, N+1)`` in fp32; the network sees the log-SNR as its
 condition. Schedule and step maths stay fp32 whatever the network's compute
 dtype. Noise comes from explicit generators, or is passed in (``x_T=``,
@@ -12,17 +14,12 @@ dtype. Noise comes from explicit generators, or is passed in (``x_T=``,
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Sequence
 
 import torch
 
 from . import schedules
-from .base import GaussianDiffusion, Generators, normal
-
-
-def _b(x: torch.Tensor) -> torch.Tensor:
-    """(B,) -> (B, 1, 1, 1) against NHWC images."""
-    return x.reshape(-1, 1, 1, 1)
+from .base import Draw, GaussianDiffusion, Generators, _b, normal, stack_steps
 
 
 class ContinuousTimeGaussianDiffusion(GaussianDiffusion):
@@ -63,6 +60,15 @@ class ContinuousTimeGaussianDiffusion(GaussianDiffusion):
         """x_t = alpha x_0 + sigma eps (reference continuous_time.py:169-176)."""
         alpha, sigma = schedules.logsnr_to_alpha_sigma(_b(self._steps(step_t, x_0.shape[0], x_0.device)))
         return x_0 * alpha + noise * sigma
+
+    def q_step(self, x_s, step_t, step_s, noise):
+        """q(z_t | z_s), 0 < s < t < 1 (reference continuous_time.py:178-190)."""
+        B = x_s.shape[0]
+        alpha_t, sigma_t = schedules.logsnr_to_alpha_sigma(_b(self._steps(step_t, B, x_s.device)))
+        alpha_s, sigma_s = schedules.logsnr_to_alpha_sigma(_b(self._steps(step_s, B, x_s.device)))
+        alpha_ts = alpha_t / alpha_s
+        var = torch.square(sigma_t) - torch.square(alpha_ts) * torch.square(sigma_s)
+        return x_s * alpha_ts + torch.sqrt(var) * noise
 
     def _model_x0(self, x_t: torch.Tensor, log_snr_t: torch.Tensor) -> torch.Tensor:
         """Network at (x_t, logSNR_t) -> clipped x_0 estimate
@@ -120,10 +126,13 @@ class ContinuousTimeGaussianDiffusion(GaussianDiffusion):
         ddim_eta: float = 0.0,
         generator: Generators = None,
         noise: Optional[torch.Tensor] = None,
-    ) -> torch.Tensor:
+        return_all: bool = False,
+    ):
         """``p_step`` over the boundary times ``ts_seg`` ((K+1,)); ``noise``
-        ((K, B, H, W, C)) replaces the generator's draws."""
+        ((K, B, H, W, C)) replaces the generator's draws. Returns x, or
+        (x, the (K, B, H, W, C) stack of every step) with ``return_all``."""
         stochastic = mode == "ddpm" or ddim_eta != 0.0
+        xs = []
         for i in range(ts_seg.shape[0] - 1):
             if noise is not None:
                 n = noise[i]
@@ -132,7 +141,14 @@ class ContinuousTimeGaussianDiffusion(GaussianDiffusion):
             else:
                 n = None
             x = self.p_step(x, ts_seg[i], ts_seg[i + 1], noise=n, mode=mode, ddim_eta=ddim_eta)
-        return x
+            if return_all:
+                xs.append(x)
+        return (x, stack_steps(xs, x)) if return_all else x
+
+    def _x_T(self, batch_size, generator, x_T, device) -> torch.Tensor:
+        if x_T is None:
+            return normal(generator, (batch_size, *self.sampling_shape), device)
+        return x_T.to(device=device, dtype=torch.float32)
 
     @torch.inference_mode()
     def sample(
@@ -145,14 +161,92 @@ class ContinuousTimeGaussianDiffusion(GaussianDiffusion):
         x_T: Optional[torch.Tensor] = None,
         noise: Optional[torch.Tensor] = None,
         device=None,
+        return_all: bool = False,
     ) -> torch.Tensor:
         """The full reverse chain (reference continuous_time.py:234-258):
-        (B, H, W, C) fp32 in [-1, 1]."""
-        if device is None:
-            device = next(self.model.parameters()).device
-        if x_T is None:
-            x = normal(generator, (batch_size, *self.sampling_shape), device)
-        else:
-            x = x_T.to(device=device, dtype=torch.float32)
+        (B, H, W, C) fp32 in [-1, 1], or (num_steps+1, B, H, W, C) with
+        ``return_all``."""
+        device = self._device(device)
+        x = self._x_T(batch_size, generator, x_T, device)
         ts = torch.linspace(1.0, 0.0, num_steps + 1, dtype=torch.float32, device=device)
-        return self.sample_segment(x, ts, mode, ddim_eta, generator, noise)
+        out = self.sample_segment(x, ts, mode, ddim_eta, generator, noise, return_all)
+        return torch.cat([x[None], out[1]]) if return_all else out
+
+    # ------------------------------------------------- DPM-Solver++ (2M)
+    # Second-order multistep ODE solver in the data-prediction
+    # parameterisation (Lu et al., arXiv 2211.01095), an extension beyond the
+    # reference's ddpm/ddim. Deterministic: only x_T is drawn.
+    @torch.inference_mode()
+    def dpmpp_2m_segment(
+        self,
+        x: torch.Tensor,
+        prev_x0: torch.Tensor,
+        prev_lam: torch.Tensor,
+        ts_seg: torch.Tensor,
+        second_order: Sequence[bool],
+        return_all: bool = False,
+    ) -> tuple:
+        """The 2M update over ``ts_seg`` ((K+1,) boundary times). The carry
+        is ``(x, prev_x0, prev_lam)``: the previous step's x_0 prediction and
+        half-logSNR. ``second_order[i]`` False takes the first-order update
+        (the global first step, with no history, and the global last step).
+        Returns the carry, plus the (K, B, H, W, C) stack with
+        ``return_all``; chaining segments is :meth:`sample_dpmpp`."""
+        B = x.shape[0]
+        xs = []
+        for i in range(ts_seg.shape[0] - 1):
+            x = x.to(torch.float32)
+            log_snr_t = self._steps(ts_seg[i], B, x.device)
+            log_snr_s = self._steps(ts_seg[i + 1], B, x.device)
+            x0 = self._model_x0(x, log_snr_t)
+            lam_t = 0.5 * _b(log_snr_t)  # lambda := log(alpha / sigma)
+            lam_s = 0.5 * _b(log_snr_s)
+            h = lam_s - lam_t
+            d = x0 + h / (2.0 * (lam_t - prev_lam)) * (x0 - prev_x0) if second_order[i] else x0
+            _, sigma_t = schedules.logsnr_to_alpha_sigma(_b(log_snr_t))
+            alpha_s, sigma_s = schedules.logsnr_to_alpha_sigma(_b(log_snr_s))
+            x = (sigma_s / sigma_t) * x - alpha_s * torch.expm1(-h) * d
+            prev_x0, prev_lam = x0, lam_t
+            if return_all:
+                xs.append(x)
+        carry = (x, prev_x0, prev_lam)
+        return (*carry, stack_steps(xs, x)) if return_all else carry
+
+    @staticmethod
+    def dpmpp_second_order(num_steps: int) -> list[bool]:
+        """First-order at the first and the last step, second-order between."""
+        return [0 < i < num_steps - 1 for i in range(num_steps)]
+
+    @torch.inference_mode()
+    def sample_dpmpp(
+        self,
+        batch_size: int,
+        num_steps: int,
+        generator: Generators = None,
+        x_T: Optional[torch.Tensor] = None,
+        device=None,
+        return_all: bool = False,
+    ) -> torch.Tensor:
+        """The full DPM-Solver++(2M) chain; a generator draws the same x_T
+        as under :meth:`sample`."""
+        device = self._device(device)
+        x = self._x_T(batch_size, generator, x_T, device)
+        ts = torch.linspace(1.0, 0.0, num_steps + 1, dtype=torch.float32, device=device)
+        prev_lam = torch.zeros((batch_size, 1, 1, 1), dtype=torch.float32, device=device)
+        out = self.dpmpp_2m_segment(
+            x, torch.zeros_like(x), prev_lam, ts, self.dpmpp_second_order(num_steps), return_all
+        )
+        return torch.cat([x[None], out[3]]) if return_all else out[0]
+
+    def _repaint_reverse_jumps(self, known, mask, x, step_t, step_s, draw: Draw, jump_length: int):
+        """t -> s through ``jump_length`` ddpm sub-steps, blending the known
+        pixels (reference continuous_time.py:283-303); draws the known noise,
+        then the p-step noise, per sub-step."""
+        interp = torch.linspace(0.0, 1.0, jump_length + 1, dtype=torch.float32, device=x.device)
+        r_steps = step_t + interp * (step_s - step_t)
+        for k in range(jump_length):
+            known_s = self.q_step_from_x_0(known, r_steps[k + 1], draw(tuple(known.shape)))
+            unknown_s = self.p_step(x, r_steps[k], r_steps[k + 1], noise=draw(tuple(x.shape)))
+            x = mask * known_s + (1.0 - mask) * unknown_s
+        return x
+

@@ -1,11 +1,11 @@
 """Model construction, checkpoint loading and the user-facing DDPM wrapper.
 
-Port of the sampling surface of ``r2dm_tpu/inference.py`` (reference
-``utils/inference.py:16-114``, ``hubconf.py:21-37``): rebuild the network
-from the config in a reference-layout checkpoint, load (EMA) weights, and
-return a ready-to-sample :class:`DDPM` plus a matching
-:class:`LiDARUtility`. ``DDPM.sample`` returns NCHW fp32 in [-1, 1] like the
-reference; the network runs NHWC inside.
+Port of ``r2dm_tpu/inference.py`` (reference ``utils/inference.py:16-114``,
+``hubconf.py:21-37``): rebuild the network from the config in a checkpoint
+(a reference-layout ``.pth``, or the JAX package's msgpack), load (EMA)
+weights, and return a ready-to-sample :class:`DDPM` plus a matching
+:class:`LiDARUtility`. ``DDPM.sample``/``DDPM.repaint`` return NCHW fp32 in
+[-1, 1] like the reference; the network runs NHWC inside.
 
 Entry points run on ``device="cuda"`` unless the caller asks for the CPU.
 On the card the network runs the hand-written kernels, which compute in
@@ -15,18 +15,31 @@ bfloat16, so a CUDA model is built with ``dtype=torch.bfloat16``.
 from __future__ import annotations
 
 import os
+import sys
+import time
+import warnings
+from pathlib import Path
 from typing import Optional, Sequence
 
 import numpy as np
 import torch
 
 from . import config as config_lib
-from .diffusion import ContinuousTimeGaussianDiffusion
-from .diffusion.base import Generators
-from .lidar import LiDARUtility
+from .diffusion import ContinuousTimeGaussianDiffusion, DiscreteTimeGaussianDiffusion, RectifiedFlow
+from .diffusion.base import Generators, NoiseSource, check_repaint_grid, noise_drawer, normal
+from .lidar import LiDARUtility, nearest_exact_resize_hw
 from .models.efficient_unet import EfficientUNet
 from .ops.encoding import get_hdl64e_linear_ray_angles
-from .utils.weights import reference_unet_state_dict
+from .utils.weights import reference_unet_state_dict, state_dict_from_jax
+
+# the JAX package's unfolding angle tables, read in place as data
+ANGLES_DIR = Path(__file__).resolve().parent.parent / "r2dm_tpu" / "data" / "angles"
+
+PRETRAINED_CONFIGS = (
+    # published reference checkpoints (reference hubconf.py:12-21)
+    "r2dm-h-kitti360-300k",
+    "r2dm-h-kittiraw-300k",
+)
 
 
 def count_parameters(model: torch.nn.Module) -> int:
@@ -60,23 +73,72 @@ def build_model(cfg: config_lib.Config, dtype: Optional[torch.dtype] = None, dev
 
 
 def model_coords(cfg: config_lib.Config) -> np.ndarray:
-    """(H, W, 2) coordinate grid of the model buffer: HDL-64E linear ray
-    angles for the spherical projection (reference train.py:100-107)."""
+    """(H, W, 2) coordinate grid of the model buffer (reference
+    train.py:100-107): HDL-64E linear ray angles for the spherical
+    projection; for the unfolding projection the measured per-pixel angle
+    table ``$R2DM_ANGLES_DIR/<dataset>_unfolding_angles.npz`` (default: the
+    JAX package's ``r2dm_tpu/data/angles/``), resized nearest-exact."""
+    resolution = tuple(cfg.data.resolution)
     if cfg.data.projection.startswith("spherical"):
-        return get_hdl64e_linear_ray_angles(*tuple(cfg.data.resolution))
-    raise NotImplementedError(f"projection {cfg.data.projection!r} is not ported yet")
+        return get_hdl64e_linear_ray_angles(*resolution)
+    if cfg.data.projection.startswith("unfolding"):
+        angles_dir = os.environ.get("R2DM_ANGLES_DIR") or str(ANGLES_DIR)
+        path = os.path.join(angles_dir, f"{cfg.data.dataset}_unfolding_angles.npz")
+        if not os.path.exists(path):
+            raise FileNotFoundError(
+                f"unfolding angle table not found at {path}; generate it with "
+                "tools/make_unfolding_angles.py (requires the raw dataset)"
+            )
+        with np.load(path) as table:
+            angles = table["angles"].astype(np.float32)  # (H, W, 2)
+        return nearest_exact_resize_hw(angles, resolution)
+    raise ValueError(f"unknown projection: {cfg.data.projection}")
 
 
-def build_diffusion(cfg: config_lib.Config, model: EfficientUNet) -> ContinuousTimeGaussianDiffusion:
-    """The configured diffusion process (reference utils/inference.py:62-78)."""
-    if cfg.diffusion.timestep_type != "continuous":
-        raise NotImplementedError(f"timestep_type {cfg.diffusion.timestep_type!r} is not ported yet")
-    return ContinuousTimeGaussianDiffusion(
-        model,
+def build_diffusion(cfg: config_lib.Config, model: EfficientUNet):
+    """The configured diffusion process (reference utils/inference.py:62-78;
+    r2dm_tpu/inference.py:115-140)."""
+    common = dict(
+        model=model,
         prediction_type=cfg.diffusion.prediction_type,
         loss_type=cfg.diffusion.loss_type,
         noise_schedule=cfg.diffusion.noise_schedule,
     )
+    if cfg.diffusion.timestep_type == "continuous":
+        return ContinuousTimeGaussianDiffusion(**common)
+    if cfg.diffusion.timestep_type == "discrete":
+        return DiscreteTimeGaussianDiffusion(num_training_steps=cfg.diffusion.num_training_steps or 1024, **common)
+    if cfg.diffusion.timestep_type == "flow":
+        # prediction_type and noise_schedule do not apply to the straight-path ODE
+        return RectifiedFlow(model=model, loss_type=cfg.diffusion.loss_type)
+    raise ValueError(f"unknown timestep type: {cfg.diffusion.timestep_type}")
+
+
+def setup_rng(seeds: Sequence[int], device="cuda") -> list[torch.Generator]:
+    """One generator per seed (reference utils/inference.py:113-114)."""
+    return [torch.Generator(device).manual_seed(int(s)) for s in seeds]
+
+
+class _Progress:
+    """A stderr line after each chunk of a chain: steps done, and the rate
+    and time left measured from the end of the first chunk."""
+
+    def __init__(self, label: str, total: int, show: bool, device: torch.device):
+        self.label, self.total, self.show, self.device = label, total, show, device
+        self.t0, self.timed_from = time.time(), None
+
+    def update(self, done: int) -> None:
+        if not self.show:
+            return
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        if self.timed_from is None:
+            self.t0, self.timed_from = time.time(), done
+        msg = f"\r{self.label} {done}/{self.total} steps"
+        if done > self.timed_from:
+            rate = (done - self.timed_from) / max(time.time() - self.t0, 1e-9)
+            msg += f" ({rate:.1f} step/s, eta {(self.total - done) / max(rate, 1e-9):.0f}s)"
+        print(msg, end="" if done < self.total else "\n", file=sys.stderr, flush=True)
 
 
 class DDPM:
@@ -84,7 +146,14 @@ class DDPM:
     sampling surface. Per-sample determinism: ``seeds=[...]`` gives each
     row its own generator (the reference's list of torch.Generators)."""
 
-    def __init__(self, diffusion: ContinuousTimeGaussianDiffusion, cfg: Optional[config_lib.Config] = None):
+    # Batch-axis chunking bound, in pixels (batch x H x W) per card. One
+    # config-H sampling step peaks at 112.7 MB an image at 64x1024
+    # (chip_smoke.py: torch.cuda.max_memory_allocated around one DDIM step
+    # at b8 and b32, on an NVIDIA H100 80GB HBM3, 700.00 W), so 512 images
+    # take 57.7 GB of its 85.0 GB. Larger batches run as sequential chunks.
+    MAX_BATCH_PIXELS = 512 * 64 * 1024
+
+    def __init__(self, diffusion, cfg: Optional[config_lib.Config] = None):
         self.diffusion = diffusion
         self.cfg = cfg
         self.num_parameters = count_parameters(diffusion.model)
@@ -104,11 +173,45 @@ class DDPM:
 
     def _generators(self, seeds: Optional[Sequence[int]]) -> Generators:
         if seeds is not None:
-            return [torch.Generator(self.device).manual_seed(int(s)) for s in seeds]
+            return setup_rng(seeds, self.device)
         # no explicit randomness: advance an internal stream so repeated
         # calls give fresh batches
         self._auto_calls += 1
         return torch.Generator(self.device).manual_seed(self._auto_calls)
+
+    def _batch_chunk(self, batch_size: int, batch_chunk: Optional[int], seeds) -> int:
+        """Images per chunk: ``batch_chunk``, or the pixel bound's when the
+        batch is over it."""
+        if batch_chunk is not None:
+            if batch_chunk < 1:
+                raise ValueError(f"batch_chunk must be >= 1, got {batch_chunk}")
+            return batch_chunk
+        hw = int(np.prod(self.sampling_shape[:-1]))
+        if batch_size * hw <= self.MAX_BATCH_PIXELS:
+            return batch_size
+        if seeds is None:
+            warnings.warn(
+                "batch auto-chunking with a single generator: samples depend on "
+                "the chunk boundary; pass seeds=[...] for chunking-invariant "
+                "determinism",
+                stacklevel=3,
+            )
+        return max(1, self.MAX_BATCH_PIXELS // hw)
+
+    def _check_mode(self, mode: str) -> None:
+        is_flow = isinstance(self.diffusion, RectifiedFlow)
+        if mode == "dpmpp_2m" and (is_flow or isinstance(self.diffusion, DiscreteTimeGaussianDiffusion)):
+            raise ValueError(
+                "mode='dpmpp_2m' requires continuous-time diffusion "
+                "(the solver integrates the logSNR-parameterized PF-ODE)"
+            )
+        if (mode in ("euler", "midpoint")) != is_flow:
+            raise ValueError(
+                f"mode={mode!r} does not apply to "
+                f"{type(self.diffusion).__name__}: flow checkpoints sample "
+                "with 'euler'/'midpoint', Gaussian ones with "
+                "'ddpm'/'ddim'/'dpmpp_2m'"
+            )
 
     def sample(
         self,
@@ -117,56 +220,209 @@ class DDPM:
         seeds: Optional[Sequence[int]] = None,
         mode: str = "ddpm",
         ddim_eta: float = 0.0,
+        return_all: bool = False,
         data_format: str = "NCHW",
+        progress: bool = False,
+        progress_chunk: int = 32,
         batch_chunk: Optional[int] = None,
         x_T: Optional[torch.Tensor] = None,
         noise: Optional[torch.Tensor] = None,
     ) -> torch.Tensor:
-        """Generate scans: (B, C, H, W) fp32 (NCHW) or (B, H, W, C) (NHWC).
+        """Generate scans: (B, C, H, W) fp32 (NCHW) or (B, H, W, C) (NHWC);
+        with ``return_all`` every step too, (num_steps+1, B, ...).
 
-        ``batch_chunk`` runs the batch as sequential chunks of that many
-        images; with ``seeds`` the result does not depend on the chunking.
-        ``x_T`` (B, H, W, C) and ``noise`` (num_steps, B, H, W, C), NHWC,
-        replace the generators' draws.
+        Modes: ``ddpm``/``ddim`` (Gaussian processes), ``dpmpp_2m``
+        (continuous-time), ``euler``/``midpoint`` (flow). ``progress`` prints
+        a line to stderr every ``progress_chunk`` steps; the samples do not
+        change. A batch over ``MAX_BATCH_PIXELS`` runs as sequential chunks,
+        and ``batch_chunk`` forces a chunk size; with ``seeds`` the result
+        does not depend on the chunking. ``x_T`` (B, H, W, C) and ``noise``
+        (num_steps, B, H, W, C), NHWC, replace the generators' draws.
         """
+        self._check_mode(mode)
         if data_format not in ("NCHW", "NHWC"):
             raise ValueError(f"data_format must be NCHW or NHWC, got {data_format!r}")
         if seeds is not None and len(seeds) != batch_size:
             raise ValueError(f"{len(seeds)} seeds for a batch of {batch_size}")
-        if batch_chunk is not None and batch_chunk < 1:
-            raise ValueError(f"batch_chunk must be >= 1, got {batch_chunk}")
+        if progress_chunk < 1:
+            raise ValueError(f"progress_chunk must be >= 1, got {progress_chunk}")
+        chunk = self._batch_chunk(batch_size, batch_chunk, seeds)
         gens = self._generators(seeds)
-        chunk = batch_size if batch_chunk is None else batch_chunk
         outs = []
         for lo in range(0, batch_size, chunk):
             hi = min(lo + chunk, batch_size)
-            outs.append(self.diffusion.sample(
-                hi - lo, num_steps, mode=mode, ddim_eta=ddim_eta,
-                generator=gens if isinstance(gens, torch.Generator) else gens[lo:hi],
-                x_T=None if x_T is None else x_T[lo:hi],
-                noise=None if noise is None else noise[:, lo:hi],
-                device=self.device,
+            outs.append(self._chain(
+                hi - lo, num_steps, mode, ddim_eta,
+                gens if isinstance(gens, torch.Generator) else gens[lo:hi],
+                None if x_T is None else x_T[lo:hi],
+                None if noise is None else noise[:, lo:hi],
+                return_all, progress, progress_chunk,
+            ))
+        x = torch.cat(outs, dim=1 if return_all else 0)
+        if data_format == "NCHW":
+            x = x.permute(0, 1, 4, 2, 3) if return_all else x.permute(0, 3, 1, 2)
+            x = x.contiguous()
+        return x
+
+    @torch.inference_mode()
+    def _chain(self, B, num_steps, mode, ddim_eta, gens, x_T, noise, return_all, show, chunk) -> torch.Tensor:
+        """One batch chunk's reverse chain, NHWC, run as segments of
+        ``chunk`` steps when ``show`` (the same operations either way)."""
+        diff = self.diffusion
+        device = self.device
+        discrete = isinstance(diff, DiscreteTimeGaussianDiffusion)
+        dpmpp = mode == "dpmpp_2m"
+        if x_T is None:
+            x = normal(gens, (B, *diff.sampling_shape), device)
+        else:
+            x = x_T.to(device=device, dtype=torch.float32)
+        if discrete:
+            ts = diff.timesteps(num_steps)
+        else:
+            ts = torch.linspace(1.0, 0.0, num_steps + 1, dtype=torch.float32, device=device)
+        if dpmpp:
+            second_order = diff.dpmpp_second_order(num_steps)
+            prev_x0 = torch.zeros_like(x)
+            prev_lam = torch.zeros((B, 1, 1, 1), dtype=torch.float32, device=device)
+        stacks = [x[None]] if return_all else None
+        seg_len = chunk if show else max(num_steps, 1)
+        bar = _Progress("sampling", num_steps, show, device)
+        done = 0
+        while done < num_steps:
+            n = min(seg_len, num_steps - done)
+            seg = ts[done:done + n] if discrete else ts[done:done + n + 1]
+            if dpmpp:
+                out = diff.dpmpp_2m_segment(x, prev_x0, prev_lam, seg, second_order[done:done + n], return_all)
+                x, prev_x0, prev_lam = out[:3]
+            else:
+                seg_noise = None if noise is None else noise[done:done + n]
+                kw = {"eta" if discrete else "ddim_eta": ddim_eta}
+                out = diff.sample_segment(
+                    x, seg, mode=mode, generator=gens, noise=seg_noise, return_all=return_all, **kw
+                )
+                x = out[0] if return_all else out
+            if return_all:
+                stacks.append(out[-1])
+            done += n
+            bar.update(done)
+        return torch.cat(stacks) if return_all else x
+
+    def repaint(
+        self,
+        known: torch.Tensor,
+        mask: torch.Tensor,
+        num_steps: int,
+        num_resample_steps: int = 1,
+        jump_length: int = 1,
+        seeds: Optional[Sequence[int]] = None,
+        data_format: str = "NCHW",
+        progress: bool = False,
+        progress_chunk: int = 32,
+        noise: NoiseSource = None,
+    ) -> torch.Tensor:
+        """RePaint completion; ``known``/``mask`` batched in ``data_format``
+        (reference continuous_time.py:260-317, completion_demo.py:92-99).
+        ``mask`` has known's rank and a batch of 1 (broadcast) or known's.
+        Continuous-time and flow checkpoints only, as in the reference.
+        ``progress`` prints a line per chunk of about ``progress_chunk``
+        network calls. ``noise``, a callable ``shape -> tensor`` or an
+        iterator, replaces the generators' draws, taken in the order x_T,
+        then per reverse sub-step the known noise and (continuous) the
+        p-step noise, then the re-noise draws."""
+        if isinstance(self.diffusion, DiscreteTimeGaussianDiffusion):
+            raise ValueError(
+                "repaint requires a continuous-time or flow checkpoint; the "
+                "discrete-time family does not implement the RePaint hooks "
+                "(reference parity: repaint exists in continuous_time.py "
+                "only)"
+            )
+        if data_format not in ("NCHW", "NHWC"):
+            raise ValueError(f"data_format must be NCHW or NHWC, got {data_format!r}")
+        known = torch.as_tensor(known)
+        mask = torch.as_tensor(mask)
+        if mask.dim() != known.dim():
+            raise ValueError(
+                f"mask must have the same rank as known (batched, "
+                f"{data_format}); got mask {tuple(mask.shape)} vs known {tuple(known.shape)}"
+            )
+        if mask.shape[0] not in (1, known.shape[0]):
+            raise ValueError(
+                f"mask batch dim must be 1 (broadcast) or match known's "
+                f"{known.shape[0]}; got {mask.shape[0]}"
+            )
+        check_repaint_grid(num_steps, num_resample_steps, jump_length)
+        bsz = int(known.shape[0])
+        if seeds is not None and len(seeds) != bsz:
+            raise ValueError(f"{len(seeds)} seeds for a batch of {bsz}")
+        if data_format == "NCHW":
+            known, mask = known.permute(0, 2, 3, 1), mask.permute(0, 2, 3, 1)
+        device = self.device
+        known = known.to(device=device, dtype=torch.float32)
+        mask = mask.to(device=device, dtype=torch.float32)
+        chunk = self._batch_chunk(bsz, None, seeds)
+        gens = self._generators(seeds)
+        outs = []
+        for lo in range(0, bsz, chunk):
+            hi = min(lo + chunk, bsz)
+            outs.append(self._repaint_chain(
+                known[lo:hi], mask[lo:hi] if mask.shape[0] == bsz else mask, num_steps,
+                num_resample_steps, jump_length,
+                gens if isinstance(gens, torch.Generator) else gens[lo:hi],
+                noise, progress, progress_chunk,
             ))
         x = torch.cat(outs)
         return x.permute(0, 3, 1, 2).contiguous() if data_format == "NCHW" else x
+
+    @torch.inference_mode()
+    def _repaint_chain(self, known, mask, num_steps, r, j, gens, noise, show, chunk) -> torch.Tensor:
+        """One batch chunk of RePaint, NHWC: the loops of
+        ``diffusion.repaint``, run as segments of about ``chunk`` network
+        calls with a progress line between them when ``show``."""
+        diff = self.diffusion
+        draw = noise_drawer(gens, noise, self.device)
+        x = draw((known.shape[0], *diff.sampling_shape))
+        ts = torch.linspace(1.0, 0.0, num_steps + 1, dtype=torch.float32, device=self.device)
+        pairs = torch.stack([ts[:-2], ts[1:-1]], dim=1)
+        seg_len = max(1, chunk // (r * j)) if show else max(num_steps - 1, 1)
+        bar = _Progress("repaint", num_steps, show, self.device)
+        done = 0
+        while done < num_steps - 1:
+            n = min(seg_len, num_steps - 1 - done)
+            x = diff.repaint_segment(known, mask, x, pairs[done:done + n], draw, r, j)
+            done += n
+            bar.update(done)
+        x = diff.repaint_final(known, mask, x, ts[num_steps - 1], ts[num_steps], draw, j)
+        bar.update(num_steps)
+        return x
+
+def _load(path: str) -> dict:
+    if path.endswith((".pth", ".pt", ".ckpt")):
+        return torch.load(path, map_location="cpu", weights_only=False)
+    from .checkpoint import load_checkpoint
+
+    return load_checkpoint(path)
 
 
 def setup_model(
     ckpt, ema: bool = True, dtype: Optional[torch.dtype] = None, device="cuda",
 ) -> tuple[DDPM, LiDARUtility, config_lib.Config]:
-    """Rebuild (ddpm, lidar_utils, cfg) from a reference-layout checkpoint:
-    a ``.pth`` path or an already-loaded dict {cfg, weights, ema_weights,
-    ...} (reference utils/inference.py:16-114)."""
+    """Rebuild (ddpm, lidar_utils, cfg) from a checkpoint: a reference-layout
+    ``.pth``/``.pt``/``.ckpt``, any other path as the JAX package's msgpack
+    checkpoint (``checkpoint.py``), or an already-loaded dict {cfg, weights,
+    ema_weights, ...} of either kind (reference utils/inference.py:16-114)."""
     if isinstance(ckpt, (str, os.PathLike)):
-        path = str(ckpt)
-        if not path.endswith((".pth", ".pt", ".ckpt")):
-            raise ValueError(f"{path}: the port reads reference-layout .pth checkpoints")
-        ckpt = torch.load(path, map_location="cpu", weights_only=False)
+        ckpt = _load(str(ckpt))
     _check_dtype(device, dtype)
     cfg = config_lib.from_dict(ckpt["cfg"]) if isinstance(ckpt.get("cfg"), dict) else ckpt["cfg"]
     weights = ckpt.get("ema_weights" if ema else "weights") or ckpt.get("weights")
+    if "params" in weights:  # a flax tree {'params', 'buffers'}
+        sd = state_dict_from_jax(weights)
+    else:
+        sd = reference_unet_state_dict(weights)
     model = build_model(cfg, dtype=dtype, device="cpu")
-    model.load_state_dict(reference_unet_state_dict(weights))
+    if "coords" not in sd:
+        sd["coords"] = torch.from_numpy(np.ascontiguousarray(model_coords(cfg).transpose(2, 0, 1)[None]))
+    model.load_state_dict(sd)
     model = model.to(device)
     ddpm = DDPM(build_diffusion(cfg, model), cfg)
     lidar_utils = LiDARUtility(
@@ -189,14 +445,20 @@ def pretrained_r2dm(
     device="cuda",
 ) -> tuple[DDPM, LiDARUtility, config_lib.Config]:
     """The hub entry point (reference hubconf.py:21-37): ``ckpt_path``, else
-    ``$R2DM_CKPT_DIR/<config>.pth``. Nothing is downloaded."""
+    ``$R2DM_CKPT_DIR/<config>.pth``, else
+    ``$R2DM_CACHE_DIR/checkpoints/<config>.pth`` (where the JAX package
+    downloads to). Nothing is downloaded."""
     if ckpt_path is None:
-        ckpt_dir = os.environ.get("R2DM_CKPT_DIR", "")
-        candidate = os.path.join(ckpt_dir, f"{config}.pth")
-        if not ckpt_dir or not os.path.exists(candidate):
+        candidates = [
+            os.path.join(os.environ[var], *sub, f"{config}.pth")
+            for var, sub in (("R2DM_CKPT_DIR", ()), ("R2DM_CACHE_DIR", ("checkpoints",)))
+            if os.environ.get(var)
+        ]
+        found = [c for c in candidates if os.path.exists(c)]
+        if not found:
             raise FileNotFoundError(
-                f"checkpoint for {config!r} not found: pass ckpt_path= or put "
-                f"{config}.pth in $R2DM_CKPT_DIR"
+                f"checkpoint for {config!r} not found: pass ckpt_path=, or put "
+                f"{config}.pth in $R2DM_CKPT_DIR or $R2DM_CACHE_DIR/checkpoints"
             )
-        ckpt_path = candidate
+        ckpt_path = found[0]
     return setup_model(ckpt_path, ema=ema, dtype=dtype, device=device)

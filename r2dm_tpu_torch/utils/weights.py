@@ -53,7 +53,8 @@ def state_dict_from_jax(variables: Mapping[str, Any]) -> dict[str, torch.Tensor]
     sd: dict[str, torch.Tensor] = {}
 
     def put(key: str, v, transform=None) -> None:
-        v = np.asarray(v, dtype=np.float32)
+        # bfloat16 leaves of a msgpack checkpoint arrive as torch tensors
+        v = v.float().numpy() if isinstance(v, torch.Tensor) else np.asarray(v, dtype=np.float32)
         sd[key] = _tensor(transform(v) if transform else v)
 
     def conv(v):
@@ -111,5 +112,5 @@ def state_dict_from_jax(variables: Mapping[str, Any]) -> dict[str, torch.Tensor]
     walk((), variables.get("params", variables))
     coords = variables.get("buffers", {}).get("coords")
     if coords is not None:
-        sd["coords"] = _tensor(np.transpose(np.asarray(coords, np.float32), (2, 0, 1))[None])
+        put("coords", coords, lambda v: np.transpose(v, (2, 0, 1))[None])
     return sd
