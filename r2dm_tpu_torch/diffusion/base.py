@@ -1,5 +1,5 @@
 """Shared Gaussian-diffusion machinery: the constructor fields, ``_clip``, the
-noise sources and the RePaint loops.
+noise sources, the chain driver of every sampler and the RePaint loops.
 
 The port of ``r2dm_tpu/diffusion/base.py``. Randomness comes from explicit
 ``torch.Generator``s: one generator for the whole batch, or a list with one
@@ -27,6 +27,7 @@ import torch
 Generators = Union[None, torch.Generator, Sequence[torch.Generator]]
 NoiseSource = Union[None, Callable[[tuple], torch.Tensor], Iterable[torch.Tensor]]
 Draw = Callable[[tuple], torch.Tensor]
+OnSegment = Optional[Callable[[int], None]]
 
 
 def normal(generator: Generators, shape: tuple[int, ...], device) -> torch.Tensor:
@@ -118,6 +119,35 @@ class GaussianDiffusion:
             return torch.clamp(x_0, -self.clip_sample_range, self.clip_sample_range)
         return x_0
 
+    # the chain driver of every sampler ---------------------------------------
+    def _x_T(self, batch_size, generator: Generators, x_T, device) -> torch.Tensor:
+        """The chain's start: drawn from the generators, or ``x_T`` as fp32."""
+        if x_T is None:
+            return normal(generator, (batch_size, *self.sampling_shape), device)
+        return x_T.to(device=device, dtype=torch.float32)
+
+    @staticmethod
+    def _run_chain(x, num_steps: int, run, return_all: bool, segment_steps: Optional[int], on_segment: OnSegment):
+        """Drive ``run(x, lo, hi)`` (steps lo..hi-1 of a chain: x, or (x, the
+        (hi-lo, B, H, W, C) stack) with ``return_all``) over segments of
+        ``segment_steps`` steps, the whole chain by default, calling
+        ``on_segment(hi)`` after each. Returns x, or with ``return_all`` the
+        (num_steps+1, B, H, W, C) stack from x_T. Segments run the same
+        operations as one pass."""
+        stacks = [x[None]] if return_all else None
+        seg = segment_steps or max(num_steps, 1)
+        for lo in range(0, num_steps, seg):
+            hi = min(lo + seg, num_steps)
+            out = run(x, lo, hi)
+            if return_all:
+                x, stack = out
+                stacks.append(stack)
+            else:
+                x = out
+            if on_segment is not None:
+                on_segment(hi)
+        return torch.cat(stacks) if return_all else x
+
     # hooks of the RePaint loops ------------------------------------------
     def q_step(self, x_s, step_t, step_s, noise):
         """q(z_t | z_s), s < t (more noise at t): the re-noising hook."""
@@ -173,12 +203,17 @@ class GaussianDiffusion:
         generator: Generators = None,
         noise: NoiseSource = None,
         device=None,
+        segment_steps: Optional[int] = None,
+        on_segment: OnSegment = None,
     ) -> torch.Tensor:
         """RePaint completion: ``known``/``mask`` NHWC; known pixels
         (mask = 1) are projected onto each noise level, the others follow
         the reverse process, and between resamples the state is re-noised
         forward. Draws: x_T, then per reverse sub-step the known noise and
-        (Gaussian processes) the p-step noise, then the re-noise draws."""
+        (Gaussian processes) the p-step noise, then the re-noise draws.
+        ``segment_steps`` runs the outer loop as segments of that many
+        steps, calling ``on_segment(steps_done)`` after each and after the
+        final step; the result does not change."""
         check_repaint_grid(num_steps, num_resample_steps, jump_length)
         device = self._device(device)
         known = known.to(device=device, dtype=torch.float32)
@@ -186,7 +221,14 @@ class GaussianDiffusion:
         draw = noise_drawer(generator, noise, device)
         x_t = draw((known.shape[0], *self.sampling_shape))
         ts = torch.linspace(1.0, 0.0, num_steps + 1, dtype=torch.float32, device=device)
-        if num_steps > 1:
-            ts_pairs = torch.stack([ts[:-2], ts[1:-1]], dim=1)
-            x_t = self.repaint_segment(known, mask, x_t, ts_pairs, draw, num_resample_steps, jump_length)
-        return self.repaint_final(known, mask, x_t, ts[num_steps - 1], ts[num_steps], draw, jump_length)
+        ts_pairs = torch.stack([ts[:-2], ts[1:-1]], dim=1)
+        seg = segment_steps or max(num_steps - 1, 1)
+        for lo in range(0, num_steps - 1, seg):
+            hi = min(lo + seg, num_steps - 1)
+            x_t = self.repaint_segment(known, mask, x_t, ts_pairs[lo:hi], draw, num_resample_steps, jump_length)
+            if on_segment is not None:
+                on_segment(hi)
+        x_0 = self.repaint_final(known, mask, x_t, ts[num_steps - 1], ts[num_steps], draw, jump_length)
+        if on_segment is not None:
+            on_segment(num_steps)
+        return x_0

@@ -19,7 +19,7 @@ from typing import Optional, Sequence
 import torch
 
 from . import schedules
-from .base import Draw, GaussianDiffusion, Generators, _b, normal, stack_steps
+from .base import Draw, GaussianDiffusion, Generators, OnSegment, _b, normal, stack_steps
 
 
 class ContinuousTimeGaussianDiffusion(GaussianDiffusion):
@@ -145,11 +145,6 @@ class ContinuousTimeGaussianDiffusion(GaussianDiffusion):
                 xs.append(x)
         return (x, stack_steps(xs, x)) if return_all else x
 
-    def _x_T(self, batch_size, generator, x_T, device) -> torch.Tensor:
-        if x_T is None:
-            return normal(generator, (batch_size, *self.sampling_shape), device)
-        return x_T.to(device=device, dtype=torch.float32)
-
     @torch.inference_mode()
     def sample(
         self,
@@ -162,15 +157,22 @@ class ContinuousTimeGaussianDiffusion(GaussianDiffusion):
         noise: Optional[torch.Tensor] = None,
         device=None,
         return_all: bool = False,
+        segment_steps: Optional[int] = None,
+        on_segment: OnSegment = None,
     ) -> torch.Tensor:
         """The full reverse chain (reference continuous_time.py:234-258):
         (B, H, W, C) fp32 in [-1, 1], or (num_steps+1, B, H, W, C) with
-        ``return_all``."""
+        ``return_all``; ``segment_steps``/``on_segment`` as in
+        :meth:`_run_chain`."""
         device = self._device(device)
         x = self._x_T(batch_size, generator, x_T, device)
         ts = torch.linspace(1.0, 0.0, num_steps + 1, dtype=torch.float32, device=device)
-        out = self.sample_segment(x, ts, mode, ddim_eta, generator, noise, return_all)
-        return torch.cat([x[None], out[1]]) if return_all else out
+
+        def run(x, lo, hi):
+            seg_noise = None if noise is None else noise[lo:hi]
+            return self.sample_segment(x, ts[lo:hi + 1], mode, ddim_eta, generator, seg_noise, return_all)
+
+        return self._run_chain(x, num_steps, run, return_all, segment_steps, on_segment)
 
     # ------------------------------------------------- DPM-Solver++ (2M)
     # Second-order multistep ODE solver in the data-prediction
@@ -226,17 +228,23 @@ class ContinuousTimeGaussianDiffusion(GaussianDiffusion):
         x_T: Optional[torch.Tensor] = None,
         device=None,
         return_all: bool = False,
+        segment_steps: Optional[int] = None,
+        on_segment: OnSegment = None,
     ) -> torch.Tensor:
         """The full DPM-Solver++(2M) chain; a generator draws the same x_T
         as under :meth:`sample`."""
         device = self._device(device)
         x = self._x_T(batch_size, generator, x_T, device)
         ts = torch.linspace(1.0, 0.0, num_steps + 1, dtype=torch.float32, device=device)
-        prev_lam = torch.zeros((batch_size, 1, 1, 1), dtype=torch.float32, device=device)
-        out = self.dpmpp_2m_segment(
-            x, torch.zeros_like(x), prev_lam, ts, self.dpmpp_second_order(num_steps), return_all
-        )
-        return torch.cat([x[None], out[3]]) if return_all else out[0]
+        second_order = self.dpmpp_second_order(num_steps)
+        history = [torch.zeros_like(x), torch.zeros((batch_size, 1, 1, 1), dtype=torch.float32, device=device)]
+
+        def run(x, lo, hi):
+            out = self.dpmpp_2m_segment(x, *history, ts[lo:hi + 1], second_order[lo:hi], return_all)
+            history[:] = out[1:3]
+            return (out[0], out[3]) if return_all else out[0]
+
+        return self._run_chain(x, num_steps, run, return_all, segment_steps, on_segment)
 
     def _repaint_reverse_jumps(self, known, mask, x, step_t, step_s, draw: Draw, jump_length: int):
         """t -> s through ``jump_length`` ddpm sub-steps, blending the known

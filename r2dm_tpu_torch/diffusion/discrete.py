@@ -16,7 +16,7 @@ from typing import Optional, Union
 import torch
 
 from . import schedules
-from .base import GaussianDiffusion, Generators, _b, normal, stack_steps
+from .base import GaussianDiffusion, Generators, OnSegment, _b, normal, stack_steps
 
 Steps = Union[int, torch.Tensor]
 
@@ -197,17 +197,22 @@ class DiscreteTimeGaussianDiffusion(GaussianDiffusion):
         noise: Optional[torch.Tensor] = None,
         device=None,
         return_all: bool = False,
+        segment_steps: Optional[int] = None,
+        on_segment: OnSegment = None,
     ) -> torch.Tensor:
         """The reverse chain over steps ``num_steps - 1, ..., 0`` (reference
-        discrete_time.py:182-201)."""
+        discrete_time.py:182-201); ``segment_steps``/``on_segment`` as in
+        :meth:`_run_chain`."""
         num_steps = self.num_training_steps if num_steps is None else num_steps
         device = self._device(device)
-        if x_T is None:
-            x = normal(generator, (batch_size, *self.sampling_shape), device)
-        else:
-            x = x_T.to(device=device, dtype=torch.float32)
-        out = self.sample_segment(x, self.timesteps(num_steps), mode, eta, generator, noise, return_all)
-        return torch.cat([x[None], out[1]]) if return_all else out
+        x = self._x_T(batch_size, generator, x_T, device)
+        ts = self.timesteps(num_steps)
+
+        def run(x, lo, hi):
+            seg_noise = None if noise is None else noise[lo:hi]
+            return self.sample_segment(x, ts[lo:hi], mode, eta, generator, seg_noise, return_all)
+
+        return self._run_chain(x, num_steps, run, return_all, segment_steps, on_segment)
 
     @staticmethod
     def timesteps(num_steps: int) -> torch.Tensor:

@@ -20,7 +20,7 @@ from typing import Optional
 
 import torch
 
-from .base import Draw, GaussianDiffusion, Generators, _b, normal, stack_steps
+from .base import Draw, GaussianDiffusion, Generators, OnSegment, _b, stack_steps
 
 
 class RectifiedFlow(GaussianDiffusion):
@@ -138,14 +138,17 @@ class RectifiedFlow(GaussianDiffusion):
         noise: Optional[torch.Tensor] = None,
         device=None,
         return_all: bool = False,
+        segment_steps: Optional[int] = None,
+        on_segment: OnSegment = None,
     ) -> torch.Tensor:
         """The full reverse ODE; a generator draws the same x(1) as the
-        Gaussian samplers draw x_T."""
+        Gaussian samplers draw x_T. ``segment_steps``/``on_segment`` as in
+        :meth:`_run_chain`."""
         device = self._device(device)
-        if x_T is None:
-            x = normal(generator, (batch_size, *self.sampling_shape), device)
-        else:
-            x = x_T.to(device=device, dtype=torch.float32)
+        x = self._x_T(batch_size, generator, x_T, device)
         ts = torch.linspace(1.0, 0.0, num_steps + 1, dtype=torch.float32, device=device)
-        out = self.sample_segment(x, ts, mode, ddim_eta, generator, noise, return_all)
-        return torch.cat([x[None], out[1]]) if return_all else out
+
+        def run(x, lo, hi):
+            return self.sample_segment(x, ts[lo:hi + 1], mode, return_all=return_all)
+
+        return self._run_chain(x, num_steps, run, return_all, segment_steps, on_segment)

@@ -26,7 +26,7 @@ import torch
 
 from . import config as config_lib
 from .diffusion import ContinuousTimeGaussianDiffusion, DiscreteTimeGaussianDiffusion, RectifiedFlow
-from .diffusion.base import Generators, NoiseSource, check_repaint_grid, noise_drawer, normal
+from .diffusion.base import Generators, NoiseSource, check_repaint_grid
 from .lidar import LiDARUtility, nearest_exact_resize_hw
 from .models.efficient_unet import EfficientUNet
 from .ops.encoding import get_hdl64e_linear_ray_angles
@@ -146,11 +146,14 @@ class DDPM:
     sampling surface. Per-sample determinism: ``seeds=[...]`` gives each
     row its own generator (the reference's list of torch.Generators)."""
 
-    # Batch-axis chunking bound, in pixels (batch x H x W) per card. One
-    # config-H sampling step peaks at 112.7 MB an image at 64x1024
-    # (chip_smoke.py: torch.cuda.max_memory_allocated around one DDIM step
-    # at b8 and b32, on an NVIDIA H100 80GB HBM3, 700.00 W), so 512 images
-    # take 57.7 GB of its 85.0 GB. Larger batches run as sequential chunks.
+    # Batch-axis chunking bound, in pixels (batch x H x W) per card; larger
+    # batches run as sequential chunks. Rule: the largest power of two of
+    # 64x1024 images n with n x m <= 0.7 x the card's memory, m the larger
+    # per-image peak of one sampling step and one RePaint step at config H
+    # (chip_smoke.py: torch.cuda.max_memory_allocated at b8 and b32). On an
+    # NVIDIA H100 80GB HBM3, 700.00 W: m = 114.3 MB (a RePaint step; a
+    # DDIM step 112.7 MB), so 0.7 x 85.0 GB / m = 520.9 and n = 512
+    # (58.5 GB).
     MAX_BATCH_PIXELS = 512 * 64 * 1024
 
     def __init__(self, diffusion, cfg: Optional[config_lib.Config] = None):
@@ -264,48 +267,18 @@ class DDPM:
             x = x.contiguous()
         return x
 
-    @torch.inference_mode()
     def _chain(self, B, num_steps, mode, ddim_eta, gens, x_T, noise, return_all, show, chunk) -> torch.Tensor:
-        """One batch chunk's reverse chain, NHWC, run as segments of
-        ``chunk`` steps when ``show`` (the same operations either way)."""
+        """One batch chunk's reverse chain, NHWC: the diffusion's own chain,
+        run as segments of ``chunk`` steps with a progress line between
+        them when ``show`` (the same operations either way)."""
         diff = self.diffusion
-        device = self.device
-        discrete = isinstance(diff, DiscreteTimeGaussianDiffusion)
-        dpmpp = mode == "dpmpp_2m"
-        if x_T is None:
-            x = normal(gens, (B, *diff.sampling_shape), device)
-        else:
-            x = x_T.to(device=device, dtype=torch.float32)
-        if discrete:
-            ts = diff.timesteps(num_steps)
-        else:
-            ts = torch.linspace(1.0, 0.0, num_steps + 1, dtype=torch.float32, device=device)
-        if dpmpp:
-            second_order = diff.dpmpp_second_order(num_steps)
-            prev_x0 = torch.zeros_like(x)
-            prev_lam = torch.zeros((B, 1, 1, 1), dtype=torch.float32, device=device)
-        stacks = [x[None]] if return_all else None
-        seg_len = chunk if show else max(num_steps, 1)
-        bar = _Progress("sampling", num_steps, show, device)
-        done = 0
-        while done < num_steps:
-            n = min(seg_len, num_steps - done)
-            seg = ts[done:done + n] if discrete else ts[done:done + n + 1]
-            if dpmpp:
-                out = diff.dpmpp_2m_segment(x, prev_x0, prev_lam, seg, second_order[done:done + n], return_all)
-                x, prev_x0, prev_lam = out[:3]
-            else:
-                seg_noise = None if noise is None else noise[done:done + n]
-                kw = {"eta" if discrete else "ddim_eta": ddim_eta}
-                out = diff.sample_segment(
-                    x, seg, mode=mode, generator=gens, noise=seg_noise, return_all=return_all, **kw
-                )
-                x = out[0] if return_all else out
-            if return_all:
-                stacks.append(out[-1])
-            done += n
-            bar.update(done)
-        return torch.cat(stacks) if return_all else x
+        bar = _Progress("sampling", num_steps, show, self.device)
+        common = dict(generator=gens, x_T=x_T, device=self.device, return_all=return_all,
+                      segment_steps=chunk if show else None, on_segment=bar.update)
+        if mode == "dpmpp_2m":
+            return diff.sample_dpmpp(B, num_steps, **common)
+        eta = {"eta" if isinstance(diff, DiscreteTimeGaussianDiffusion) else "ddim_eta": ddim_eta}
+        return diff.sample(B, num_steps, mode=mode, noise=noise, **eta, **common)
 
     def repaint(
         self,
@@ -361,39 +334,21 @@ class DDPM:
         mask = mask.to(device=device, dtype=torch.float32)
         chunk = self._batch_chunk(bsz, None, seeds)
         gens = self._generators(seeds)
+        # with a progress line, segments of about progress_chunk network calls
+        segment = max(1, progress_chunk // (num_resample_steps * jump_length)) if progress else None
         outs = []
         for lo in range(0, bsz, chunk):
             hi = min(lo + chunk, bsz)
-            outs.append(self._repaint_chain(
+            bar = _Progress("repaint", num_steps, progress, device)
+            outs.append(self.diffusion.repaint(
                 known[lo:hi], mask[lo:hi] if mask.shape[0] == bsz else mask, num_steps,
                 num_resample_steps, jump_length,
-                gens if isinstance(gens, torch.Generator) else gens[lo:hi],
-                noise, progress, progress_chunk,
+                generator=gens if isinstance(gens, torch.Generator) else gens[lo:hi],
+                noise=noise, device=device, segment_steps=segment, on_segment=bar.update,
             ))
         x = torch.cat(outs)
         return x.permute(0, 3, 1, 2).contiguous() if data_format == "NCHW" else x
 
-    @torch.inference_mode()
-    def _repaint_chain(self, known, mask, num_steps, r, j, gens, noise, show, chunk) -> torch.Tensor:
-        """One batch chunk of RePaint, NHWC: the loops of
-        ``diffusion.repaint``, run as segments of about ``chunk`` network
-        calls with a progress line between them when ``show``."""
-        diff = self.diffusion
-        draw = noise_drawer(gens, noise, self.device)
-        x = draw((known.shape[0], *diff.sampling_shape))
-        ts = torch.linspace(1.0, 0.0, num_steps + 1, dtype=torch.float32, device=self.device)
-        pairs = torch.stack([ts[:-2], ts[1:-1]], dim=1)
-        seg_len = max(1, chunk // (r * j)) if show else max(num_steps - 1, 1)
-        bar = _Progress("repaint", num_steps, show, self.device)
-        done = 0
-        while done < num_steps - 1:
-            n = min(seg_len, num_steps - 1 - done)
-            x = diff.repaint_segment(known, mask, x, pairs[done:done + n], draw, r, j)
-            done += n
-            bar.update(done)
-        x = diff.repaint_final(known, mask, x, ts[num_steps - 1], ts[num_steps], draw, j)
-        bar.update(num_steps)
-        return x
 
 def _load(path: str) -> dict:
     if path.endswith((".pth", ".pt", ".ckpt")):
