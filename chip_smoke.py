@@ -34,7 +34,19 @@ Phases (any failure makes the exit code non-zero and suppresses the result):
      calls), beside the least time the card could take (bound_ms);
   7. one batch-8 network forward: its time as the host drives it, its
      device time and each part's (CUDA graphs), the host's time to enqueue
-     it, and the operations that block the host (sync debug mode).
+     it, and the operations that block the host (sync debug mode);
+  8. training: each kernel's backward against autograd of its plain version
+     at every config-H shape (GN: dx, d_gain, d_shift with (C,) and (B, C)
+     gains; the conv: dx through the kernel, dW, d_bias); one config-H b8
+     loss + backward through the kernel path against the plain path (relative
+     L2 of the loss and of the flattened gradient); ``python -m
+     r2dm_tpu_torch.train`` on the synthetic set at config H, b8, for 10
+     steps and resumed for 2 more, with exact launch counts (50 GN + 96 conv
+     a step), a finite loss, and the step and AdamW state continuing; then
+     the median train-step time (CUDA events), its peak memory and the
+     host's enqueue time against the device time, and the GN backward, the
+     conv's dx (the kernel at the transposed shapes) and dW at every
+     ResidualBlock shape.
 The line before the last is the kernels JSON; the last line is
 {"ok": true, "device": {...}}. Exits non-zero, printing no result, without a
 CUDA device or without the port's package.
@@ -53,6 +65,10 @@ import time
 import warnings
 
 B = 8  # batch of every check and of the main path
+TRAIN_STEPS, RESUMED_STEPS = 10, 2  # python -m r2dm_tpu_torch.train in the training phase
+# kernel path against plain path, one config-H b8 loss + backward: relative
+# L2 of the flattened gradient (the forward's limit; see PERF.md)
+TRAIN_REL_L2 = 2e-2
 # every batch at which this script runs the network: generate b2, RePaint
 # b4, the other paths b8, the memory probe b32; one forward at each is held
 # against the plain path
@@ -67,7 +83,8 @@ GN_SHAPES = [(64, 64, 1024), (128, 64, 1024), (128, 32, 512), (256, 32, 512),
              (64, 32, 512), (256, 16, 256), (512, 16, 256), (128, 16, 256),
              (512, 8, 128), (256, 8, 128)]
 # every (C_in, F, H, W) of a config-H ResidualBlock conv, with its count per
-# network forward (conv1 and conv2 of 24 blocks = 48 launches)
+# network forward (conv1 and conv2 of 24 blocks = 48 launches; a train step
+# launches each again at (F, C_in, H, W) for its input gradient)
 CONV_SHAPES = {
     (64, 64, 64, 1024): 6 + 5,   # d_block1; u_block1 past its first conv
     (128, 64, 64, 1024): 1,      # u_block1 block 0 conv1 (concat input)
@@ -135,6 +152,21 @@ def randn(torch, shape, seed, dtype=None, scale=1.0, offset=0.0):
     g = torch.Generator("cuda").manual_seed(seed)
     x = torch.randn(shape, generator=g, device="cuda") * scale + offset
     return x.to(dtype) if dtype is not None else x
+
+
+def host_syncs(torch, fn) -> list:
+    """Where ``fn`` makes the host wait for the card (sync debug mode), as
+    file:line; PyTorch's one-time notice that the mode is a prototype is
+    not a sync."""
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    return ["/".join(w.filename.split(os.sep)[-3:]) + f":{w.lineno}" for w in caught
+            if "synchroniz" in str(w.message) and "prototype" not in str(w.message)]
 
 
 class Phases:
@@ -568,15 +600,7 @@ def phase_breakdown(torch, ddpm):
         for what, fn in (("forward", lambda: net(xin, cond)),
                          ("forward_again", lambda: net(xin, cond)),
                          ("sample_2_steps", lambda: ddpm.sample(B, 2, seeds=range(B)))):
-            with warnings.catch_warnings(record=True) as caught:
-                warnings.simplefilter("always")
-                torch.cuda.set_sync_debug_mode("warn")
-                try:
-                    fn()
-                finally:
-                    torch.cuda.set_sync_debug_mode("default")
-            syncs[what] = ["/".join(w.filename.split(os.sep)[-3:]) + f":{w.lineno}"
-                           for w in caught if "synchroniz" in str(w.message)]
+            syncs[what] = host_syncs(torch, fn)
         torch.cuda.synchronize()
         # device time alone (CUDA graphs): of the forward, and of each part
         device_ms = graph_ms(torch, lambda: net(xin, cond), iters=3)
@@ -593,7 +617,7 @@ def phase_breakdown(torch, ddpm):
     }))
 
 
-def phase_time(torch, launches, errs):
+def phase_time(torch, launches, train_launches, errs):
     import torch.nn.functional as F
 
     from r2dm_tpu_torch.ops import act_ringconv, gn_silu
@@ -612,6 +636,7 @@ def phase_time(torch, launches, errs):
             "plain_ms": plain_ms, "bound_ms": max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
             "library_ms": library_ms, "shape": shape,
+            "train_launches_per_step": train_launches[name] // TRAIN_STEPS,
         })
 
     # kernel 1: the d_block4 attention norm input
@@ -649,18 +674,305 @@ def phase_time(torch, launches, errs):
         gn_silu_ms = graph_ms(torch, lambda: gn_silu.fused_group_norm_silu(x, a[0], b[0], G, eps))
         gn_nosilu_ms = graph_ms(torch, lambda: gn_silu.fused_group_norm_silu(x, a[0], b[0], G, eps, apply_silu=False))
         gn_silu_bound = max(2 * x.numel() * 2 / PEAK_BYTES, 10 * x.numel() / PEAK_FP32_FLOPS) * 1e3
+        # the backward at this conv: dx is the kernel at (F, C_in), dy in and
+        # dx out (bound: dy read, dx written, the weight read once; library:
+        # cuDNN's dgrad, which the port never calls); dW and d_bias through
+        # PyTorch; the norm before it, GN + SiLU backward in PyTorch ops
+        dy = randn(torch, (B, H, W, Fo), 22, torch.bfloat16)
+        dx_ms = graph_ms(torch, lambda: act_ringconv.ring_conv_input_grad(dy, k))
+        dx_plain = graph_ms(torch, lambda: act_ringconv.act_ringconv_plain(
+            dy, None, None, k.flip(0, 1).transpose(2, 3), torch.zeros(C, device="cuda"), apply_act=False))
+        dyc = dy.permute(0, 3, 1, 2)
+        dx_lib = graph_ms(torch, lambda: torch.nn.grad.conv2d_input((B, C, H + 2, W + 2), wt, dyc))
+        dw_ms = graph_ms(torch, lambda: act_ringconv.ring_conv_weight_grad(x, dy, torch.float32, torch.float32))
+        gn_bwd_ms = graph_ms(torch, lambda: gn_silu.gn_silu_backward(x, a[0], b[0], G, eps, True, x))
         per_shape.append({"cin": C, "f": Fo, "h": H, "w": W, "per_forward": count, "ms": ms,
                           "act_ms": act_ms, "plain_ms": plain, "library_ms": lib, "bound_ms": bound,
                           "tflops": flops / ms / 1e9, "gn_silu_ms": gn_silu_ms, "gn_nosilu_ms": gn_nosilu_ms,
-                          "gn_silu_bound_ms": gn_silu_bound})
+                          "gn_silu_bound_ms": gn_silu_bound, "dx_ms": dx_ms, "dx_plain_ms": dx_plain,
+                          "dx_library_ms": dx_lib, "dx_bound_ms": bound, "dw_ms": dw_ms,
+                          "gn_silu_backward_ms": gn_bwd_ms,
+                          "gn_silu_backward_bound_ms": 3 * x.numel() * 2 / PEAK_BYTES * 1e3})
         if (C, Fo, H, W) == (64, 64, 64, 1024):
             row("fused_act_ringconv", "cuda", ms, plain, nbytes, flops, PEAK_BF16_FLOPS, lib,
                 [B, H, W, C, Fo], errs["fused_act_ringconv"])
     total = {k: sum(s[k] * s["per_forward"] for s in per_shape)
              for k in ("ms", "act_ms", "plain_ms", "library_ms", "bound_ms", "gn_silu_ms", "gn_nosilu_ms",
-                       "gn_silu_bound_ms")}
+                       "gn_silu_bound_ms", "dx_ms", "dx_plain_ms", "dx_library_ms", "dw_ms", "gn_silu_backward_ms",
+                       "gn_silu_backward_bound_ms")}
     print("ResidualBlock kernels per shape: " + json.dumps({"shapes": per_shape, "per_forward_total": total}))
     return rows
+
+def _grads(torch, fn, inputs, dy):
+    """Gradients of ``fn(*inputs)`` for the output gradient dy, each input
+    a fresh leaf."""
+    leaves = [v.detach().clone().requires_grad_() for v in inputs]
+    fn(*leaves).backward(dy)
+    return [v.grad for v in leaves]
+
+
+def phase_train_backward(torch):
+    """Each kernel's backward against autograd of its plain version, in bf16
+    on the card, at every config-H shape: the forward's limits (GN rtol =
+    atol = 2e-2; the conv max|err| <= 1e-2 * max|ref|)."""
+    from r2dm_tpu_torch.ops import act_ringconv, gn_silu
+
+    G, eps = 8, 1e-6
+    worst = {}
+    for C, H, W in GN_SHAPES:
+        x = randn(torch, (B, H, W, C), 31, torch.bfloat16, offset=0.1)
+        dy = randn(torch, (B, H, W, C), 32, torch.bfloat16)
+        for per_batch in (False, True):
+            aff = (B, C) if per_batch else (C,)
+            gain = randn(torch, aff, 33, scale=0.5, offset=1.0)
+            shift = randn(torch, aff, 34, scale=0.5)
+            for silu in (True, False):
+                got = _grads(torch, lambda a, g, b: gn_silu.fused_group_norm_silu(a, g, b, G, eps, silu),
+                             (x, gain, shift), dy)
+                ref = _grads(torch, lambda a, g, b: gn_silu.fused_group_norm_silu_plain(a, g, b, G, eps, silu),
+                             (x, gain, shift), dy)
+                for name, o, r in zip(("dx", "d_gain", "d_shift"), got, ref):
+                    err = (o.float() - r.float()).abs()
+                    if o.shape != r.shape or not bool((err <= 2e-2 + 2e-2 * r.float().abs()).all()):
+                        raise AssertionError(f"gn_silu backward {(C, H, W)} {name} per_batch={per_batch} "
+                                             f"silu={silu}: max|err| {err.max().item():.3e}")
+                    worst[f"gn {name}"] = max(worst.get(f"gn {name}", 0.0), err.max().item())
+    print(f"gn_silu backward ok at every GN_SHAPES entry: max|err| {json.dumps(worst)}")
+    for (C, Fo, H, W) in CONV_SHAPES:
+        x = randn(torch, (B, H, W, C), 35, torch.bfloat16)
+        k = randn(torch, (3, 3, C, Fo), 36, scale=(9 * C) ** -0.5)
+        bias = randn(torch, (Fo,), 37, scale=0.1)
+        dy = randn(torch, (B, H, W, Fo), 38, torch.bfloat16)
+        got = _grads(torch, lambda a, kk, b: act_ringconv.fused_act_ringconv(a, None, None, kk, b, apply_act=False),
+                     (x, k, bias), dy)
+        ref = _grads(torch, lambda a, kk, b: act_ringconv.act_ringconv_plain(a, None, None, kk, b, apply_act=False),
+                     (x, k, bias), dy)
+        for name, o, r in zip(("dx", "dW", "d_bias"), got, ref):
+            err = (o.float() - r.float()).abs().max().item()
+            scale = r.float().abs().max().item()
+            if o.shape != r.shape or o.dtype != r.dtype or not err <= 1e-2 * scale:
+                raise AssertionError(f"act_ringconv backward {(C, Fo, H, W)} {name}: max|err| {err:.3e} "
+                                     f"vs max|ref| {scale:.3e}")
+            worst[f"conv {name} rel"] = max(worst.get(f"conv {name} rel", 0.0), err / scale)
+    # under grad the wrappers return a graph node on the card, and the
+    # prologue form, which has no backward, raises
+    x = randn(torch, (B, 8, 128, 64), 39, torch.bfloat16).requires_grad_()
+    k = randn(torch, (3, 3, 64, 64), 40, scale=0.05)
+    ones, zeros = torch.ones(64, device="cuda"), torch.zeros(64, device="cuda")
+    if gn_silu.fused_group_norm_silu(x, ones, zeros, G, eps).grad_fn is None or \
+            act_ringconv.fused_act_ringconv(x, None, None, k, zeros, apply_act=False).grad_fn is None:
+        raise AssertionError("a kernel wrapper returned no grad_fn under autograd")
+    try:
+        act_ringconv.fused_act_ringconv(x, ones[None].expand(B, 64).contiguous(), zeros[None].expand(B, 64).contiguous(),
+                                        k, zeros, apply_act=True)
+    except NotImplementedError:
+        pass
+    else:
+        raise AssertionError("fused_act_ringconv(apply_act=True) under autograd did not raise")
+    print(f"backward of both kernels ok at every config-H shape: {json.dumps(worst)}")
+    torch.cuda.synchronize()
+    return worst
+
+
+def phase_train_step(torch):
+    """One config-H b8 loss + backward through the kernel path and through
+    the plain path, from the same weights, batch, steps and noise."""
+    from r2dm_tpu_torch import ops
+    from r2dm_tpu_torch.bench import random_ddpm
+    from r2dm_tpu_torch.models import layers
+
+    ddpm = random_ddpm(seed=1)
+    model, diffusion = ddpm.model.train(), ddpm.diffusion
+    g = torch.Generator("cuda").manual_seed(2)
+    x_0 = torch.rand((B, 64, 1024, 2), generator=g, device="cuda") * 2 - 1
+    steps = torch.rand((B,), generator=g, device="cuda")
+    noise = torch.randn((B, 64, 1024, 2), generator=g, device="cuda")
+
+    def loss_and_grad():
+        model.zero_grad(set_to_none=True)
+        loss = diffusion.p_loss(model, x_0, steps, noise)
+        loss.backward()
+        return loss.detach(), torch.cat([p.grad.flatten() for p in model.parameters()])
+
+    ops.reset_launch_counts()
+    loss_k, grad_k = loss_and_grad()
+    torch.cuda.synchronize()
+    launches = {fn.__name__: fn.launches for fn in ops.KERNEL_WRAPPERS}
+    saved = {n: getattr(layers, n) for n in ("fused_group_norm_silu", "fused_act_ringconv")}
+    try:
+        layers.fused_group_norm_silu = ops.gn_silu.fused_group_norm_silu_plain
+        layers.fused_act_ringconv = ops.act_ringconv.act_ringconv_plain
+        loss_p, grad_p = loss_and_grad()
+    finally:
+        for n, fn in saved.items():
+            setattr(layers, n, fn)
+    rel_loss = ((loss_k - loss_p).abs() / loss_p.abs()).item()
+    rel_grad = ((grad_k - grad_p).norm() / grad_p.norm()).item()
+    print(f"train step b{B}, kernel path vs plain path: loss {loss_k.item():.6f} vs {loss_p.item():.6f}, "
+          f"relative L2 of the loss {rel_loss:.3e}, of the flattened gradient ({grad_k.numel()} values) "
+          f"{rel_grad:.3e} (limit {TRAIN_REL_L2}); launches {json.dumps(launches)}")
+    if launches != {"fused_group_norm_silu": 50, "fused_act_ringconv": 96}:
+        raise AssertionError(f"one loss + backward launched {launches}, expected 50 GN and 96 conv")
+    if not (math.isfinite(rel_grad) and rel_loss <= TRAIN_REL_L2 and rel_grad <= TRAIN_REL_L2):
+        raise AssertionError(f"kernel path vs plain path: loss {rel_loss}, gradient {rel_grad}")
+    del grad_k, grad_p
+    return {"ddpm": ddpm, "rel_loss": rel_loss, "rel_grad": rel_grad}
+
+
+def _train_cli(torch, argv):
+    """``python -m r2dm_tpu_torch.train`` in this process, so the launch
+    counters see it; returns (seconds, launches)."""
+    import runpy
+
+    from r2dm_tpu_torch import ops
+
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    saved, sys.argv = sys.argv, ["r2dm_tpu_torch.train"] + argv
+    t0 = time.time()
+    try:
+        runpy.run_module("r2dm_tpu_torch.train", run_name="__main__", alter_sys=True)
+    except SystemExit as e:
+        if e.code not in (0, None):
+            raise AssertionError(f"python -m r2dm_tpu_torch.train exited with {e.code}")
+    finally:
+        sys.argv = saved
+    torch.cuda.synchronize()
+    return time.time() - t0, {fn.__name__: fn.launches for fn in ops.KERNEL_WRAPPERS}
+
+
+def phase_train_cli(torch, tmp):
+    """The training entry point on the synthetic set at config H, b8: 10
+    steps, then resumed from its checkpoint for 2 more."""
+    import numpy as np
+
+    from r2dm_tpu_torch.checkpoint import load_checkpoint
+
+    out = os.path.join(tmp, "train")
+    argv = ["--data.dataset", "synthetic", "--training.output_dir", out, "--training.seed", "0",
+            "--training.steps_save_image", "100000", "--training.steps_save_model", "100000"]
+    saved_env = os.environ.get("R2DM_SYNTH_SCANS")
+    os.environ["R2DM_SYNTH_SCANS"] = str(B)
+    try:
+        runs = [_train_cli(torch, argv + ["--training.num_steps", str(TRAIN_STEPS)])]
+        first = load_checkpoint(os.path.join(out, "checkpoint.msgpack"))
+        runs.append(_train_cli(torch, argv + ["--training.num_steps", str(TRAIN_STEPS + RESUMED_STEPS),
+                                              "--training.resume", os.path.join(out, "checkpoint.msgpack")]))
+        second = load_checkpoint(os.path.join(out, "checkpoint.msgpack"))
+    finally:
+        if saved_env is None:
+            os.environ.pop("R2DM_SYNTH_SCANS")
+        else:
+            os.environ["R2DM_SYNTH_SCANS"] = saved_env
+    for (seconds, launches), steps in zip(runs, (TRAIN_STEPS, RESUMED_STEPS)):
+        expected = {"fused_group_norm_silu": 50 * steps, "fused_act_ringconv": 96 * steps}
+        print(f"python -m r2dm_tpu_torch.train, {steps} steps b{B}: {seconds:.3f} s (build, data, steps, "
+              f"checkpoint), launches {json.dumps(launches)} (expected {json.dumps(expected)})")
+        if launches != expected:
+            raise AssertionError(f"train launches {launches} != {expected}")
+    with open(os.path.join(out, "metrics.jsonl")) as f:
+        logged = [json.loads(line) for line in f]
+    print(f"train metrics at step 1: {json.dumps(logged[0])}")
+    if not (logged[0]["step"] == 1 and math.isfinite(logged[0]["loss"]) and math.isfinite(logged[0]["grad_norm"])):
+        raise AssertionError(f"train metrics: {logged}")
+    counts = [(c["global_step"], int(c["opt_state"]["1"]["0"]["count"]), int(c["opt_state"]["1"]["2"]["count"]))
+              for c in (first, second)]
+    if counts != [(TRAIN_STEPS,) * 3, (TRAIN_STEPS + RESUMED_STEPS,) * 3]:
+        raise AssertionError(f"(step, adam count, schedule count) after each run: {counts}")
+    leaves = _leaves(second["weights"]) + _leaves(second["ema_weights"]) + _leaves(second["opt_state"])
+    moved = [np.abs(a - b).max() for a, b in zip(_leaves(first["opt_state"]["1"]["0"]["nu"]),
+                                                   _leaves(second["opt_state"]["1"]["0"]["nu"]))]
+    if not all(np.isfinite(np.asarray(a)).all() for a in leaves) or max(moved) == 0.0:
+        raise AssertionError("the resumed run left non-finite weights or an AdamW state that did not move")
+    print(f"train resume: (step, adam count, schedule count) {counts}; checkpoint finite; "
+          f"AdamW second moments moved by up to {max(moved):.3e} in the resumed steps")
+    return {"seconds": [r[0] for r in runs], "launches": runs[0][1], "loss_step1": logged[0]["loss"]}
+
+
+def _leaves(node):
+    return [x for v in node.values() for x in (_leaves(v) if isinstance(v, dict) else [v])]
+
+
+def phase_train_time(torch, ddpm):
+    """The train step as the trainer runs it (loss, backward, clip, AdamW,
+    scheduler, EMA) at config H, b8: device time per step (CUDA events) after
+    warm-up, the host's time to enqueue it, and its peak memory."""
+    from r2dm_tpu_torch import config as config_lib
+    from r2dm_tpu_torch.training import EMAConfig, init_train_state, make_optimizer, make_train_step
+
+    model = ddpm.model
+    optimizer, scheduler = make_optimizer(model.parameters(), config_lib.TrainingConfig(lr_warmup_steps=1))
+    state = init_train_state(model, optimizer, scheduler)
+    step = make_train_step(ddpm.diffusion, optimizer, scheduler, EMAConfig(update_after_step=0, update_every=1))
+    g = torch.Generator("cuda").manual_seed(3)
+    x_0 = torch.rand((B, 64, 1024, 2), generator=g, device="cuda") * 2 - 1
+    for _ in range(3):  # warm-up: AdamW's state, the allocator's pools
+        step(state, x_0, g)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    device_ms, enqueue_ms = [], []
+    for _ in range(10):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        start.record()
+        metrics = step(state, x_0, g)
+        end.record()
+        enqueue_ms.append((time.perf_counter() - t0) * 1e3)
+        torch.cuda.synchronize()
+        device_ms.append(start.elapsed_time(end))
+    peak = torch.cuda.max_memory_allocated() - base
+    loss = metrics["loss"].item()
+    med = sorted(device_ms)[len(device_ms) // 2]
+    enq = sorted(enqueue_ms)[len(enqueue_ms) // 2]
+    out = {"median_step_ms": med, "img_per_s": B / med * 1e3, "step_ms": device_ms, "median_enqueue_ms": enq,
+           "host_share": enq / med, "peak_bytes": peak, "resident_bytes": base, "loss": loss}
+    print(f"train step b{B} (CUDA events, 3 warm-up steps, 10 timed): " + json.dumps(out))
+    if not math.isfinite(loss):
+        raise AssertionError(f"train step loss {loss}")
+    out["profile"] = _profile_train_step(torch, step, state, x_0, g)
+    return out
+
+
+def _profile_train_step(torch, step, state, x_0, g, steps: int = 3):
+    """Where a train step's time goes: the kernels' device time (the sum of
+    every kernel's duration, torch.profiler) against the step's wall time,
+    the operations with the most device and host time, and the operations
+    that block the host (sync debug mode)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            step(state, x_0, g)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3 / steps
+    from torch.autograd import DeviceType
+
+    avgs = prof.key_averages()
+    # the device's own events (kernels, memsets, copies); an operator's
+    # device time is the sum of its kernels', so counting both would count
+    # each kernel twice
+    kernels = [e for e in avgs if e.device_type == DeviceType.CUDA]
+    kernel_ms = sum(e.self_device_time_total for e in kernels) / 1e3 / steps
+    top_device = sorted(kernels, key=lambda e: -e.self_device_time_total)[:12]
+    top_ops = sorted((e for e in avgs if e.device_type == DeviceType.CPU),
+                     key=lambda e: -e.device_time_total)[:12]
+    top_host = sorted(avgs, key=lambda e: -e.self_cpu_time_total)[:12]
+    syncs = host_syncs(torch, lambda: step(state, x_0, g))
+    out = {
+        "wall_ms_per_step": wall_ms,
+        "kernel_ms_per_step": kernel_ms if kernel_ms > 0 else "not measured (no kernel in the trace)",
+        "device_idle_share": 1.0 - kernel_ms / wall_ms if kernel_ms > 0 else "not measured",
+        "top_kernels_ms_per_step": {e.key[:80]: e.self_device_time_total / 1e3 / steps for e in top_device},
+        "top_operators_device_ms_per_step": {e.key[:80]: e.device_time_total / 1e3 / steps for e in top_ops},
+        "top_host_ms_per_step": {e.key[:80]: e.self_cpu_time_total / 1e3 / steps for e in top_host},
+        "host_syncs_per_step": syncs,
+    }
+    print(f"train step b{B} profile ({steps} steps, torch.profiler): " + json.dumps(out))
+    return out
 
 
 def main() -> int:
@@ -695,9 +1007,15 @@ def main() -> int:
         main_out = phases.run("main path", phase_main, torch, tmp)
         if main_out is not None:
             phases.run("serving paths", phase_serving, torch, main_out, tmp)
-    if main_out is not None and gn_err is not None and conv_err is not None:
+        phases.run("training: backward of both kernels", phase_train_backward, torch)
+        train_cli = phases.run("training: python -m r2dm_tpu_torch.train", phase_train_cli, torch, tmp)
+    step_out = phases.run("training: kernel path against plain path", phase_train_step, torch)
+    train_time = None
+    if step_out is not None:
+        train_time = phases.run("training: step time and memory", phase_train_time, torch, step_out.pop("ddpm"))
+    if main_out is not None and gn_err is not None and conv_err is not None and train_cli is not None:
         errs = {**gn_err, "fused_act_ringconv": conv_err}
-        rows = phases.run("timing", phase_time, torch, main_out["launches"], errs)
+        rows = phases.run("timing", phase_time, torch, main_out["launches"], train_cli["launches"], errs)
         phases.run("breakdown", phase_breakdown, torch, main_out["ddpm"])
     else:
         rows = None
@@ -706,6 +1024,8 @@ def main() -> int:
             log(f"FAILED {line}")
         return 1
     print(f"ddim16_b{B}_img_per_s {main_out['ddim16_img_s']:.4f}")
+    print(f"train_step_b{B}_median_ms {train_time['median_step_ms']:.3f} "
+          f"({train_time['img_per_s']:.3f} img/s, peak {train_time['peak_bytes'] / 1e9:.3f} GB)")
     print(card)
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

@@ -4,8 +4,9 @@ Imports torch, numpy and the standard library only. The JAX package
 ``r2dm_tpu`` is the reference the port is tested against; nothing here
 imports it. The two TPU kernels, which every sampler runs, are hand-written
 CUDA kernels (``csrc/``), built with nvcc at first use on a machine with the
-CUDA toolkit. ``python -m r2dm_tpu_torch.generate`` and ``python -m
-r2dm_tpu_torch.bench`` are the command-line entry points.
+CUDA toolkit; under autograd the training step runs them too.
+``python -m r2dm_tpu_torch.generate``, ``python -m r2dm_tpu_torch.bench`` and
+``python -m r2dm_tpu_torch.train`` are the command-line entry points.
 """
 
 from .config import Config

@@ -1,9 +1,13 @@
-"""Read the JAX package's single-file msgpack checkpoints without flax.
+"""Read and write the JAX package's single-file msgpack checkpoints without
+flax.
 
 ``r2dm_tpu/checkpoint.py::save_checkpoint`` writes ``{cfg: JSON str, step,
 weights, ema_weights, opt_state}`` through ``flax.serialization`` (msgpack).
 This module decodes that format in pure Python, so a machine without flax or
-``msgpack`` loads it. It handles the subset flax writes:
+``msgpack`` loads it, and ``save_checkpoint`` writes it from a port's
+``TrainState`` (``packb`` encodes the same subset: maps with str keys, ints,
+floats, str, bytes, and ndarrays/tensors as ext 1). The decoder handles the
+subset flax writes:
 
 - nil, bool, ints of every width, float32/64, str, bin, array and map;
 - ext type 1, an ndarray: a nested msgpack ``(shape, dtype name, C bytes)``;
@@ -19,11 +23,14 @@ raises.
 from __future__ import annotations
 
 import json
+import os
 import struct
 from typing import Any
 
 import numpy as np
 import torch
+
+from .utils.weights import jax_from_state_dict, state_dict_from_jax
 
 EXT_NDARRAY = 1
 EXT_NPSCALAR = 3
@@ -159,3 +166,152 @@ def load_checkpoint(path: str) -> dict[str, Any]:
         "opt_state": payload["opt_state"] or None,
         "global_step": int(payload["step"]),
     }
+
+
+# ----------------------------------------------------------------- writer
+def _header(out: bytearray, n: int, fix: int, fix_max: int, codes: tuple) -> None:
+    """A length header: the fix form below ``fix_max``, else the 8/16/32-bit
+    form (``codes``; None where the type has no 8-bit form)."""
+    if n < fix_max and fix is not None:
+        out.append(fix | n)
+    elif n <= 0xFF and codes[0] is not None:
+        out += bytes([codes[0], n])
+    elif n <= 0xFFFF:
+        out += bytes([codes[1]]) + struct.pack(">H", n)
+    else:
+        out += bytes([codes[2]]) + struct.pack(">I", n)
+
+
+def _array_payload(a) -> bytes:
+    """flax's ndarray encoding: msgpack (shape, dtype name, C-order bytes);
+    a bfloat16 tensor through a uint16 view."""
+    if isinstance(a, torch.Tensor):
+        a = a.detach().cpu().contiguous()
+        if a.dtype == torch.bfloat16:
+            return packb([list(a.shape), "bfloat16", a.view(torch.uint16).numpy().tobytes()])
+        a = a.numpy()
+    a = np.asarray(a)
+    return packb([list(a.shape), a.dtype.name, a.tobytes(order="C")])
+
+
+def _ext(out: bytearray, code: int, payload: bytes) -> None:
+    n = len(payload)
+    fixed = {1: 0xD4, 2: 0xD5, 4: 0xD6, 8: 0xD7, 16: 0xD8}.get(n)
+    if fixed is not None:
+        out.append(fixed)
+    else:
+        _header(out, n, None, 0, (0xC7, 0xC8, 0xC9))
+    out += struct.pack(">b", code) + payload
+
+
+def _pack(obj, out: bytearray) -> None:
+    if obj is None:
+        out.append(0xC0)
+    elif obj is True or obj is False:
+        out.append(0xC3 if obj else 0xC2)
+    elif isinstance(obj, int):
+        if 0 <= obj <= 0x7F or -32 <= obj < 0:
+            out += struct.pack(">b" if obj < 0 else ">B", obj)
+        elif obj >= 0:
+            for code, fmt in ((0xCC, ">B"), (0xCD, ">H"), (0xCE, ">I"), (0xCF, ">Q")):
+                if obj < 1 << (8 * struct.calcsize(fmt)):
+                    out += bytes([code]) + struct.pack(fmt, obj)
+                    return
+            raise OverflowError(f"msgpack: {obj} does not fit 64 bits")
+        else:
+            for code, fmt in ((0xD0, ">b"), (0xD1, ">h"), (0xD2, ">i"), (0xD3, ">q")):
+                if obj >= -(1 << (8 * struct.calcsize(fmt) - 1)):
+                    out += bytes([code]) + struct.pack(fmt, obj)
+                    return
+            raise OverflowError(f"msgpack: {obj} does not fit 64 bits")
+    elif isinstance(obj, float):
+        out += b"\xcb" + struct.pack(">d", obj)
+    elif isinstance(obj, str):
+        data = obj.encode("utf-8")
+        _header(out, len(data), 0xA0, 32, (0xD9, 0xDA, 0xDB))
+        out += data
+    elif isinstance(obj, (bytes, bytearray)):
+        _header(out, len(obj), None, 0, (0xC4, 0xC5, 0xC6))
+        out += obj
+    elif isinstance(obj, dict):
+        _header(out, len(obj), 0x80, 16, (None, 0xDE, 0xDF))
+        for k, v in obj.items():
+            if not isinstance(k, str):
+                raise TypeError(f"msgpack: map keys are str here, got {type(k).__name__}")
+            _pack(k, out)
+            _pack(v, out)
+    elif isinstance(obj, (list, tuple)):
+        _header(out, len(obj), 0x90, 16, (None, 0xDC, 0xDD))
+        for v in obj:
+            _pack(v, out)
+    elif isinstance(obj, (np.ndarray, torch.Tensor)):
+        _ext(out, EXT_NDARRAY, _array_payload(obj))
+    elif isinstance(obj, np.generic):
+        _ext(out, EXT_NPSCALAR, _array_payload(np.asarray(obj)))
+    else:
+        raise TypeError(f"msgpack: cannot encode {type(obj).__name__}")
+
+
+def packb(obj) -> bytes:
+    """Encode ``obj`` as msgpack (the subset above; ``unpackb`` and
+    ``flax.serialization.msgpack_restore`` read it back)."""
+    out = bytearray()
+    _pack(obj, out)
+    return bytes(out)
+
+
+def optax_opt_state(state) -> dict:
+    """The state of AdamW in the layout optax gives ``make_optimizer``'s
+    chain (clip, then adamw: scale_by_adam, add_decayed_weights,
+    scale_by_schedule): ``{'0': {}, '1': {'0': {count, mu, nu}, '1': {},
+    '2': {count}}}``, mu and nu in the flax params tree, the counts int32.
+    Before the first update the moments are zeros."""
+    mu, nu = {}, {}
+    for name, p in state.model.named_parameters():
+        st = state.optimizer.state.get(p, {})
+        mu[name] = st.get("exp_avg", torch.zeros_like(p))
+        nu[name] = st.get("exp_avg_sq", torch.zeros_like(p))
+    count = np.asarray(state.step, np.int32)
+    return {"0": {}, "1": {
+        "0": {"count": count, "mu": jax_from_state_dict(mu)["params"], "nu": jax_from_state_dict(nu)["params"]},
+        "1": {},
+        "2": {"count": count},
+    }}
+
+
+def load_opt_state(state, stored: dict) -> None:
+    """Put an optax-layout AdamW state (``optax_opt_state``'s, or the JAX
+    package's ``make_optimizer`` state as a checkpoint holds it) into
+    ``state.optimizer``."""
+    adam = stored["1"]["0"]
+    count = int(np.asarray(adam["count"]))
+    mu = state_dict_from_jax({"params": adam["mu"]})
+    nu = state_dict_from_jax({"params": adam["nu"]})
+    for name, p in state.model.named_parameters():
+        state.optimizer.state[p] = {
+            "step": torch.tensor(float(count), dtype=torch.float32),
+            "exp_avg": mu[name].to(device=p.device, dtype=p.dtype),
+            "exp_avg_sq": nu[name].to(device=p.device, dtype=p.dtype),
+        }
+
+
+def save_checkpoint(path: str, cfg: dict, state) -> str:
+    """Write ``state`` (a ``training.TrainState``) as the JAX package's
+    checkpoint (r2dm_tpu/checkpoint.py:29-51): ``{cfg: JSON, step, weights,
+    ema_weights, opt_state}``, the weights in the flax ``{'params',
+    'buffers': {'coords'}}`` layout. Atomic: the bytes go to ``path.tmp``,
+    which then replaces ``path``."""
+    payload = {
+        "cfg": json.dumps(cfg),
+        "step": int(state.step),
+        "weights": jax_from_state_dict(state.model.state_dict()),
+        "ema_weights": jax_from_state_dict(state.ema_model.state_dict()),
+        "opt_state": optax_opt_state(state),
+    }
+    data = packb(payload)
+    os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
+    tmp = path + ".tmp"
+    with open(tmp, "wb") as f:
+        f.write(data)
+    os.replace(tmp, path)
+    return path

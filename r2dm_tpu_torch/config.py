@@ -5,10 +5,13 @@ The same ``{data, model, diffusion, training}`` fields and defaults as
 checkpoint's embedded ``cfg`` dict rebuilds the same network here. The
 defaults are config H. ``from_dict`` drops unknown keys, as the JAX package
 does, so reference checkpoints without the TPU-only fields load cleanly.
+``parse_cli`` reads the nested ``--data.x/--model.y/--diffusion.z/
+--training.w`` flags of the JAX package's ``config.parse_cli``.
 """
 
 from __future__ import annotations
 
+import argparse
 import dataclasses
 from dataclasses import dataclass
 from typing import Optional, Tuple
@@ -128,3 +131,42 @@ def from_dict(d: dict) -> Config:
         diffusion=_section(DiffusionConfig, "diffusion", d.get("diffusion", {})),
         training=_section(TrainingConfig, "training", d.get("training", {})),
     )
+
+
+def _add_dataclass_args(parser: argparse.ArgumentParser, cls, prefix: str) -> None:
+    """One ``--<prefix>.<field>`` flag per field, typed by its default: bools
+    from 1/true/yes, tuples of ints split on commas or spaces, and the word
+    None for an optional field."""
+    for f in dataclasses.fields(cls):
+        arg = f"--{prefix}.{f.name}"
+        default = f.default
+        if isinstance(default, bool):
+            parser.add_argument(arg, type=lambda s: s.lower() in ("1", "true", "yes"), default=default)
+        elif isinstance(default, tuple):
+            parser.add_argument(
+                arg, type=lambda s: tuple(int(x) for x in s.replace(",", " ").split()), default=default
+            )
+        elif isinstance(default, int):
+            parser.add_argument(arg, type=int, default=default)
+        elif isinstance(default, float):
+            parser.add_argument(arg, type=float, default=default)
+        else:
+            parser.add_argument(arg, type=lambda s: None if s == "None" else s, default=default)
+
+
+def parse_cli(argv=None, parser: argparse.ArgumentParser = None) -> tuple[Config, argparse.Namespace]:
+    """The nested config flags (r2dm_tpu/config.py:166-204, reference
+    train.py:315-318), added to ``parser`` (a new one by default, so a
+    caller can add its own flags). Returns the Config and the namespace."""
+    parser = parser or argparse.ArgumentParser()
+    for cls, group in ((DataConfig, "data"), (ModelConfig, "model"), (DiffusionConfig, "diffusion"),
+                       (TrainingConfig, "training")):
+        _add_dataclass_args(parser, cls, group)
+    ns = parser.parse_args(argv)
+    sub = {"data": {}, "model": {}, "diffusion": {}, "training": {}}
+    for k, v in vars(ns).items():
+        if "." not in k:
+            continue
+        group, name = k.split(".", 1)
+        sub[group][name] = v
+    return from_dict(sub), ns

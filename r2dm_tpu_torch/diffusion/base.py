@@ -1,5 +1,6 @@
 """Shared Gaussian-diffusion machinery: the constructor fields, ``_clip``, the
-noise sources, the chain driver of every sampler and the RePaint loops.
+noise sources, the training loss, the chain driver of every sampler and the
+RePaint loops.
 
 The port of ``r2dm_tpu/diffusion/base.py``. Randomness comes from explicit
 ``torch.Generator``s: one generator for the whole batch, or a list with one
@@ -14,6 +15,11 @@ The RePaint loops (``repaint``, ``repaint_segment``, ``repaint_final``,
 generic over two hooks each process supplies: ``q_step`` and
 ``_repaint_reverse_jumps``. They are Python loops under
 ``torch.inference_mode()``.
+
+The loss (``elementwise_loss``, ``masked_weighted_loss``, ``p_loss``,
+``loss``; r2dm_tpu/diffusion/base.py:70-101, 315-357) is differentiable in
+the network's parameters; the min-SNR weight applies per sample, the JAX
+package's deliberate deviation from the reference.
 
 Layout: NHWC (B, H, W, C) throughout the diffusion core.
 """
@@ -73,6 +79,34 @@ def stack_steps(xs: list, like: torch.Tensor) -> torch.Tensor:
     return torch.stack(xs) if xs else like.new_empty((0, *like.shape))
 
 
+def elementwise_loss(kind: str, prediction: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
+    """l2 / l1 / huber (beta = 1), no reduction (reference base.py:39-48)."""
+    diff = prediction - target
+    if kind == "l2":
+        return torch.square(diff)
+    if kind == "l1":
+        return torch.abs(diff)
+    if kind == "huber":  # torch SmoothL1Loss, beta = 1.0
+        a = torch.abs(diff)
+        return torch.where(a < 1.0, 0.5 * torch.square(diff), a - 0.5)
+    raise ValueError(f"invalid criterion: {kind}")
+
+
+def masked_weighted_loss(loss: torch.Tensor, loss_mask: Optional[torch.Tensor], weight: torch.Tensor) -> torch.Tensor:
+    """Per-sample masked mean, times that sample's weight, then the batch
+    mean. The reference broadcasts its (B, 1) loss against the (B, 1, 1, 1)
+    weight and so averages mean(loss) * mean(weight); the JAX package
+    applies the weight per sample, as min-SNR (arXiv 2303.09556) intends,
+    and so does the port (r2dm_tpu/diffusion/base.py:83-101)."""
+    if loss_mask is None:
+        loss_mask = torch.ones_like(loss)
+    axes = tuple(range(1, loss.dim()))
+    num = torch.sum(loss * loss_mask, dim=axes)
+    den = torch.sum(loss_mask, dim=axes) + 1e-8
+    per_sample = num / den  # (B,)
+    return torch.mean(per_sample * weight.reshape(per_sample.shape))
+
+
 def _b(x: torch.Tensor) -> torch.Tensor:
     """(B,) -> (B, 1, 1, 1) against NHWC images."""
     return x.reshape(-1, 1, 1, 1)
@@ -118,6 +152,30 @@ class GaussianDiffusion:
         if self.clip_sample:
             return torch.clamp(x_0, -self.clip_sample_range, self.clip_sample_range)
         return x_0
+
+    # training ----------------------------------------------------------------
+    def p_loss(
+        self, model, x_0: torch.Tensor, steps: torch.Tensor, noise: torch.Tensor,
+        loss_mask: Optional[torch.Tensor] = None, model_kwargs: Optional[dict] = None,
+    ) -> torch.Tensor:
+        """The masked, min-SNR-weighted denoising loss of ``model`` (called as
+        ``model(x_t, condition, **model_kwargs)``) at the given steps and
+        noise (reference base.py:122-139); differentiable in its parameters."""
+        x_0 = x_0.to(torch.float32)
+        x_t = self.q_step_from_x_0(x_0, steps, noise)
+        prediction = model(x_t, self.get_network_condition(steps), **(model_kwargs or {})).to(torch.float32)
+        loss = elementwise_loss(self.loss_type, prediction, self.get_target(x_0, steps, noise))
+        return masked_weighted_loss(loss, loss_mask, self.get_loss_weight(steps))
+
+    def loss(
+        self, model, x_0: torch.Tensor, generator: Generators = None,
+        loss_mask: Optional[torch.Tensor] = None, model_kwargs: Optional[dict] = None,
+    ) -> torch.Tensor:
+        """Timesteps, then noise, drawn from ``generator``, then
+        :meth:`p_loss` (reference base.py:141-149)."""
+        steps = self.sample_timesteps(x_0.shape[0], generator, x_0.device)
+        noise = normal(generator, tuple(x_0.shape), x_0.device)
+        return self.p_loss(model, x_0, steps, noise, loss_mask, model_kwargs)
 
     # the chain driver of every sampler ---------------------------------------
     def _x_T(self, batch_size, generator: Generators, x_T, device) -> torch.Tensor:

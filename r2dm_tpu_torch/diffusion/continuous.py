@@ -1,8 +1,9 @@
-"""Continuous-time Gaussian diffusion (VDM, arXiv 2107.00630): the samplers.
+"""Continuous-time Gaussian diffusion (VDM, arXiv 2107.00630).
 
-Port of the sampling half of ``r2dm_tpu/diffusion/continuous.py``
+Port of ``r2dm_tpu/diffusion/continuous.py``
 (reference ``models/diffusion/continuous_time.py:66-317``): log-SNR
-schedules, eps/v/x0 prediction, DDPM and DDIM reverse steps, DPM-Solver++
+schedules, eps/v/x0 prediction, the training hooks (t ~ U[0, 1), the
+target, the min-SNR loss weight), DDPM and DDIM reverse steps, DPM-Solver++
 (2M), and the RePaint hooks (``q_step``, ``_repaint_reverse_jumps``; the
 loops are in ``base.py``). ``sample``, ``sample_segment`` and
 ``dpmpp_2m_segment`` are Python loops over boundary times
@@ -52,6 +53,37 @@ class ContinuousTimeGaussianDiffusion(GaussianDiffusion):
         )
         self.log_snr = schedules.make_logsnr_fn(noise_schedule, image_d, noise_d_low, noise_d_high)
 
+    # ------------------------------------------------------------- training
+    def sample_timesteps(self, batch_size: int, generator: Generators = None, device=None) -> torch.Tensor:
+        """t ~ U[0, 1) (reference continuous_time.py:133-135)."""
+        return torch.rand((batch_size,), generator=generator, device=self._device(device))
+
+    def get_network_condition(self, steps: torch.Tensor) -> torch.Tensor:
+        return self.log_snr(torch.atleast_1d(steps).to(torch.float32))
+
+    def get_target(self, x_0, step_t, noise):
+        if self.objective == "eps":
+            return noise
+        if self.objective == "x_0":
+            return x_0
+        if self.objective == "v":
+            alpha, sigma = schedules.logsnr_to_alpha_sigma(_b(self.get_network_condition(step_t)))
+            return alpha * noise - sigma * x_0
+        raise ValueError(f"invalid objective {self.objective}")
+
+    def get_loss_weight(self, steps) -> torch.Tensor:
+        """min-SNR-gamma weighting (reference continuous_time.py:153-167)."""
+        snr = torch.exp(self.get_network_condition(steps))
+        clipped = torch.clamp(snr, max=self.min_snr_gamma) if self.min_snr_loss_weight else snr
+        if self.objective == "eps":
+            return clipped / snr
+        if self.objective == "x_0":
+            return clipped
+        if self.objective == "v":
+            return clipped / (snr + 1.0)
+        raise ValueError(f"invalid objective {self.objective}")
+
+    # ------------------------------------------------------------ processes
     def _steps(self, step, B: int, device) -> torch.Tensor:
         step = torch.as_tensor(step, dtype=torch.float32, device=device)
         return self.log_snr(torch.atleast_1d(step).expand(B))

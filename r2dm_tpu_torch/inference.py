@@ -68,6 +68,7 @@ def build_model(cfg: config_lib.Config, dtype: Optional[torch.dtype] = None, dev
         attn_num_heads=cfg.model.attn_num_heads,
         coords_encoding=cfg.model.coords_encoding,
         dtype=dtype,
+        dropout=cfg.model.dropout,
     )
     return model.to(device).eval()
 

@@ -7,6 +7,8 @@ output conv, 1/sqrt(2) residual scaling, and a coordinate encoding
 concatenated to the input. Module names follow the reference, so its
 ``state_dict`` loads as it is. The down path is conv then FIR downsample,
 the up path FIR upsample then conv. The output is always fp32.
+``dropout`` acts in the ResidualBlocks in training mode only, its masks
+drawn from the ``generator`` given to forward.
 """
 
 from __future__ import annotations
@@ -66,7 +68,7 @@ class UNetBlock(nn.Module):
         self, in_channels: int, out_channels: int, num_residual_blocks: int,
         emb_channels: int, gn_num_groups: int = 8, gn_eps: float = 1e-6,
         attn: bool = False, attn_num_heads: int = 8, up: bool = False, down: bool = False,
-        dtype: Optional[torch.dtype] = None,
+        dtype: Optional[torch.dtype] = None, dropout: float = 0.0,
     ):
         super().__init__()
         self.downsample = None
@@ -78,7 +80,7 @@ class UNetBlock(nn.Module):
         self.residual_blocks = nn.ModuleList(
             ResidualBlock(
                 in_channels if i == 0 else out_channels, out_channels, emb_channels,
-                gn_num_groups, gn_eps, dtype=dtype,
+                gn_num_groups, gn_eps, dtype=dtype, dropout=dropout,
             )
             for i in range(num_residual_blocks)
         )
@@ -92,11 +94,11 @@ class UNetBlock(nn.Module):
                 Resample(up=True), RingConv(out_channels, out_channels, dtype=dtype)
             )
 
-    def forward(self, h: torch.Tensor, temb: torch.Tensor) -> torch.Tensor:
+    def forward(self, h: torch.Tensor, temb: torch.Tensor, generator: Optional[torch.Generator] = None) -> torch.Tensor:
         if self.downsample is not None:
             h = self.downsample(h)
         for block in self.residual_blocks:
-            h = block(h, temb)
+            h = block(h, temb, generator)
         if self.self_attn_block is not None:
             h = self.self_attn_block(h)
         if self.upsample is not None:
@@ -121,6 +123,7 @@ class EfficientUNet(nn.Module):
         attn_num_heads: int = 8,
         coords_encoding: Optional[str] = "fourier_features",
         dtype: Optional[torch.dtype] = None,
+        dropout: float = 0.0,
     ):
         super().__init__()
         if coords_encoding not in (None, "spherical_harmonics", "polar_coordinates", "fourier_features"):
@@ -141,7 +144,7 @@ class EfficientUNet(nn.Module):
         N = tuple(num_residual_blocks)
         cfg = dict(
             emb_channels=temb, gn_num_groups=gn_num_groups, gn_eps=gn_eps,
-            attn_num_heads=attn_num_heads, dtype=dtype,
+            attn_num_heads=attn_num_heads, dtype=dtype, dropout=dropout,
         )
         self.in_conv = RingConv(in_channels + self.coords_channels(), C[0], dtype=dtype)
         self.d_block1 = UNetBlock(C[0], C[1], N[0], **cfg)
@@ -175,7 +178,9 @@ class EfficientUNet(nn.Module):
             return enc.fourier_features(coords, self.ff_freqs)
         return None
 
-    def forward(self, images: torch.Tensor, timesteps: torch.Tensor) -> torch.Tensor:
+    def forward(
+        self, images: torch.Tensor, timesteps: torch.Tensor, generator: Optional[torch.Generator] = None,
+    ) -> torch.Tensor:
         B = images.shape[0]
         if timesteps.dim() == 0:
             timesteps = timesteps.expand(B)
@@ -186,12 +191,12 @@ class EfficientUNet(nn.Module):
             cenc = cenc[None].expand(B, *cenc.shape).to(h.dtype)
             h = torch.cat([h, cenc], dim=-1)
         h = self.in_conv(h)
-        h1 = self.d_block1(h, temb)
-        h2 = self.d_block2(h1, temb)
-        h3 = self.d_block3(h2, temb)
-        h4 = self.d_block4(h3, temb)
-        h = self.u_block4(h4, temb)
-        h = self.u_block3(torch.cat([h, h3], dim=-1), temb)
-        h = self.u_block2(torch.cat([h, h2], dim=-1), temb)
-        h = self.u_block1(torch.cat([h, h1], dim=-1), temb)
+        h1 = self.d_block1(h, temb, generator)
+        h2 = self.d_block2(h1, temb, generator)
+        h3 = self.d_block3(h2, temb, generator)
+        h4 = self.d_block4(h3, temb, generator)
+        h = self.u_block4(h4, temb, generator)
+        h = self.u_block3(torch.cat([h, h3], dim=-1), temb, generator)
+        h = self.u_block2(torch.cat([h, h2], dim=-1), temb, generator)
+        h = self.u_block1(torch.cat([h, h1], dim=-1), temb, generator)
         return self.out_conv(h).to(torch.float32)

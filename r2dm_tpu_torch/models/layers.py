@@ -11,8 +11,8 @@ None), as the JAX modules do. GroupNorm statistics and the SiLU run in fp32.
 ``ResidualBlock`` takes the structure of the JAX package's unfused path
 (layers.py:731-760): ``fused_group_norm_silu`` writes the activated tensor
 once, and ``fused_act_ringconv`` convolves it with ``apply_act=False``
-(GN+SiLU -> conv -> AdaGN+SiLU -> conv -> skip); on CUDA tensors those calls
-are the hand-written kernels.
+(GN+SiLU -> conv -> AdaGN+SiLU -> [dropout] -> conv -> skip); on CUDA
+tensors those calls are the hand-written kernels, under autograd too.
 """
 
 from __future__ import annotations
@@ -175,17 +175,29 @@ class SelfAttentionBlock(nn.Module):
         return (x + h) * _scale_in(x, RESIDUAL_SCALE)
 
 
+def apply_dropout(h: torch.Tensor, p: float, generator: Optional[torch.Generator]) -> torch.Tensor:
+    """flax ``nn.Dropout``: keep each value with probability 1 - p (a
+    Bernoulli mask drawn from ``generator``) and scale the kept ones by
+    1 / (1 - p), in h's dtype."""
+    keep = torch.rand(h.shape, generator=generator, device=h.device) < 1.0 - p
+    return torch.where(keep, h / (1.0 - p), torch.zeros((), dtype=h.dtype, device=h.device))
+
+
 class ResidualBlock(nn.Module):
     """GN-SiLU-Conv x2 residual block with AdaGN time conditioning
     (reference models/efficient_unet.py:56-110): zero-init second conv, 1x1
-    skip when channels change, (skip + h) / sqrt(2)."""
+    skip when channels change, (skip + h) / sqrt(2). With ``dropout`` > 0 and
+    the module in training mode, dropout between norm2 and conv2 (JAX
+    layers.py:750-751), its mask from the ``generator`` passed to forward."""
 
     def __init__(
         self, in_channels: int, out_channels: int, emb_channels: int,
         gn_num_groups: int = 8, gn_eps: float = 1e-6, dtype: Optional[torch.dtype] = None,
+        dropout: float = 0.0,
     ):
         super().__init__()
         self.compute_dtype = dtype
+        self.dropout = dropout
         self.norm1 = GroupNorm(gn_num_groups, in_channels, gn_eps, silu=True)
         self.conv1 = RingConv(in_channels, out_channels, dtype=dtype)
         self.norm2 = AdaGN(gn_num_groups, out_channels, emb_channels, gn_eps, dtype=dtype, silu=True)
@@ -200,8 +212,11 @@ class ResidualBlock(nn.Module):
         hc = h.to(self.compute_dtype) if self.compute_dtype is not None else h
         return fused_act_ringconv(hc, None, None, conv.hwio(), conv.bias, apply_act=False)
 
-    def forward(self, x: torch.Tensor, emb: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, emb: torch.Tensor, generator: Optional[torch.Generator] = None) -> torch.Tensor:
         h = self._conv(self.conv1, self.norm1(x))
-        h = self._conv(self.conv2, self.norm2(h, emb))
+        h = self.norm2(h, emb)
+        if self.dropout > 0.0 and self.training:
+            h = apply_dropout(h, self.dropout, generator)
+        h = self._conv(self.conv2, h)
         skip = self.skip(x) if self.skip is not None else x
         return (skip + h) * _scale_in(h, RESIDUAL_SCALE)

@@ -11,6 +11,15 @@ x (B, H, W, C) NHWC; a, b (B, C) fp32; kernel (3, 3, C, F) HWIO; bias (F,).
 W wraps circularly; H is zero-padded AFTER the activation. A CPU tensor takes
 the plain version; a CUDA tensor launches the kernel or raises.
 ``fused_act_ringconv.launches`` counts kernel launches.
+
+Under autograd the call is the ``ActRingConv`` function (``apply_act=False``
+only, the form every path uses; with the prologue it raises). The adjoint of
+"zero-pad H, wrap W, 3x3 conv" is the same ring conv of dy with the kernel
+flipped in (kh, kw) and its channels swapped, so dx is one more launch of
+this kernel (``ring_conv_input_grad``, counted in ``.launches``). dW, the
+correlation of the ring-padded x with dy, and d_bias are PyTorch ops, as the
+JAX package leaves both to XLA (``ring_conv_weight_grad``); a dW kernel is a
+later optimisation (ROADMAP).
 """
 
 from __future__ import annotations
@@ -87,10 +96,7 @@ def _check(x, a, b, kernel, bias, apply_act):
             raise ValueError("act_ringconv: x, a and b must start on a 16-byte boundary")
 
 
-def fused_act_ringconv(x, a, b, kernel, bias, apply_act: bool = True):
-    """y = ring_conv3x3([silu](x*a + b), kernel) + bias, NHWC, x's dtype."""
-    if x.device.type == "cpu":
-        return act_ringconv_plain(x, a, b, kernel, bias, apply_act)
+def _launch(x, a, b, kernel, bias, apply_act: bool):
     _check(x, a, b, kernel, bias, apply_act)
     lib = _lib()
     B, H, W, C = x.shape
@@ -107,6 +113,64 @@ def fused_act_ringconv(x, a, b, kernel, bias, apply_act: bool = True):
     build.check(lib, rc, "fused_act_ringconv")
     fused_act_ringconv.launches += 1
     return y
+
+
+# ----------------------------------------------------------------- backward
+def ring_conv_input_grad(dy, kernel):
+    """dx of y = ring_conv3x3(x, kernel) + bias: the ring conv of dy with
+    W'[kh, kw, f, c] = W[2-kh, 2-kw, c, f] and zero bias, through
+    ``fused_act_ringconv`` (the kernel on a CUDA tensor)."""
+    flipped = kernel.flip(0, 1).transpose(2, 3)
+    zeros = torch.zeros(kernel.shape[2], dtype=torch.float32, device=dy.device)
+    return fused_act_ringconv(dy.contiguous(), None, None, flipped, zeros, apply_act=False)
+
+
+def ring_conv_weight_grad(x, dy, kernel_dtype, bias_dtype):
+    """(dW HWIO, d_bias) of y = ring_conv3x3(x, W) + bias, in x's dtype with
+    fp32 accumulation, returned in the parameters' dtypes: dW is the
+    correlation of the ring-padded x with dy (torch.nn.grad.conv2d_weight),
+    d_bias the sum of dy over (B, H, W)."""
+    xp = ring_pad(x, 1).permute(0, 3, 1, 2)
+    Fo = dy.shape[-1]
+    dw = torch.nn.grad.conv2d_weight(xp, (Fo, x.shape[-1], 3, 3), dy.to(x.dtype).permute(0, 3, 1, 2))
+    d_bias = dy.to(torch.float32).sum(dim=(0, 1, 2))
+    return dw.permute(2, 3, 1, 0).to(kernel_dtype), d_bias.to(bias_dtype)
+
+
+class ActRingConv(torch.autograd.Function):
+    """``fused_act_ringconv(apply_act=False)`` under autograd: the forward is
+    the kernel on a CUDA tensor (the plain version on a CPU one, which the
+    CPU tests use to reach the backward); dx goes through the kernel again,
+    dW and d_bias through ``ring_conv_weight_grad``."""
+
+    @staticmethod
+    def forward(ctx, x, kernel, bias):
+        ctx.save_for_backward(x, kernel)
+        ctx.bias_dtype = bias.dtype
+        if x.device.type == "cpu":
+            return act_ringconv_plain(x, None, None, kernel, bias, apply_act=False)
+        return _launch(x, None, None, kernel, bias, apply_act=False)
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, kernel = ctx.saved_tensors
+        dx = ring_conv_input_grad(dy.to(x.dtype), kernel) if ctx.needs_input_grad[0] else None
+        dw, d_bias = ring_conv_weight_grad(x, dy, kernel.dtype, ctx.bias_dtype)
+        return dx, dw, d_bias
+
+
+def fused_act_ringconv(x, a, b, kernel, bias, apply_act: bool = True):
+    """y = ring_conv3x3([silu](x*a + b), kernel) + bias, NHWC, x's dtype."""
+    if x.device.type == "cpu":
+        return act_ringconv_plain(x, a, b, kernel, bias, apply_act)
+    if torch.is_grad_enabled() and any(t is not None and t.requires_grad for t in (x, a, b, kernel, bias)):
+        if apply_act:
+            raise NotImplementedError(
+                "fused_act_ringconv: no backward with the SiLU prologue (apply_act=True); "
+                "under autograd apply the activation first and call it with apply_act=False"
+            )
+        return ActRingConv.apply(x, kernel, bias)
+    return _launch(x, a, b, kernel, bias, apply_act)
 
 
 fused_act_ringconv.launches = 0

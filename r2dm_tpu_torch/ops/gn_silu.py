@@ -12,6 +12,13 @@ x*a + b, the coefficients of ``act_ringconv``'s prologue (``apply_act=True``).
 
 A CPU tensor takes the plain version; a CUDA tensor launches the kernel or
 raises. The wrapper counts its kernel launches in ``.launches``.
+
+Under autograd (grad enabled and an operand that requires grad) the call is
+the ``GroupNormSiLU`` function: its forward is the same kernel launch, its
+backward ``gn_silu_backward``, fp32 PyTorch ops that recompute the group
+statistics from the saved bf16 input. The JAX package differentiates the
+XLA lowering of the same maths (its Pallas kernel has no VJP), so there is
+no backward kernel to port; one is a later optimisation (ROADMAP).
 """
 
 from __future__ import annotations
@@ -60,24 +67,28 @@ def _affine(gain, shift, B, C):
     return g.expand(B, C), s.expand(B, C)
 
 
-def gn_coeffs_plain(x, num_groups: int, eps: float, gain, shift):
-    """fp32 (a, b), GN_affine(x) == x*a + b: fp32 sums of x and x^2 over
-    (H, W), group mean and E[x^2]-E[x]^2 clamped at 0 (models/layers.py
-    group_norm_coeffs and _folded_gn_coeffs)."""
-    B, H, W, C = x.shape
+def _group_stats(xf, num_groups: int, eps: float):
+    """Per (sample, channel) group mean and 1/sqrt(var + eps) of fp32 x
+    (B, N, C) or (B, H, W, C): fp32 sums of x and x^2 over the pixels, then
+    over the group's channels, E[x^2]-E[x]^2 clamped at 0 (models/layers.py
+    group_norm_coeffs)."""
+    B, C = xf.shape[0], xf.shape[-1]
     G = num_groups
-    xf = x.to(torch.float32)
-    s1 = xf.sum(dim=(1, 2))
-    s2 = (xf * xf).sum(dim=(1, 2))
-    cnt = H * W * (C // G)
-    g1 = s1.reshape(B, G, -1).sum(-1) / cnt
-    g2 = s2.reshape(B, G, -1).sum(-1) / cnt
-    var = torch.clamp(g2 - g1 * g1, min=0.0)
-    inv = torch.rsqrt(var + eps)
-    a = inv.repeat_interleave(C // G, dim=1)
-    b = (-g1 * inv).repeat_interleave(C // G, dim=1)
+    dims = tuple(range(1, xf.dim() - 1))
+    cnt = xf[0].numel() // G
+    g1 = xf.sum(dim=dims).reshape(B, G, -1).sum(-1) / cnt
+    g2 = (xf * xf).sum(dim=dims).reshape(B, G, -1).sum(-1) / cnt
+    inv = torch.rsqrt(torch.clamp(g2 - g1 * g1, min=0.0) + eps)
+    return g1.repeat_interleave(C // G, dim=1), inv.repeat_interleave(C // G, dim=1)
+
+
+def gn_coeffs_plain(x, num_groups: int, eps: float, gain, shift):
+    """fp32 (a, b), GN_affine(x) == x*a + b, from ``_group_stats``
+    (models/layers.py _folded_gn_coeffs)."""
+    B, C = x.shape[0], x.shape[-1]
+    mean, inv = _group_stats(x.to(torch.float32), num_groups, eps)
     g, s = _affine(gain, shift, B, C)
-    return a * g, b * g + s
+    return inv * g, (-mean * inv) * g + s
 
 
 def fused_group_norm_silu_plain(x, gain, shift, num_groups: int, eps: float, apply_silu: bool = True):
@@ -141,10 +152,7 @@ def max_active_clusters(C: int) -> int:
     return n
 
 
-def fused_group_norm_silu(x, gain, shift, num_groups: int, eps: float, apply_silu: bool = True):
-    """[silu](GN(x) * gain + shift) on NHWC x; gain/shift (C,) or (B, C)."""
-    if x.device.type == "cpu":
-        return fused_group_norm_silu_plain(x, gain, shift, num_groups, eps, apply_silu)
+def _launch(x, gain, shift, num_groups: int, eps: float, apply_silu: bool):
     _check(x, num_groups, gain, shift)
     lib = _lib()
     B, H, W, C = x.shape
@@ -159,6 +167,83 @@ def fused_group_norm_silu(x, gain, shift, num_groups: int, eps: float, apply_sil
     build.check(lib, rc, "fused_group_norm_silu")
     fused_group_norm_silu.launches += 1
     return y
+
+
+# ----------------------------------------------------------------- backward
+def gn_silu_backward(x, gain, shift, num_groups: int, eps: float, apply_silu: bool, dy):
+    """(dx, d_gain, d_shift) of ``fused_group_norm_silu`` at (x, gain, shift)
+    for the output gradient dy, in fp32 PyTorch ops. The group statistics
+    are recomputed as ``gn_coeffs_plain`` sums them; with z = x*a + b the
+    folded affine, dz = dy * silu'(z); then, per (sample, channel), with
+    xhat = (x - mean) * rstd:
+
+        d_shift = sum dz,  d_gain = sum dz * xhat = rstd * (sum dz*x - mean * d_shift)
+        dx = rstd * (g*dz - m1 - xhat * m2),  m1, m2 the group means of g*dz and g*dz*xhat,
+
+    written as dx = A*dz + Bx*x + Cc with (B, C) coefficients, so that the
+    activation-sized work is a few passes. d_gain and d_shift have their
+    operand's shape: summed over the batch for a (C,) vector, per sample for
+    a (B, C) AdaGN gain. dx has x's dtype, d_gain and d_shift their
+    operand's."""
+    B, H, W, C = x.shape
+    G = num_groups
+    xf = x.to(torch.float32).reshape(B, H * W, C)
+    mean, rstd = _group_stats(xf, G, eps)
+    g, s = _affine(gain, shift, B, C)
+    a = rstd * g
+    if apply_silu:
+        z = torch.addcmul((s - mean * a)[:, None], xf, a[:, None])
+        sig = torch.sigmoid(z)
+        # silu'(z) = sig * (1 + z * (1 - sig)), times dy, in place
+        dz = torch.sub(1.0, sig).mul_(z).add_(1.0).mul_(sig).mul_(dy.reshape(B, H * W, C))
+        del z, sig
+    else:
+        dz = dy.to(torch.float32).reshape(B, H * W, C)
+    d_shift = dz.sum(dim=1)  # (B, C)
+    d_gain = rstd * ((dz * xf).sum(dim=1) - mean * d_shift)
+    cnt = H * W * (C // G)
+
+    def group_mean(v):
+        return (v.reshape(B, G, -1).sum(-1) / cnt).repeat_interleave(C // G, dim=1)
+
+    m1, m2 = group_mean(g * d_shift), group_mean(g * d_gain)
+    coef_x = -rstd * rstd * m2
+    dx = torch.addcmul((-rstd * m1 - coef_x * mean)[:, None], dz, a[:, None])
+    dx.addcmul_(xf, coef_x[:, None])
+
+    def to_operand(d, t):
+        return (d.sum(0) if t.dim() == 1 else d).to(t.dtype)
+
+    return dx.reshape(B, H, W, C).to(x.dtype), to_operand(d_gain, gain), to_operand(d_shift, shift)
+
+
+class GroupNormSiLU(torch.autograd.Function):
+    """``fused_group_norm_silu`` under autograd: the forward is the kernel on
+    a CUDA tensor (the plain version on a CPU one, which the CPU tests use to
+    reach the backward), the backward ``gn_silu_backward``."""
+
+    @staticmethod
+    def forward(ctx, x, gain, shift, num_groups: int, eps: float, apply_silu: bool):
+        ctx.save_for_backward(x, gain, shift)
+        ctx.args = (num_groups, eps, apply_silu)
+        if x.device.type == "cpu":
+            return fused_group_norm_silu_plain(x, gain, shift, num_groups, eps, apply_silu)
+        return _launch(x, gain, shift, num_groups, eps, apply_silu)
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, gain, shift = ctx.saved_tensors
+        dx, d_gain, d_shift = gn_silu_backward(x, gain, shift, *ctx.args, dy)
+        return dx, d_gain, d_shift, None, None, None
+
+
+def fused_group_norm_silu(x, gain, shift, num_groups: int, eps: float, apply_silu: bool = True):
+    """[silu](GN(x) * gain + shift) on NHWC x; gain/shift (C,) or (B, C)."""
+    if x.device.type == "cpu":
+        return fused_group_norm_silu_plain(x, gain, shift, num_groups, eps, apply_silu)
+    if torch.is_grad_enabled() and (x.requires_grad or gain.requires_grad or shift.requires_grad):
+        return GroupNormSiLU.apply(x, gain, shift, num_groups, eps, apply_silu)
+    return _launch(x, gain, shift, num_groups, eps, apply_silu)
 
 
 fused_group_norm_silu.launches = 0

@@ -6,7 +6,8 @@ constants it registers as buffers dropped (FIR kernels, residual ``scale``,
 coordinate-encoding tables, ``_dummy``, discrete beta tables), which the port
 recomputes. ``state_dict_from_jax`` carries a flax ``{'params', 'buffers'}``
 tree of numpy arrays over: HWIO -> OIHW, (I, O) -> (O, I), the packed qkv,
-and ``coords`` (H, W, 2) -> (1, 2, H, W).
+and ``coords`` (H, W, 2) -> (1, 2, H, W); ``jax_from_state_dict`` is its
+inverse, for the checkpoint writer.
 """
 
 from __future__ import annotations
@@ -114,3 +115,70 @@ def state_dict_from_jax(variables: Mapping[str, Any]) -> dict[str, torch.Tensor]
     if coords is not None:
         put("coords", coords, lambda v: np.transpose(v, (2, 0, 1))[None])
     return sd
+
+
+def _flax_path(key: str) -> tuple[tuple[str, ...], str]:
+    """The port's parameter name -> (flax path, transform: "conv", "lin" or
+    ""), the inverse of ``state_dict_from_jax``'s walk."""
+    *mod, leaf = key.split(".")
+    wb = {"weight": "kernel", "bias": "bias"}.get(leaf)
+    if wb is None and leaf not in ("in_proj_weight", "in_proj_bias"):
+        raise KeyError(f"unhandled parameter: {key}")
+    if mod[0] == "time_embedding":
+        return ("time_embedding", {"1": "dense1", "3": "dense2"}[mod[1]], wb), "lin" if wb == "kernel" else ""
+    if mod[0] in ("in_conv", "out_conv"):
+        return (mod[0], "conv", wb), "conv" if wb == "kernel" else ""
+    block = mod[0]
+    if not re.fullmatch(r"[du]_block\d", block):
+        raise KeyError(f"unhandled parameter: {key}")
+    conv = "conv" if wb == "kernel" else ""
+    if mod[1:] == ["downsample", "0"]:
+        return (block, "down_conv", "conv", wb), conv
+    if mod[1:] == ["upsample", "1"]:
+        return (block, "up_conv", "conv", wb), conv
+    if mod[1] == "residual_blocks":
+        res = f"res{mod[2]}"
+        if mod[3] in ("conv1", "conv2", "skip"):
+            return (block, res, mod[3], "conv", wb), conv
+        if mod[3:] == ["norm2", "proj", "1"]:
+            return (block, res, "norm2", "proj", wb), "lin" if wb == "kernel" else ""
+        if mod[3] in ("norm1", "norm2") and len(mod) == 4:
+            return (block, res, mod[3], {"weight": "scale", "bias": "bias"}[leaf]), ""
+    if mod[1] == "self_attn_block":
+        if mod[2] == "norm":
+            return (block, "attn", "norm", {"weight": "scale", "bias": "bias"}[leaf]), ""
+        if mod[2:] == ["attn"]:
+            if leaf == "in_proj_weight":
+                return (block, "attn", "attn", "qkv_kernel"), "lin"
+            return (block, "attn", "attn", "qkv_bias"), ""
+        if mod[2:] == ["attn", "out_proj"]:
+            return (block, "attn", "attn", "out_proj", wb), "lin" if wb == "kernel" else ""
+    raise KeyError(f"unhandled parameter: {key}")
+
+
+def jax_from_state_dict(sd: Mapping[str, torch.Tensor]) -> dict:
+    """The port's ``state_dict`` (or any name -> tensor map over its
+    parameters, such as AdamW's moments) -> a flax EfficientUNet
+    ``{'params', 'buffers': {'coords'}}`` tree of fp32 numpy arrays: OIHW ->
+    HWIO, (O, I) -> (I, O), ``coords`` (1, 2, H, W) -> (H, W, 2); the
+    inverse of ``state_dict_from_jax``."""
+    params: dict = {}
+    buffers: dict = {}
+    for key, v in sd.items():
+        a = v.detach().to(torch.float32).cpu().numpy() if isinstance(v, torch.Tensor) else np.asarray(v, np.float32)
+        if key == "coords":
+            buffers["coords"] = np.ascontiguousarray(np.transpose(a[0], (1, 2, 0)))
+            continue
+        path, transform = _flax_path(key)
+        if transform == "conv":
+            a = np.transpose(a, (2, 3, 1, 0))  # OIHW -> HWIO
+        elif transform == "lin":
+            a = a.T
+        node = params
+        for p in path[:-1]:
+            node = node.setdefault(p, {})
+        node[path[-1]] = np.ascontiguousarray(a)
+    out = {"params": params}
+    if buffers:
+        out["buffers"] = buffers
+    return out
