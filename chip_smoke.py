@@ -75,6 +75,7 @@ TRAIN_REL_L2 = 2e-2
 FORWARD_BATCHES = (2, 4, B, 4 * B)
 PEAK_BF16_FLOPS = 989e12  # H100 SXM dense bf16 tensor-core rate
 PEAK_FP32_FLOPS = 67e12  # H100 SXM fp32 outside the tensor cores
+PEAK_TF32_FLOPS = 495e12  # H100 SXM dense TF32 tensor-core rate
 PEAK_BYTES = 3.35e12  # H100 SXM HBM3
 
 # config H, batch 8: (C, H, W) of every GroupNorm input. 64x1024x128 is the
@@ -551,6 +552,289 @@ def phase_serving(torch, main_out, tmp):
     return {"seconds": seconds, "bytes_per_image": per_image}
 
 
+def _random_bn(torch, model, seed: int):
+    """Every parameter N(0, 0.05^2) and non-trivial frozen BN statistics
+    (the extractors' stand-in weights: the real files cannot be fetched)."""
+    from r2dm_tpu_torch.metrics.extractor.rangenet import FrozenBatchNorm
+
+    g = torch.Generator().manual_seed(seed)
+    with torch.no_grad():
+        for p in model.parameters():
+            p.copy_(0.05 * torch.randn(p.shape, generator=g))
+        for m in model.modules():
+            if isinstance(m, FrozenBatchNorm):
+                n = m.weight.numel()
+                m.weight.copy_(1 + 0.2 * torch.randn(n, generator=g))
+                m.bias.copy_(0.1 * torch.randn(n, generator=g))
+                m.running_mean.copy_(0.1 * torch.randn(n, generator=g))
+                m.running_var.copy_(0.5 + torch.rand(n, generator=g))
+    return model.eval()
+
+
+def _run_cli(module: str, argv: list) -> str:
+    """``python -m <module> argv`` in this process (so the launch counters
+    see it); returns what it printed."""
+    import contextlib
+    import io
+    import runpy
+
+    out = io.StringIO()
+    saved, sys.argv = sys.argv, [module] + argv
+    try:
+        with contextlib.redirect_stdout(out):
+            runpy.run_module(module, run_name="__main__", alter_sys=True)
+    except SystemExit as e:
+        if e.code not in (0, None):
+            raise AssertionError(f"python -m {module} exited with {e.code}:\n{out.getvalue()[-2000:]}")
+    finally:
+        sys.argv = saved
+    return out.getvalue()
+
+
+def _launches(ops) -> dict:
+    return {fn.__name__: fn.launches for fn in ops.KERNEL_WRAPPERS}
+
+
+def phase_eval(torch, main_out, tmp):
+    """The evaluation path at config H and full width, on phase_main's random
+    U-Net (its config set to the synthetic set) and random extractor weights
+    in their published layouts: a bonnetal darknet53.tar.gz and a SpareNet
+    cls_model_39.pth. sample_and_save (b8, 16 samples, 4 DDIM steps),
+    evaluate twice (the second from the real-set cache, the same JSON), and
+    completion_demo with the RangeNet-53 labels, each through ``python -m``
+    in this process with exact launch counts."""
+    import numpy as np
+    import scipy.linalg
+
+    from r2dm_tpu_torch import ops
+    from r2dm_tpu_torch.metrics.extractor import pointnet as pn
+    from r2dm_tpu_torch.metrics.extractor import rangenet as rn
+
+    H, W = main_out["ddpm"].sampling_shape[:2]
+    work = os.path.join(tmp, "eval")
+    os.makedirs(work)
+    ckpt = torch.load(main_out["ckpt"], map_location="cpu", weights_only=False)
+    ckpt["cfg"]["data"]["dataset"] = "synthetic"
+    ckpt_path = os.path.join(work, "r2dm-h-random-synthetic.pth")
+    torch.save(ckpt, ckpt_path)
+    del ckpt
+    tar = os.path.join(work, "darknet53.tar.gz")
+    rn.save_rangenet_tar(tar, _random_bn(torch, rn.RangeNet(backbone=53), 11))
+    sd = _random_bn(torch, pn.PointNet1(k=16), 12).state_dict()
+    sd.update({k.replace("running_var", "num_batches_tracked"): torch.tensor(39) for k in list(sd)
+               if k.endswith("running_var")})
+    pth = os.path.join(work, "cls_model_39.pth")
+    torch.save(sd, pth)
+    seconds = {}
+
+    # sample_and_save: 2 batches x 4 DDIM steps = 8 forwards
+    samples = os.path.join(work, "samples")
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    t0 = time.time()
+    _run_cli("r2dm_tpu_torch.sample_and_save", ["--ckpt", ckpt_path, "--output_dir", samples, "--batch_size",
+                                                str(B), "--num_samples", str(2 * B), "--num_steps", "4",
+                                                "--mode", "ddim"])
+    seconds["sample_and_save"] = time.time() - t0
+    launches = _launches(ops)
+    expected = {"fused_group_norm_silu": 50 * 8, "fused_act_ringconv": 48 * 8}
+    files = sorted(os.listdir(samples))
+    arrays = [np.load(os.path.join(samples, f))["sample"] for f in files]
+    valid = float(np.mean([((a[0] > 3) & (a[0] < 70)).mean() for a in arrays]))
+    print(f"sample_and_save b{B}, {2 * B} samples, 4 DDIM steps: {seconds['sample_and_save']:.3f} s, launches "
+          f"{json.dumps(launches)} (expected {json.dumps(expected)}), {len(files)} files, BEV-gated points {valid:.3f}")
+    if launches != expected:
+        raise AssertionError(f"sample_and_save launches {launches} != {expected}")
+    if files != [f"samples_{i:010d}.npz" for i in range(2 * B)] or not all(
+            a.shape == (5, H, W) and np.isfinite(a).all() for a in arrays):
+        raise AssertionError(f"sample_and_save wrote {files}, shapes {[a.shape for a in arrays]}")
+
+    # evaluate, twice: the second run reads the real-set cache
+    sqrtm_s = []
+    plain_sqrtm = scipy.linalg.sqrtm
+
+    def timed_sqrtm(a, *args, **kw):
+        t = time.time()
+        out = plain_sqrtm(a, *args, **kw)
+        sqrtm_s.append((a.shape[0], time.time() - t))
+        return out
+
+    argv = ["--ckpt", ckpt_path, "--sample_dir", samples, "--batch_size", str(B), "--rangenet_tar", tar,
+            "--pointnet_ckpt", pth]
+    saved_env, cwd = os.environ.get("R2DM_SYNTH_SCANS"), os.getcwd()
+    os.environ["R2DM_SYNTH_SCANS"] = str(2 * B)
+    scipy.linalg.sqrtm = timed_sqrtm
+    runs = []
+    try:
+        os.chdir(work)  # the real-set cache goes to the working directory
+        for i in range(2):
+            ops.reset_launch_counts()
+            t0 = time.time()
+            text = _run_cli("r2dm_tpu_torch.evaluate", argv)
+            seconds[f"evaluate run {i + 1}"] = time.time() - t0
+            [path] = [f for f in os.listdir(work) if f.startswith("samples_") and f.endswith(".json")]
+            with open(path) as f:
+                runs.append(json.load(f))
+            os.replace(path, f"evaluate_{i + 1}.json")
+            if (i == 1) != ("found cached real_set_torch_" in text):
+                raise AssertionError(f"evaluate run {i + 1}: real-set cache use wrong:\n{text[:2000]}")
+            if any(_launches(ops).values()):
+                raise AssertionError(f"evaluate launched U-Net kernels: {_launches(ops)}")
+        caches = [f for f in os.listdir(work) if f.startswith("real_set_")]
+    finally:
+        scipy.linalg.sqrtm = plain_sqrtm
+        os.chdir(cwd)
+        if saved_env is None:
+            os.environ.pop("R2DM_SYNTH_SCANS")
+        else:
+            os.environ["R2DM_SYNTH_SCANS"] = saved_env
+    first, second = runs
+    values = {f"{s}.{k}": v for s in ("img", "pts", "bev") for k, v in first[s].items()}
+    gap = max(abs(second[s][k] - v) / max(abs(v), 1e-30) for s in ("img", "pts", "bev") for k, v in first[s].items())
+    print(f"evaluate (RangeNet-53 tar, PointNet .pth, {2 * B} synthetic real scans, {2 * B} samples, b{B}): "
+          f"{json.dumps(values)}, info {json.dumps(first['info'])}; the run from the cache ({caches}) differs by "
+          f"{gap:.3e} relative at most (limit 1e-6); seconds {seconds['evaluate run 1']:.1f} and "
+          f"{seconds['evaluate run 2']:.1f}; host sqrtm seconds by matrix size {json.dumps(sqrtm_s)}")
+    if not (len(values) == 6 and all(math.isfinite(v) for v in values.values())):
+        raise AssertionError(f"evaluate: non-finite or missing metrics {values}")
+    if (first["info"]["#real"], first["info"]["#fake"]) != (2 * B, 2 * B) or not gap <= 1e-6 \
+            or second["info"] != first["info"]:
+        raise AssertionError(f"evaluate: info {first['info']} / {second['info']}, repeat gap {gap}")
+
+    # completion_demo with the RangeNet-53 labels: RePaint T=2, r=2, j=1 at
+    # b4 = 1 x 2 + 1 forwards
+    ops.reset_launch_counts()
+    t0 = time.time()
+    _run_cli("r2dm_tpu_torch.completion_demo", ["--ckpt", ckpt_path, "--num_steps", "2", "--num_resample_steps",
+                                                "2", "--rangenet_tar", tar, "--out_dir", work])
+    torch.cuda.synchronize()
+    seconds["completion_demo"] = time.time() - t0
+    launches = _launches(ops)
+    expected = {"fused_group_norm_silu": 50 * 3, "fused_act_ringconv": 48 * 3}
+    size = _png_size(os.path.join(work, "completion_T-0002_r-0002_j-0001.png"))
+    want = (2 * H + 800 + 2 * H + H + 800 + 5 * 4, 4 * max(W, 800) + 3 * 8)
+    print(f"completion_demo T2 r2 j1 b4 with RangeNet-53 labels: {seconds['completion_demo']:.3f} s, launches "
+          f"{json.dumps(launches)} (expected {json.dumps(expected)}), figure {size} (expected {want})")
+    if launches != expected or size != want:
+        raise AssertionError(f"completion_demo: launches {launches}, figure {size}")
+    return {"seconds": seconds, "sqrtm_s": sqrtm_s, "tar": tar, "pth": pth, "work": work}
+
+
+def phase_eval_measure(torch, eval_out, card):
+    """The extractors at full width: ms an image at b8 and b64 (CUDA events,
+    strict fp32), the extraction's peak memory per image against
+    evaluate.MAX_EXTRACT_PIXELS, RangeNet-53's FLOPs and its share of the
+    fp32 and TF32 peaks, the card's features against the CPU's, the features
+    and time with TF32 allowed (printed only), and the chunked extraction
+    against one batch."""
+    import argparse
+
+    import numpy as np
+
+    from r2dm_tpu_torch import evaluate
+    from r2dm_tpu_torch.data import make_dataset
+    from r2dm_tpu_torch.metrics import bev
+    from r2dm_tpu_torch.metrics.extractor import pointnet as pn
+    from r2dm_tpu_torch.metrics.extractor import rangenet as rn
+    from r2dm_tpu_torch.metrics.extractor import strict_fp32
+
+    rnet, pre = rn.rangenet53(eval_out["tar"], device="cuda")
+    pnet = pn.pretrained_pointnet(eval_out["pth"], device="cuda")
+    ds = make_dataset("synthetic", None, "all", "spherical-1024")
+    planes = np.stack([ds.planes(i) for i in range(B)])  # (B, 64, 1024, 6) [x, y, z, r, d, m]
+    imgs = np.concatenate([planes[..., 4:5], planes[..., 0:4]], axis=-1).transpose(0, 3, 1, 2)
+    mask = (planes[..., 5:6] * evaluate.gated(planes[..., 4:5])).transpose(0, 3, 1, 2)
+    imgs = np.ascontiguousarray(imgs * mask)
+    H, W = imgs.shape[2:]
+    flops = rn.forward_flops(rnet, H, W)
+    out = {"card": card, "rangenet53_gflop_per_image": flops / 1e9}
+    for b in (B, 8 * B):
+        x = torch.from_numpy(np.tile(imgs, (b // B, 1, 1, 1))).cuda()
+        m = torch.from_numpy(np.tile(mask, (b // B, 1, 1, 1))).cuda()
+        clouds = (x[:, 1:4] * m).reshape(b, 3, H * W)
+        with torch.inference_mode(), strict_fp32():
+            xin = pre(x, m)
+            rn_ms = cuda_ms(torch, lambda: rnet(xin, "lidargen"), iters=3, warmup=1)
+            pn_ms = cuda_ms(torch, lambda: pnet(clouds / evaluate.DATASET_MAX_DEPTH), iters=3, warmup=1)
+            bev_ms = cuda_ms(torch, lambda: bev.point_cloud_to_histogram(clouds.transpose(1, 2)), iters=5, warmup=1)
+        out[f"b{b}"] = {"rangenet53_ms_per_image": rn_ms / b, "pointnet_ms_per_image": pn_ms / b,
+                        "bev_ms_per_image": bev_ms / b,
+                        "rangenet53_fp32_peak_share": flops * b / (rn_ms / 1e3) / PEAK_FP32_FLOPS,
+                        "rangenet53_tf32_peak_share": flops * b / (rn_ms / 1e3) / PEAK_TF32_FLOPS}
+        del x, m, clouds, xin
+
+    # peak memory of one extraction as evaluate runs it, b8 and b64
+    ns = argparse.Namespace(rangenet_tar=eval_out["tar"], pointnet_ckpt=eval_out["pth"], allow_random_extractors=False)
+    extract = evaluate.build_extractors(ns, torch.device("cuda"))
+    peaks = {}
+    for b in (B, 8 * B):
+        big, big_mask = np.tile(imgs, (b // B, 1, 1, 1)), np.tile(mask, (b // B, 1, 1, 1))
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        feats = extract(big, big_mask)
+        torch.cuda.synchronize()
+        peaks[b] = torch.cuda.max_memory_allocated() - base
+    per_image = (peaks[8 * B] - peaks[B]) / (7 * B)
+    total = torch.cuda.get_device_properties(0).total_memory
+    bound_images = evaluate.MAX_EXTRACT_PIXELS // (H * W)
+    out["extract_peak_bytes"] = peaks
+    out["extract_bytes_per_image"] = per_image
+    out["max_extract_images"] = bound_images
+    out["rule_images"] = 2 ** int(math.log2(0.7 * total / per_image))
+    # chunked (4 images a chunk) against one batch of 64
+    saved = evaluate.MAX_EXTRACT_PIXELS
+    evaluate.MAX_EXTRACT_PIXELS = 4 * H * W
+    try:
+        chunked = extract(big, big_mask)
+    finally:
+        evaluate.MAX_EXTRACT_PIXELS = saved
+    out["chunked_vs_one_batch_max_rel"] = [float(np.abs(c - f).max() / max(np.abs(f).max(), 1e-30))
+                                           for c, f in zip(chunked, feats)]
+
+    # card against CPU, strict fp32, the same weights and 2 inputs; then TF32
+    x2, m2 = torch.from_numpy(imgs[:2]), torch.from_numpy(mask[:2])
+
+    def feats_of(net_img, net_pts, x, m):
+        with torch.inference_mode():
+            c = (x[:, 1:4] * m).reshape(len(x), 3, H * W) / evaluate.DATASET_MAX_DEPTH
+            return net_img(pre(x, m), "lidargen").float().cpu(), net_pts(c).float().cpu()
+
+    with strict_fp32():
+        card_f = feats_of(rnet, pnet, x2.cuda(), m2.cuda())
+    cpu_rn, _ = rn.rangenet53(eval_out["tar"], device="cpu")
+    cpu_f = feats_of(cpu_rn, pn.pretrained_pointnet(eval_out["pth"], device="cpu"), x2, m2)
+    del cpu_rn
+
+    def rel(a, b):
+        return float((a - b).norm() / b.norm())
+
+    out["card_vs_cpu_rel_l2"] = {"rangenet53": rel(card_f[0], cpu_f[0]), "pointnet": rel(card_f[1], cpu_f[1])}
+    saved_tf32 = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        tf32_f = feats_of(rnet, pnet, x2.cuda(), m2.cuda())
+        x = torch.from_numpy(imgs).cuda()
+        m = torch.from_numpy(mask).cuda()
+        with torch.inference_mode():
+            xin = pre(x, m)
+            tf32_ms = cuda_ms(torch, lambda: rnet(xin, "lidargen"), iters=3, warmup=1)
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = saved_tf32
+    out["tf32"] = {"rangenet53_ms_per_image_b8": tf32_ms / B,
+                   "rel_l2_vs_strict_fp32": {"rangenet53": rel(tf32_f[0], card_f[0]),
+                                             "pointnet": rel(tf32_f[1], card_f[1])}}
+    out["host_sqrtm_s"] = eval_out["sqrtm_s"]
+    print(f"evaluation extractors at 64x1024 ({card}): {json.dumps(out)}")
+    if not bound_images * per_image <= 0.7 * total:
+        raise AssertionError(f"evaluate.MAX_EXTRACT_PIXELS ({bound_images} images) passes 70 % of the card")
+    if not max(out["card_vs_cpu_rel_l2"].values()) <= 1e-4:
+        raise AssertionError(f"card features against CPU features: {out['card_vs_cpu_rel_l2']}")
+    if not max(out["chunked_vs_one_batch_max_rel"]) <= 1e-5:
+        raise AssertionError(f"chunked extraction against one batch: {out['chunked_vs_one_batch_max_rel']}")
+    return out
+
+
 def phase_breakdown(torch, ddpm):
     """Where one batch-B network forward spends its time: the forward as
     the host drives it, its device time, and each part's device time on the
@@ -1009,6 +1293,12 @@ def main() -> int:
             phases.run("serving paths", phase_serving, torch, main_out, tmp)
         phases.run("training: backward of both kernels", phase_train_backward, torch)
         train_cli = phases.run("training: python -m r2dm_tpu_torch.train", phase_train_cli, torch, tmp)
+        if main_out is not None:
+            eval_out = phases.run("evaluation: sample_and_save, evaluate, completion_demo", phase_eval, torch,
+                                  main_out, tmp)
+            if eval_out is not None:
+                phases.run("evaluation: extractor times, memory, precision", phase_eval_measure, torch, eval_out,
+                           card)
     step_out = phases.run("training: kernel path against plain path", phase_train_step, torch)
     train_time = None
     if step_out is not None:

@@ -1,12 +1,14 @@
 """r2dm_tpu_torch: the PyTorch/CUDA port of r2dm_tpu for NVIDIA Hopper.
 
-Imports torch, numpy and the standard library only. The JAX package
+Imports torch, numpy, scipy (the Fréchet distance's matrix square root)
+and the standard library only. The JAX package
 ``r2dm_tpu`` is the reference the port is tested against; nothing here
 imports it. The two TPU kernels, which every sampler runs, are hand-written
 CUDA kernels (``csrc/``), built with nvcc at first use on a machine with the
 CUDA toolkit; under autograd the training step runs them too.
-``python -m r2dm_tpu_torch.generate``, ``python -m r2dm_tpu_torch.bench`` and
-``python -m r2dm_tpu_torch.train`` are the command-line entry points.
+The command-line entry points are ``python -m r2dm_tpu_torch.<name>`` for
+``generate``, ``bench``, ``train``, ``sample_and_save``, ``evaluate`` and
+``completion_demo``.
 """
 
 from .config import Config

@@ -1,28 +1,30 @@
-"""Range-image datasets: a list of scans projected on demand, and a
-synthetic set for tests and smoke training.
+"""Range-image datasets: KITTI-360, KITTI Raw, and a synthetic set for tests
+and smoke training.
 
-The port of ``r2dm_tpu/data/datasets.py`` (:27-106, 182-260) without its
-memmap cache of projected planes. Rows are (H, W, 6) float32 planes [x, y,
-z, reflectance, depth, mask] with the invalid pixels zeroed, or reference-
-style dicts of NCHW planes. KITTI-360 and KITTI Raw (their sequence splits
-and file layouts, ``r2dm_tpu/data/kitti_splits.py``) are not ported yet:
-``make_dataset`` raises for them.
+The port of ``r2dm_tpu/data/datasets.py``: scans given by .bin paths are
+projected by the C++ core, optionally once into a per-split **memmap cache**
+of (N, H, W, 6) float32 planes [x, y, z, reflectance, depth, mask] under
+``cache_dir``. The cache keeps the JAX package's file name and ``.npy``
+layout, so a cache either package built serves both. Rows are (H, W, 6)
+planes with the invalid pixels zeroed, or reference-style dicts of NCHW
+planes.
 """
 
 from __future__ import annotations
 
+import hashlib
 import os
+from pathlib import Path
 from typing import Optional, Sequence
 
 import numpy as np
 
+from . import kitti_splits as splits
 from .projection import load_points_as_images, project_points
-
-KITTI_ITEM = "ROADMAP.md queue 1: the KITTI datasets, kitti_splits and the native projection core"
 
 
 class RangeImageDataset:
-    """Scans given by .bin paths, each projected when it is read."""
+    """Scans given by .bin paths, and an optional packed projection cache."""
 
     def __init__(
         self,
@@ -30,6 +32,8 @@ class RangeImageDataset:
         projection: str = "spherical-1024",
         min_depth: float = 1.45,
         max_depth: float = 80.0,
+        cache_dir: Optional[str] = None,
+        cache_tag: str = "",
     ):
         proj, width = projection.split("-")
         if proj not in ("spherical", "unfolding"):
@@ -39,6 +43,29 @@ class RangeImageDataset:
         self.H, self.W = 64, int(width)
         self.min_depth = min_depth
         self.max_depth = max_depth
+        self._cache: Optional[np.ndarray] = None
+        if cache_dir is not None and self.file_paths:
+            self._cache = self._build_cache(cache_dir, projection, cache_tag)
+
+    def cache_path(self, cache_dir: str, projection: str, tag: str) -> Path:
+        """``<tag>-<projection>-<n>-<sha1 of the paths>.npy``, as the JAX
+        package names it (r2dm_tpu/data/datasets.py:51-56)."""
+        digest = hashlib.sha1("\n".join(map(str, self.file_paths)).encode()).hexdigest()[:12]
+        return Path(cache_dir) / f"{tag or 'scans'}-{projection}-{len(self.file_paths)}-{digest}.npy"
+
+    def _build_cache(self, cache_dir: str, projection: str, tag: str) -> np.ndarray:
+        path = self.cache_path(cache_dir, projection, tag)
+        if not path.exists():
+            os.makedirs(cache_dir, exist_ok=True)
+            tmp = path.with_suffix(f".{os.getpid()}.tmp.npy")
+            arr = np.lib.format.open_memmap(tmp, mode="w+", dtype=np.float32,
+                                            shape=(len(self.file_paths), self.H, self.W, 6))
+            for i, fp in enumerate(self.file_paths):
+                arr[i] = self.project_file(fp)
+            arr.flush()
+            del arr
+            os.replace(tmp, path)
+        return np.load(path, mmap_mode="r")
 
     def project_file(self, fp: str) -> np.ndarray:
         return load_points_as_images(
@@ -52,7 +79,10 @@ class RangeImageDataset:
     def planes(self, index: int) -> np.ndarray:
         """(H, W, 6) float32, invalid pixels zeroed (the reference multiplies
         by the mask plane, kitti_360.py:165)."""
-        planes = self.project_file(self.file_paths[index])
+        if self._cache is not None:
+            planes = np.array(self._cache[index])
+        else:
+            planes = self.project_file(self.file_paths[index])
         return planes * planes[..., 5:6]
 
     def __getitem__(self, index: int) -> dict:
@@ -65,6 +95,53 @@ class RangeImageDataset:
             "depth": p[4:5],
             "mask": p[5:6],
         }
+
+
+class KITTI360(RangeImageDataset):
+    """KITTI-360 with the lidargen sequence splits (reference
+    kitti_360.py:19-24, 141-154): train = sequences {3, 4, 5, 6, 7, 9, 10},
+    test = {0, 2}, all = both; scans from
+    ``<root>/*_<seq:04d>_sync/velodyne_points/data/*.bin``, sorted."""
+
+    def __init__(self, root: str, split: str = "train", projection: str = "spherical-1024",
+                 cache_dir: Optional[str] = None, **kw):
+        if split == "all":
+            seqs = splits.KITTI360_SEQUENCE_SPLITS["train"] + splits.KITTI360_SEQUENCE_SPLITS["test"]
+        else:
+            seqs = splits.KITTI360_SEQUENCE_SPLITS[split]
+        file_paths: list[str] = []
+        for seq in seqs:
+            pattern = f"*_{seq:04d}_sync/velodyne_points/data/*.bin"
+            file_paths += sorted(str(p) for p in Path(root).glob(pattern))
+        super().__init__(file_paths, projection=projection, cache_dir=cache_dir,
+                         cache_tag=f"kitti360-{split}", **kw)
+
+
+class KITTIRaw(RangeImageDataset):
+    """KITTI Raw with odometry-based splits (reference kitti_raw.py:19-23,
+    334-360): train/validation = odometry sequences mapped to raw drives
+    (sequence 3's drive is not in KITTI Raw and is skipped), test = the
+    city, road and residential drives outside them
+    (``kitti_splits.raw_test_drives``)."""
+
+    def __init__(self, root: str, split: str = "train", projection: str = "spherical-1024",
+                 cache_dir: Optional[str] = None, **kw):
+        file_paths: list[str] = []
+        if split in ("train", "validation"):
+            for seq in splits.KITTIRAW_SEQUENCE_SPLITS[split]:
+                if seq == 3:
+                    continue  # drive 2011_09_26_0067 is not in KITTI Raw
+                date, drive, start, end = splits.ODOMETRY_TO_RAW[seq]
+                base = Path(root) / date / splits.drive_name(date, drive) / "velodyne_points" / "data"
+                file_paths += [str(base / f"{i:010d}.bin") for i in range(start, end + 1)]
+        elif split == "test":
+            for name in splits.raw_test_drives():
+                base = Path(root) / name[:10] / name / "velodyne_points" / "data"
+                file_paths += sorted(str(p) for p in base.glob("*.bin"))
+        else:
+            raise ValueError(f"unknown split: {split}")
+        super().__init__(file_paths, projection=projection, cache_dir=cache_dir,
+                         cache_tag=f"kittiraw-{split}", **kw)
 
 
 class SyntheticLiDAR(RangeImageDataset):
@@ -112,12 +189,16 @@ class SyntheticLiDAR(RangeImageDataset):
         )
 
 
-def make_dataset(dataset: str, root: Optional[str], split: str, projection: str) -> RangeImageDataset:
+def make_dataset(
+    dataset: str, root: Optional[str], split: str, projection: str, cache_dir: Optional[str] = None,
+) -> RangeImageDataset:
     """Config-driven factory (reference ds.load_dataset, train.py:165-172).
-    ``$R2DM_SYNTH_SCANS`` sets the synthetic set's size (default 64), as in
-    the JAX package."""
-    if dataset in ("kitti_360", "kitti_raw"):
-        raise NotImplementedError(f"dataset {dataset!r} is not ported yet ({KITTI_ITEM}); use 'synthetic'")
+    ``cache_dir`` holds the KITTI sets' projection cache. ``$R2DM_SYNTH_SCANS``
+    sets the synthetic set's size (default 64), as in the JAX package."""
+    if dataset == "kitti_360":
+        return KITTI360(root, split=split, projection=projection, cache_dir=cache_dir)
+    if dataset == "kitti_raw":
+        return KITTIRaw(root, split=split, projection=projection, cache_dir=cache_dir)
     if dataset == "synthetic":
         num_scans = int(os.environ.get("R2DM_SYNTH_SCANS", "64"))
         return SyntheticLiDAR(num_scans=num_scans, projection=projection)

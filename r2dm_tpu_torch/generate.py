@@ -49,7 +49,7 @@ def render_panels(x: torch.Tensor, lidar_utils: LiDARUtility) -> tuple[np.ndarra
 
 def main(args: argparse.Namespace) -> int:
     if args.int8:
-        print("--int8: the W8A8 serving lane is not ported yet (ROADMAP.md queue 1, item 6)", file=sys.stderr)
+        print("--int8: the W8A8 serving lane is not ported yet (ROADMAP.md queue 1, int8)", file=sys.stderr)
         return 2
     if args.latency_layout:
         print("--latency_layout: the width-pair-merged (W2C) layout is a TPU-only re-lowering of the same "

@@ -359,6 +359,14 @@ def _load(path: str) -> dict:
     return load_checkpoint(path)
 
 
+def load_config(ckpt) -> config_lib.Config:
+    """The Config a checkpoint (a path, or an already-loaded dict) carries,
+    without building the network."""
+    if isinstance(ckpt, (str, os.PathLike)):
+        ckpt = _load(str(ckpt))
+    return config_lib.from_dict(ckpt["cfg"]) if isinstance(ckpt.get("cfg"), dict) else ckpt["cfg"]
+
+
 def setup_model(
     ckpt, ema: bool = True, dtype: Optional[torch.dtype] = None, device="cuda",
 ) -> tuple[DDPM, LiDARUtility, config_lib.Config]:
@@ -369,7 +377,7 @@ def setup_model(
     if isinstance(ckpt, (str, os.PathLike)):
         ckpt = _load(str(ckpt))
     _check_dtype(device, dtype)
-    cfg = config_lib.from_dict(ckpt["cfg"]) if isinstance(ckpt.get("cfg"), dict) else ckpt["cfg"]
+    cfg = load_config(ckpt)
     weights = ckpt.get("ema_weights" if ema else "weights") or ckpt.get("weights")
     if "params" in weights:  # a flax tree {'params', 'buffers'}
         sd = state_dict_from_jax(weights)

@@ -4,7 +4,8 @@ Each ``r2dm_tpu_torch/csrc/<name>.cu`` compiles on its own into
 ``r2dm_tpu_torch/_build/lib<name>-<hash>.so`` for ``sm_90a`` with a plain C
 interface, at first use and never at import. The hash covers the source and
 the flags, so an edited source builds anew. ``build_all`` starts one nvcc per
-source at once and waits for all of them.
+source at once and waits for all of them. ``load_host`` does the same with
+g++ for host code, ``csrc/<name>.cc`` (the projection core).
 """
 
 from __future__ import annotations
@@ -110,6 +111,39 @@ def load(name: str) -> ctypes.CDLL:
             lib.cuda_error_string.restype = ctypes.c_char_p
             _libs[name] = lib
         return _libs[name]
+
+
+GXX_FLAGS = ("-O3", "-shared", "-fPIC", "-std=c++17")
+
+
+def _host_target(name: str) -> Path:
+    src = (CSRC / f"{name}.cc").read_bytes()
+    digest = hashlib.sha256(src + " ".join(GXX_FLAGS).encode()).hexdigest()[:12]
+    return BUILD_DIR / f"lib{name}-{digest}.so"
+
+
+def load_host(name: str) -> ctypes.CDLL:
+    """The host library ``csrc/<name>.cc``, built with g++ on first use;
+    raises when it cannot be built."""
+    key = f"host:{name}"
+    with _lock:
+        lib = _libs.get(key)
+        if lib is not None:
+            return lib
+        target = _host_target(name)
+        if not target.exists():
+            gxx = shutil.which("g++")
+            if gxx is None:
+                raise RuntimeError(f"g++ not found: csrc/{name}.cc is built with a C++ compiler")
+            BUILD_DIR.mkdir(parents=True, exist_ok=True)
+            tmp = target.with_suffix(f".{os.getpid()}.tmp")
+            proc = subprocess.run([gxx, *GXX_FLAGS, str(CSRC / f"{name}.cc"), "-o", str(tmp)],
+                                  capture_output=True, text=True, timeout=300)
+            if proc.returncode != 0:
+                raise RuntimeError(f"g++ failed for csrc/{name}.cc:\n{proc.stdout}{proc.stderr}")
+            os.replace(tmp, target)
+        _libs[key] = ctypes.CDLL(str(target))
+        return _libs[key]
 
 
 def check(lib: ctypes.CDLL, rc: int, what: str) -> None:

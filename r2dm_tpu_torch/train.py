@@ -141,7 +141,8 @@ def train(cfg: config_lib.Config, device="cuda"):
     ema_diffusion = build_diffusion(cfg, state.ema_model)
 
     # ----------------------------------------------------------------- data
-    dataset = make_dataset(cfg.data.dataset, cfg.data.data_root, "train", cfg.data.projection)
+    dataset = make_dataset(cfg.data.dataset, cfg.data.data_root, "train", cfg.data.projection,
+                           cache_dir=os.path.join(out_dir, "cache") if cfg.data.data_root else None)
     loader = DataLoader(dataset, batch_size=tcfg.batch_size_train, seed=tcfg.seed)
     keys = (["depth"] if cfg.data.train_depth else []) + (["reflectance"] if cfg.data.train_reflectance else [])
     batches = _device_batches(loader, keys, device)

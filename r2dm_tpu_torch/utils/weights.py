@@ -1,4 +1,5 @@
-"""Weights in and out of the port's ``EfficientUNet``.
+"""Weights in and out of the port's ``EfficientUNet``, and into its
+evaluation networks.
 
 The port's parameters carry the reference torch ``state_dict`` names, so a
 reference checkpoint needs only its wrapper prefixes stripped and the
@@ -7,7 +8,9 @@ coordinate-encoding tables, ``_dummy``, discrete beta tables), which the port
 recomputes. ``state_dict_from_jax`` carries a flax ``{'params', 'buffers'}``
 tree of numpy arrays over: HWIO -> OIHW, (I, O) -> (O, I), the packed qkv,
 and ``coords`` (H, W, 2) -> (1, 2, H, W); ``jax_from_state_dict`` is its
-inverse, for the checkpoint writer.
+inverse, for the checkpoint writer. The extractors' converters map a
+bonnetal RangeNet state dict (both ways) and the JAX package's flax RangeNet
+and PointNet trees to the port's reference torch names.
 """
 
 from __future__ import annotations
@@ -182,3 +185,137 @@ def jax_from_state_dict(sd: Mapping[str, torch.Tensor]) -> dict:
     if buffers:
         out["buffers"] = buffers
     return out
+
+
+# ------------------------------------------------------- RangeNet, PointNet
+_BN_FROM_FLAX = {"scale": "weight", "bias": "bias", "mean": "running_mean", "var": "running_var"}
+
+
+def _bonnetal_port_key(key: str):
+    """A bonnetal RangeNet parameter name -> the port's, None for
+    ``num_batches_tracked`` (the rules of r2dm_tpu's
+    ``translate_bonnetal_key``): ``1.*`` -> ``head``, ``conv1``/``bn1`` ->
+    ``stem.0``/``stem.1``, ``X.conv``/``X.upconv`` -> ``X.conv.0``, ``X.bn``
+    -> ``X.conv.1``, ``X.residual[_M].convK``/``bnK`` ->
+    ``X.residual_blocks.M.residual.{K-1}.{0|1}``."""
+    parts = key.split(".")
+    leaf = parts[-1]
+    if leaf == "num_batches_tracked":
+        return None
+    if parts[0] == "1" and len(parts) == 2:
+        return f"head.{leaf}"
+    if parts[0] in ("conv1", "bn1") and len(parts) == 2:
+        return f"stem.{0 if parts[0] == 'conv1' else 1}.{leaf}"
+    block, sub = parts[0], parts[1]
+    if re.fullmatch(r"(enc|dec)[1-5]", block):
+        if sub in ("conv", "upconv") and len(parts) == 3:
+            return f"{block}.conv.0.{leaf}"
+        if sub == "bn" and len(parts) == 3:
+            return f"{block}.conv.1.{leaf}"
+        m = re.fullmatch(r"residual(?:_(\d+))?", sub)
+        layer = re.fullmatch(r"(conv|bn)([12])", parts[2]) if m and len(parts) == 4 else None
+        if layer:
+            return (f"{block}.residual_blocks.{int(m.group(1) or 0)}.residual."
+                    f"{int(layer.group(2)) - 1}.{0 if layer.group(1) == 'conv' else 1}.{leaf}")
+    raise KeyError(f"unrecognized bonnetal key: {key}")
+
+
+def rangenet_state_dict_from_bonnetal(sd: Mapping[str, Any]) -> dict[str, torch.Tensor]:
+    """An official bonnetal RangeNet state dict (backbone, decoder and head
+    merged) -> the port's ``RangeNet`` state dict; the layouts agree, only
+    the names change."""
+    out = {}
+    for key, v in sd.items():
+        k = _bonnetal_port_key(key)
+        if k is not None:
+            out[k] = _tensor(v)
+    return out
+
+
+def bonnetal_from_rangenet_state_dict(sd: Mapping[str, torch.Tensor]) -> dict[str, torch.Tensor]:
+    """The inverse of ``rangenet_state_dict_from_bonnetal``: the port's
+    names -> bonnetal's (encoder residuals ``residual_M``, decoder residuals
+    ``residual``, the decoder's transposed conv ``upconv``)."""
+    out = {}
+    for key, v in sd.items():
+        parts = key.split(".")
+        leaf = parts[-1]
+        if parts[0] == "head":
+            name = f"1.{leaf}"
+        elif parts[0] == "stem":
+            name = f"{'conv1' if parts[1] == '0' else 'bn1'}.{leaf}"
+        elif parts[1] == "conv":
+            conv = "upconv" if parts[0].startswith("dec") else "conv"
+            name = f"{parts[0]}.{conv if parts[2] == '0' else 'bn'}.{leaf}"
+        elif parts[1] == "residual_blocks":
+            res = "residual" if parts[0].startswith("dec") else f"residual_{parts[2]}"
+            kind = "conv" if parts[5] == "0" else "bn"
+            name = f"{parts[0]}.{res}.{kind}{int(parts[4]) + 1}.{leaf}"
+        else:
+            raise KeyError(f"unhandled RangeNet parameter: {key}")
+        out[name] = v
+    return out
+
+
+def rangenet_state_dict_from_flax(params: Mapping[str, Any]) -> dict[str, torch.Tensor]:
+    """A flax ``RangeNet`` params tree (r2dm_tpu/metrics/extractor/
+    rangenet.py) -> the port's state dict: conv HWIO -> OIHW, the decoder's
+    transposed-conv kernel (kh, kw, in, out) -> (in, out, kh, kw) (flax
+    stores it torch-like and flips it only when applied), BN scale/bias/
+    mean/var -> weight/bias/running_mean/running_var."""
+    sd: dict[str, torch.Tensor] = {}
+
+    def convbn(prefix: str, node: Mapping[str, Any]) -> None:
+        if "conv" in node:  # ConvBNLReLU: {conv: {kernel}, bn}
+            sd[f"{prefix}.0.weight"] = _tensor(np.transpose(np.asarray(node["conv"]["kernel"]), (3, 2, 0, 1)))
+            if "bias" in node["conv"]:
+                sd[f"{prefix}.0.bias"] = _tensor(node["conv"]["bias"])
+        else:  # ConvTransposeBNLReLU: {kernel, bias, bn}
+            sd[f"{prefix}.0.weight"] = _tensor(np.transpose(np.asarray(node["kernel"]), (2, 3, 0, 1)))
+            sd[f"{prefix}.0.bias"] = _tensor(node["bias"])
+        for leaf, v in node["bn"].items():
+            sd[f"{prefix}.1.{_BN_FROM_FLAX[leaf]}"] = _tensor(v)
+
+    params = params.get("params", params)
+    for name, node in params.items():
+        if name == "head":
+            sd["head.weight"] = _tensor(np.transpose(np.asarray(node["kernel"]), (3, 2, 0, 1)))
+            sd["head.bias"] = _tensor(node["bias"])
+        elif name == "stem":
+            convbn("stem", node)
+        else:
+            convbn(f"{name}.conv", node["conv"])
+            for res, sub in node.items():
+                if res.startswith("res"):
+                    for k in (1, 2):
+                        convbn(f"{name}.residual_blocks.{res[3:]}.residual.{k - 1}", sub[f"conv{k}"])
+    return sd
+
+
+def pointnet_state_dict_from_flax(params: Mapping[str, Any]) -> dict[str, torch.Tensor]:
+    """A flax ``PointNet1`` params tree (r2dm_tpu/metrics/extractor/
+    pointnet.py) -> the port's state dict under the SpareNet names: Dense
+    kernels (I, O) -> Conv1d (O, I, 1) for ``conv*``, Linear (O, I) for
+    ``fc*``; each ``<layer>_bn`` -> the scope's ``bnN``."""
+    bn_index = {"stn": ("conv1", "conv2", "conv3", "fc1", "fc2"), "feat": ("conv1", "conv2", "conv3"),
+                "": ("fc1", "fc2")}
+    sd: dict[str, torch.Tensor] = {}
+
+    def scope(prefix: str, kind: str, node: Mapping[str, Any]) -> None:
+        for name, sub in node.items():
+            if name in ("stn", "feat"):
+                continue
+            if name.endswith("_bn"):
+                n = bn_index[kind].index(name[:-3]) + 1
+                for leaf, v in sub.items():
+                    sd[f"{prefix}bn{n}.{_BN_FROM_FLAX[leaf]}"] = _tensor(v)
+            else:
+                w = np.asarray(sub["kernel"]).T
+                sd[f"{prefix}{name}.weight"] = _tensor(w[..., None] if name.startswith("conv") else w)
+                sd[f"{prefix}{name}.bias"] = _tensor(sub["bias"])
+
+    params = params.get("params", params)
+    scope("", "", params)
+    scope("feat.", "feat", params["feat"])
+    scope("feat.stn.", "stn", params["feat"]["stn"])
+    return sd

@@ -25,7 +25,8 @@ from r2dm_tpu.lidar import LiDARUtility as JaxLiDARUtility
 from r2dm_tpu_torch import checkpoint
 from r2dm_tpu_torch import config as port_config
 from r2dm_tpu_torch.data import DataLoader, SyntheticLiDAR, make_dataset, preprocess_batch
-from r2dm_tpu_torch.data.projection import project_points
+from r2dm_tpu_torch.data import KITTI360, KITTIRaw
+from r2dm_tpu_torch.data.projection import project_points, project_points_numpy
 from r2dm_tpu_torch.lidar import LiDARUtility
 from r2dm_tpu_torch.train import main as train_main
 from r2dm_tpu_torch.train import step_generator
@@ -44,11 +45,14 @@ TINY_FLAGS = [
 # ------------------------------------------------------ (g) projection, data
 @pytest.mark.parametrize("key,unfold,H", [("spherical", False, 64), ("unfolding", True, 16)])
 def test_projection_matches_golden_and_jax(key, unfold, H):
+    """The C++ core to the golden (1e-6, as tests/test_data.py); its numpy
+    plain version equal to the JAX package's."""
     g = np.load(GOLDEN / "projection.npz")
     pts = g["points" if key == "spherical" else "points_unfold"]
     ours = project_points(pts, scan_unfolding=unfold, H=H, W=256)
     np.testing.assert_allclose(ours, g[key], rtol=1e-6, atol=1e-6)
-    np.testing.assert_array_equal(ours, jax_project_points(pts, scan_unfolding=unfold, H=H, W=256))
+    np.testing.assert_array_equal(project_points_numpy(pts, scan_unfolding=unfold, H=H, W=256),
+                                  jax_project_points(pts, scan_unfolding=unfold, H=H, W=256))
 
 
 def test_synthetic_planes_match_jax(monkeypatch):
@@ -62,9 +66,13 @@ def test_synthetic_planes_match_jax(monkeypatch):
         assert row["depth"].shape == (1, 64, 256) and row["xyz"].shape == (3, 64, 256)
     monkeypatch.setenv("R2DM_SYNTH_SCANS", "5")
     assert len(make_dataset("synthetic", None, "train", "spherical-256")) == 5
-    for name in ("kitti_360", "kitti_raw"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            make_dataset(name, "/nonexistent", "train", "spherical-1024")
+    # the KITTI sets are ported (tests/test_torch_port_kitti.py); a root
+    # without scans gives empty splits
+    for name, cls in (("kitti_360", KITTI360), ("kitti_raw", KITTIRaw)):
+        ds = make_dataset(name, "/nonexistent", "test", "spherical-1024")
+        assert isinstance(ds, cls) and len(ds) == 0
+    with pytest.raises(ValueError, match="unknown dataset"):
+        make_dataset("nuscenes", None, "train", "spherical-1024")
 
 
 # ------------------------------------------------------ (h) loader, preprocess

@@ -1,6 +1,7 @@
 """The port (r2dm_tpu_torch) and chip_smoke.py stand alone: they import no
-JAX, flax, optax, pydantic, msgpack or anything of the JAX package r2dm_tpu,
-and importing them builds no kernel."""
+JAX, flax, optax, pydantic, msgpack, PyYAML, matplotlib (the card's machine
+has neither of the last two) or anything of the JAX package r2dm_tpu, and
+importing them builds no kernel."""
 
 import ast
 import subprocess
@@ -9,7 +10,7 @@ from pathlib import Path
 
 REPO = Path(__file__).resolve().parent.parent
 PKG = REPO / "r2dm_tpu_torch"
-FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "pydantic", "msgpack", "r2dm_tpu")
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "pydantic", "msgpack", "yaml", "matplotlib", "r2dm_tpu")
 
 
 def test_import_leaves_jax_and_the_jax_package_out():
