@@ -46,7 +46,21 @@ Phases (any failure makes the exit code non-zero and suppresses the result):
      the median train-step time (CUDA events), its peak memory and the
      host's enqueue time against the device time, and the GN backward, the
      conv's dx (the kernel at the transposed shapes) and dW at every
-     ResidualBlock shape.
+     ResidualBlock shape;
+  9. evaluation: random extractor weights written in their published
+     layouts (a bonnetal darknet53.tar.gz, a SpareNet cls_model_39.pth);
+     ``python -m r2dm_tpu_torch.sample_and_save`` (b8, 16 samples, 4 DDIM
+     steps; 400 GN + 384 conv launches), ``evaluate`` twice on 16 synthetic
+     real scans (a finite JSON, the second run from the real-set cache and
+     equal to 1e-6, the host seconds of each Fréchet distance) and
+     ``completion_demo`` with the RangeNet-53 labels (T=2, r=2, j=1 at b4;
+     150 GN + 144 conv launches; the figure's size);
+ 10. the extractors at 64x1024: RangeNet-53, PointNet and BEV ms an image
+     at b8 and b64 (strict fp32), RangeNet-53's FLOPs and share of the fp32
+     and TF32 peaks, the extraction's peak memory per image against
+     evaluate.MAX_EXTRACT_PIXELS (fails above 70 % of the card), chunked
+     extraction against one batch, the card's features against the CPU's,
+     and the features and time with TF32 allowed (printed only).
 The line before the last is the kernels JSON; the last line is
 {"ok": true, "device": {...}}. Exits non-zero, printing no result, without a
 CUDA device or without the port's package.
@@ -420,7 +434,6 @@ def phase_serving(torch, main_out, tmp):
     48 conv a forward), and the peak memory per image that sets
     DDPM.MAX_BATCH_PIXELS."""
     import dataclasses
-    import runpy
 
     import numpy as np
 
@@ -494,20 +507,9 @@ def phase_serving(torch, main_out, tmp):
 
     # python -m r2dm_tpu_torch.generate, in this process so the counters see it
     out_dir = os.path.join(tmp, "generate")
-    argv = ["r2dm_tpu_torch.generate", "--ckpt", main_out["ckpt"], "--batch_size", "2",
-            "--sampling_steps", "4", "--mode", "ddim", "--seed", "0", "--out_dir", out_dir]
-
-    def generate():
-        saved, sys.argv = sys.argv, argv
-        try:
-            runpy.run_module("r2dm_tpu_torch.generate", run_name="__main__", alter_sys=True)
-        except SystemExit as e:
-            if e.code not in (0, None):
-                raise AssertionError(f"python -m r2dm_tpu_torch.generate exited with {e.code}")
-        finally:
-            sys.argv = saved
-
-    run("python -m r2dm_tpu_torch.generate b2 ddim 4", 4, generate)
+    argv = ["--ckpt", main_out["ckpt"], "--batch_size", "2", "--sampling_steps", "4", "--mode", "ddim", "--seed",
+            "0", "--out_dir", out_dir]
+    run("python -m r2dm_tpu_torch.generate b2 ddim 4", 4, lambda: _run_cli("r2dm_tpu_torch.generate", argv))
     sizes = {n: _png_size(os.path.join(out_dir, n)) for n in ("samples_img.png", "samples_bev.png")}
     print(f"generate wrote {json.dumps(sizes)}")
     if sizes != {"samples_img.png": (2 * 2 * H, W), "samples_bev.png": (800, 2 * 800)}:
@@ -552,15 +554,19 @@ def phase_serving(torch, main_out, tmp):
     return {"seconds": seconds, "bytes_per_image": per_image}
 
 
-def _random_bn(torch, model, seed: int):
-    """Every parameter N(0, 0.05^2) and non-trivial frozen BN statistics
-    (the extractors' stand-in weights: the real files cannot be fetched)."""
+def _random_extractor(torch, build, seed: int):
+    """``build()``'s module with PyTorch's default initialisation from
+    ``seed`` and non-trivial frozen BN statistics: the extractors' stand-in
+    weights (the published files cannot be fetched). Default init keeps
+    RangeNet-53's 53 layers of activations bounded, so the features and the
+    metrics stay finite."""
     from r2dm_tpu_torch.metrics.extractor.rangenet import FrozenBatchNorm
 
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(seed)
+        model = build()
     g = torch.Generator().manual_seed(seed)
     with torch.no_grad():
-        for p in model.parameters():
-            p.copy_(0.05 * torch.randn(p.shape, generator=g))
         for m in model.modules():
             if isinstance(m, FrozenBatchNorm):
                 n = m.weight.numel()
@@ -595,7 +601,7 @@ def _launches(ops) -> dict:
     return {fn.__name__: fn.launches for fn in ops.KERNEL_WRAPPERS}
 
 
-def phase_eval(torch, main_out, tmp):
+def phase_eval(torch, main_out, tmp, card):
     """The evaluation path at config H and full width, on phase_main's random
     U-Net (its config set to the synthetic set) and random extractor weights
     in their published layouts: a bonnetal darknet53.tar.gz and a SpareNet
@@ -604,9 +610,9 @@ def phase_eval(torch, main_out, tmp):
     completion_demo with the RangeNet-53 labels, each through ``python -m``
     in this process with exact launch counts."""
     import numpy as np
-    import scipy.linalg
 
     from r2dm_tpu_torch import ops
+    from r2dm_tpu_torch.metrics import distribution
     from r2dm_tpu_torch.metrics.extractor import pointnet as pn
     from r2dm_tpu_torch.metrics.extractor import rangenet as rn
 
@@ -619,13 +625,13 @@ def phase_eval(torch, main_out, tmp):
     torch.save(ckpt, ckpt_path)
     del ckpt
     tar = os.path.join(work, "darknet53.tar.gz")
-    rn.save_rangenet_tar(tar, _random_bn(torch, rn.RangeNet(backbone=53), 11))
-    sd = _random_bn(torch, pn.PointNet1(k=16), 12).state_dict()
+    rn.save_rangenet_tar(tar, _random_extractor(torch, lambda: rn.RangeNet(backbone=53), 11))
+    sd = _random_extractor(torch, lambda: pn.PointNet1(k=16), 12).state_dict()
     sd.update({k.replace("running_var", "num_batches_tracked"): torch.tensor(39) for k in list(sd)
                if k.endswith("running_var")})
     pth = os.path.join(work, "cls_model_39.pth")
     torch.save(sd, pth)
-    seconds = {}
+    seconds, path_launches = {}, {}
 
     # sample_and_save: 2 batches x 4 DDIM steps = 8 forwards
     samples = os.path.join(work, "samples")
@@ -636,12 +642,12 @@ def phase_eval(torch, main_out, tmp):
                                                 str(B), "--num_samples", str(2 * B), "--num_steps", "4",
                                                 "--mode", "ddim"])
     seconds["sample_and_save"] = time.time() - t0
-    launches = _launches(ops)
+    launches = path_launches["sample_and_save"] = _launches(ops)
     expected = {"fused_group_norm_silu": 50 * 8, "fused_act_ringconv": 48 * 8}
     files = sorted(os.listdir(samples))
     arrays = [np.load(os.path.join(samples, f))["sample"] for f in files]
     valid = float(np.mean([((a[0] > 3) & (a[0] < 70)).mean() for a in arrays]))
-    print(f"sample_and_save b{B}, {2 * B} samples, 4 DDIM steps: {seconds['sample_and_save']:.3f} s, launches "
+    print(f"sample_and_save b{B}, {2 * B} samples, 4 DDIM steps ({card}): {seconds['sample_and_save']:.3f} s, launches "
           f"{json.dumps(launches)} (expected {json.dumps(expected)}), {len(files)} files, BEV-gated points {valid:.3f}")
     if launches != expected:
         raise AssertionError(f"sample_and_save launches {launches} != {expected}")
@@ -649,21 +655,22 @@ def phase_eval(torch, main_out, tmp):
             a.shape == (5, H, W) and np.isfinite(a).all() for a in arrays):
         raise AssertionError(f"sample_and_save wrote {files}, shapes {[a.shape for a in arrays]}")
 
-    # evaluate, twice: the second run reads the real-set cache
-    sqrtm_s = []
-    plain_sqrtm = scipy.linalg.sqrtm
+    # evaluate, twice: the second run reads the real-set cache; the host
+    # seconds of each Fréchet distance by feature width
+    fd_s = []
+    plain_fd = distribution.compute_frechet_distance
 
-    def timed_sqrtm(a, *args, **kw):
+    def timed_fd(f1, f2):
         t = time.time()
-        out = plain_sqrtm(a, *args, **kw)
-        sqrtm_s.append((a.shape[0], time.time() - t))
+        out = plain_fd(f1, f2)
+        fd_s.append((f1.shape[1], time.time() - t))
         return out
 
     argv = ["--ckpt", ckpt_path, "--sample_dir", samples, "--batch_size", str(B), "--rangenet_tar", tar,
             "--pointnet_ckpt", pth]
     saved_env, cwd = os.environ.get("R2DM_SYNTH_SCANS"), os.getcwd()
     os.environ["R2DM_SYNTH_SCANS"] = str(2 * B)
-    scipy.linalg.sqrtm = timed_sqrtm
+    distribution.compute_frechet_distance = timed_fd
     runs = []
     try:
         os.chdir(work)  # the real-set cache goes to the working directory
@@ -682,7 +689,7 @@ def phase_eval(torch, main_out, tmp):
                 raise AssertionError(f"evaluate launched U-Net kernels: {_launches(ops)}")
         caches = [f for f in os.listdir(work) if f.startswith("real_set_")]
     finally:
-        scipy.linalg.sqrtm = plain_sqrtm
+        distribution.compute_frechet_distance = plain_fd
         os.chdir(cwd)
         if saved_env is None:
             os.environ.pop("R2DM_SYNTH_SCANS")
@@ -691,10 +698,10 @@ def phase_eval(torch, main_out, tmp):
     first, second = runs
     values = {f"{s}.{k}": v for s in ("img", "pts", "bev") for k, v in first[s].items()}
     gap = max(abs(second[s][k] - v) / max(abs(v), 1e-30) for s in ("img", "pts", "bev") for k, v in first[s].items())
-    print(f"evaluate (RangeNet-53 tar, PointNet .pth, {2 * B} synthetic real scans, {2 * B} samples, b{B}): "
+    print(f"evaluate (RangeNet-53 tar, PointNet .pth, {2 * B} synthetic real scans, {2 * B} samples, b{B}; {card}): "
           f"{json.dumps(values)}, info {json.dumps(first['info'])}; the run from the cache ({caches}) differs by "
           f"{gap:.3e} relative at most (limit 1e-6); seconds {seconds['evaluate run 1']:.1f} and "
-          f"{seconds['evaluate run 2']:.1f}; host sqrtm seconds by matrix size {json.dumps(sqrtm_s)}")
+          f"{seconds['evaluate run 2']:.1f}; host seconds of the Fréchet distance by feature width {json.dumps(fd_s)}")
     if not (len(values) == 6 and all(math.isfinite(v) for v in values.values())):
         raise AssertionError(f"evaluate: non-finite or missing metrics {values}")
     if (first["info"]["#real"], first["info"]["#fake"]) != (2 * B, 2 * B) or not gap <= 1e-6 \
@@ -705,19 +712,23 @@ def phase_eval(torch, main_out, tmp):
     # b4 = 1 x 2 + 1 forwards
     ops.reset_launch_counts()
     t0 = time.time()
-    _run_cli("r2dm_tpu_torch.completion_demo", ["--ckpt", ckpt_path, "--num_steps", "2", "--num_resample_steps",
-                                                "2", "--rangenet_tar", tar, "--out_dir", work])
+    try:
+        os.chdir(work)  # the figure goes to the working directory
+        _run_cli("r2dm_tpu_torch.completion_demo", ["--ckpt", ckpt_path, "--num_steps", "2",
+                                                    "--num_resample_steps", "2", "--rangenet_tar", tar])
+    finally:
+        os.chdir(cwd)
     torch.cuda.synchronize()
     seconds["completion_demo"] = time.time() - t0
-    launches = _launches(ops)
+    launches = path_launches["completion_demo"] = _launches(ops)
     expected = {"fused_group_norm_silu": 50 * 3, "fused_act_ringconv": 48 * 3}
     size = _png_size(os.path.join(work, "completion_T-0002_r-0002_j-0001.png"))
     want = (2 * H + 800 + 2 * H + H + 800 + 5 * 4, 4 * max(W, 800) + 3 * 8)
-    print(f"completion_demo T2 r2 j1 b4 with RangeNet-53 labels: {seconds['completion_demo']:.3f} s, launches "
+    print(f"completion_demo T2 r2 j1 b4 with RangeNet-53 labels ({card}): {seconds['completion_demo']:.3f} s, launches "
           f"{json.dumps(launches)} (expected {json.dumps(expected)}), figure {size} (expected {want})")
     if launches != expected or size != want:
         raise AssertionError(f"completion_demo: launches {launches}, figure {size}")
-    return {"seconds": seconds, "sqrtm_s": sqrtm_s, "tar": tar, "pth": pth, "work": work}
+    return {"seconds": seconds, "fd_s": fd_s, "tar": tar, "pth": pth, "work": work, "launches": path_launches}
 
 
 def phase_eval_measure(torch, eval_out, card):
@@ -824,7 +835,7 @@ def phase_eval_measure(torch, eval_out, card):
     out["tf32"] = {"rangenet53_ms_per_image_b8": tf32_ms / B,
                    "rel_l2_vs_strict_fp32": {"rangenet53": rel(tf32_f[0], card_f[0]),
                                              "pointnet": rel(tf32_f[1], card_f[1])}}
-    out["host_sqrtm_s"] = eval_out["sqrtm_s"]
+    out["host_frechet_s"] = eval_out["fd_s"]
     print(f"evaluation extractors at 64x1024 ({card}): {json.dumps(out)}")
     if not bound_images * per_image <= 0.7 * total:
         raise AssertionError(f"evaluate.MAX_EXTRACT_PIXELS ({bound_images} images) passes 70 % of the card")
@@ -1106,23 +1117,14 @@ def phase_train_step(torch):
 def _train_cli(torch, argv):
     """``python -m r2dm_tpu_torch.train`` in this process, so the launch
     counters see it; returns (seconds, launches)."""
-    import runpy
-
     from r2dm_tpu_torch import ops
 
     torch.cuda.synchronize()
     ops.reset_launch_counts()
-    saved, sys.argv = sys.argv, ["r2dm_tpu_torch.train"] + argv
     t0 = time.time()
-    try:
-        runpy.run_module("r2dm_tpu_torch.train", run_name="__main__", alter_sys=True)
-    except SystemExit as e:
-        if e.code not in (0, None):
-            raise AssertionError(f"python -m r2dm_tpu_torch.train exited with {e.code}")
-    finally:
-        sys.argv = saved
+    _run_cli("r2dm_tpu_torch.train", argv)
     torch.cuda.synchronize()
-    return time.time() - t0, {fn.__name__: fn.launches for fn in ops.KERNEL_WRAPPERS}
+    return time.time() - t0, _launches(ops)
 
 
 def phase_train_cli(torch, tmp):
@@ -1287,6 +1289,7 @@ def main() -> int:
         return 1
     gn_err = phases.run("kernel 1 against its plain version", phase_gn, torch)
     conv_err = phases.run("kernel 2 against its plain version", phase_conv, torch)
+    eval_out = None
     with tempfile.TemporaryDirectory() as tmp:
         main_out = phases.run("main path", phase_main, torch, tmp)
         if main_out is not None:
@@ -1295,7 +1298,7 @@ def main() -> int:
         train_cli = phases.run("training: python -m r2dm_tpu_torch.train", phase_train_cli, torch, tmp)
         if main_out is not None:
             eval_out = phases.run("evaluation: sample_and_save, evaluate, completion_demo", phase_eval, torch,
-                                  main_out, tmp)
+                                  main_out, tmp, card)
             if eval_out is not None:
                 phases.run("evaluation: extractor times, memory, precision", phase_eval_measure, torch, eval_out,
                            card)
@@ -1313,6 +1316,9 @@ def main() -> int:
         for line in phases.failed:
             log(f"FAILED {line}")
         return 1
+    for row in rows:  # the evaluation entry points' own counts
+        for path, counts in eval_out["launches"].items():
+            row[f"{path}_launches"] = counts[row["name"]]
     print(f"ddim16_b{B}_img_per_s {main_out['ddim16_img_s']:.4f}")
     print(f"train_step_b{B}_median_ms {train_time['median_step_ms']:.3f} "
           f"({train_time['img_per_s']:.3f} img/s, peak {train_time['peak_bytes'] / 1e9:.3f} GB)")

@@ -1,7 +1,6 @@
 """r2dm_tpu_torch: the PyTorch/CUDA port of r2dm_tpu for NVIDIA Hopper.
 
-Imports torch, numpy, scipy (the Fréchet distance's matrix square root)
-and the standard library only. The JAX package
+Imports torch, numpy and the standard library only. The JAX package
 ``r2dm_tpu`` is the reference the port is tested against; nothing here
 imports it. The two TPU kernels, which every sampler runs, are hand-written
 CUDA kernels (``csrc/``), built with nvcc at first use on a machine with the

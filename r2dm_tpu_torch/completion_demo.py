@@ -10,7 +10,7 @@ completion_demo.py:18-167): one scan of the test split, the masks full /
 every 4th beam / a random half of the beams / 10 % of the points,
 ``DDPM.repaint`` over the T x r x j grid, and with ``--rangenet_tar`` the
 semantic labels of the completed scans. The figure,
-``completion_T-####_r-####_j-####.png`` in ``--out_dir``, is a grid of
+``completion_T-####_r-####_j-####.png`` in the working directory, is a grid of
 panels written with ``render.write_png``: one column per mask (in that
 order), and top to bottom the input's depth and reflectance (turbo), its
 bird's-eye view, the completion's depth and reflectance, its labels
@@ -26,7 +26,6 @@ queue 1, parallelism); each exits with a message.
 from __future__ import annotations
 
 import argparse
-import os
 import sys
 
 import numpy as np
@@ -156,9 +155,7 @@ def main(args: argparse.Namespace) -> int:
             labels = semseg(preprocess(inputs, m.permute(0, 3, 1, 2))).argmax(dim=1)  # (B, H, W)
 
     # --------------------------------------------------------------- figure
-    os.makedirs(args.out_dir, exist_ok=True)
-    name = f"completion_T-{args.num_steps:04d}_r-{args.num_resample_steps:04d}_j-{args.jump_length:04d}.png"
-    save_path = os.path.join(args.out_dir, name)
+    save_path = f"completion_T-{args.num_steps:04d}_r-{args.num_resample_steps:04d}_j-{args.jump_length:04d}.png"
     render_lib.write_png(save_path, figure(lidar, x_in, x_out, labels))
     print(f'saved to "{save_path}"')
     return 0
@@ -179,7 +176,6 @@ def parse_args(argv=None) -> argparse.Namespace:
     parser.add_argument("--rangenet_tar", type=str, default=None)
     parser.add_argument("--mesh", type=str, default="", help="not ported (ROADMAP.md queue 1, parallelism)")
     parser.add_argument("--device", type=str, default="cuda", help="cuda (default) or cpu")
-    parser.add_argument("--out_dir", type=str, default=".", help="where the figure goes")
     return parser.parse_args(argv)
 
 

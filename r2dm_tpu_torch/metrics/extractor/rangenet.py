@@ -43,9 +43,10 @@ class FrozenBatchNorm(nn.Module):
     / sqrt(var + eps) * weight + bias, applied in place (its input is always
     the fresh output of the layer before it)."""
 
-    def __init__(self, num_features: int, eps: float = 1e-5):
+    eps = 1e-5  # torch.nn.BatchNorm's, as the JAX package's
+
+    def __init__(self, num_features: int):
         super().__init__()
-        self.eps = eps
         self.register_buffer("weight", torch.ones(num_features))
         self.register_buffer("bias", torch.zeros(num_features))
         self.register_buffer("running_mean", torch.zeros(num_features))
@@ -283,11 +284,12 @@ def load_rangenet_tar(path: str):
     return rangenet_state_dict_from_bonnetal(sd), cfg, (sensor["img_means"][:in_ch], sensor["img_stds"][:in_ch])
 
 
-def save_rangenet_tar(path: str, model: RangeNet, means=IMG_MEANS, stds=IMG_STDS) -> None:
+def save_rangenet_tar(path: str, model: RangeNet) -> None:
     """Write ``model`` as a bonnetal tar.gz that :func:`load_rangenet_tar`
     (and the JAX package's) reads: ``<arch>/backbone`` (stem, encoder),
     ``segmentation_decoder``, ``segmentation_head`` under the bonnetal names,
-    and an ``arch_cfg.yaml`` with the keys the readers use."""
+    and an ``arch_cfg.yaml`` with the keys the readers use (the
+    SemanticKITTI input statistics)."""
     arch = os.path.basename(path).replace(".tar.gz", "")
     bonn = bonnetal_from_rangenet_state_dict(model.state_dict())
     parts = {"backbone": {}, "segmentation_decoder": {}, "segmentation_head": {}}
@@ -299,7 +301,7 @@ def save_rangenet_tar(path: str, model: RangeNet, means=IMG_MEANS, stds=IMG_STDS
     if in_ch != 5:
         raise ValueError("the bonnetal layout written here has the 5 inputs range, xyz, remission")
     lists = "\n".join(f"    {name}:\n" + "".join(f"      - {float(v)!r}\n" for v in vals)
-                      for name, vals in (("img_means", means), ("img_stds", stds)))
+                      for name, vals in (("img_means", IMG_MEANS), ("img_stds", IMG_STDS)))
     cfg_text = (f"backbone:\n  name: \"darknet\"\n  input_depth:\n    range: True\n    xyz: True\n"
                 f"    remission: True\n  extra:\n    layers: {model.backbone}\n"
                 f"dataset:\n  sensor:\n    name: \"HDL64\"\n{lists}")

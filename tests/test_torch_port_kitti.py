@@ -10,6 +10,7 @@ from pathlib import Path
 
 import numpy as np
 import pytest
+import torch
 
 from r2dm_tpu.data import datasets as jax_datasets
 from r2dm_tpu.data import kitti_splits as jax_splits
@@ -21,6 +22,16 @@ from r2dm_tpu_torch.train import main as train_main
 
 GOLDEN = Path(__file__).parent / "golden"
 PROJ = "spherical-256"
+
+
+@pytest.fixture(autouse=True)
+def two_threads():
+    """Two intra-op threads: the suite runs in several processes at once, and
+    each one's default (every core) oversubscribes the machine."""
+    saved = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(saved)
 
 
 def write_scan(path: Path, seed: int, n: int = 3000) -> None:
