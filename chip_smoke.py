@@ -60,7 +60,30 @@ Phases (any failure makes the exit code non-zero and suppresses the result):
      and TF32 peaks, the extraction's peak memory per image against
      evaluate.MAX_EXTRACT_PIXELS (fails above 70 % of the card), chunked
      extraction against one batch, the card's features against the CPU's,
-     and the features and time with TF32 allowed (printed only).
+     and the features and time with TF32 allowed (printed only);
+ 11. gradient accumulation and bf16 gradients: ``python -m
+     r2dm_tpu_torch.train`` at config H b8 with
+     ``--training.gradient_accumulation_steps 2`` for 3 micro-steps, then
+     resumed for 1 (exact 50 GN + 96 conv launches a micro-step; the
+     checkpoint's optax MultiSteps state at mini_step 1 with AdamW count 1,
+     then count 2); one b8 ``grad_bf16`` step, kernel path against plain
+     path (gradient relative L2 <= TRAIN_REL_L2, 50 + 96 launches), and its
+     step time and peak memory beside the fp32-gradient step's;
+ 12. the data axis: one rank in this process (the trainer for 4 steps at b8,
+     then under NCCL, the default backend on CUDA, for 2), and two ranks
+     on this one card, one pair of processes each with RANK, WORLD_SIZE=2,
+     LOCAL_RANK=0 calling init_process_group("gloo") and then, in turn,
+     the trainer (4 steps at global b8, b4 a rank; exact 50 + 96 launches a
+     step on each rank; the loss each step and the weights' updates against
+     the one rank), sample_and_save (16 samples: phase 9's files) and
+     evaluate (phase 9's JSON). Two ranks share the card: a correctness
+     check, not a scaling number. The pair has a deadline
+     (RANK_TIMEOUT_S), so a rank that hangs fails the phase;
+ 13. reflow: ``r2dm_tpu_torch.reflow`` on the random config-H network as a
+     flow checkpoint, 16 pairs of 4 teacher steps at b8 (400 GN + 384 conv
+     launches) and 4 fine-tune steps (200 GN + 384 conv), its seconds and
+     peak memory; the written checkpoint loads through setup_model and a
+     1-step euler sample at b8 is finite.
 The line before the last is the kernels JSON; the last line is
 {"ok": true, "device": {...}}. Exits non-zero, printing no result, without a
 CUDA device or without the port's package.
@@ -83,6 +106,17 @@ TRAIN_STEPS, RESUMED_STEPS = 10, 2  # python -m r2dm_tpu_torch.train in the trai
 # kernel path against plain path, one config-H b8 loss + backward: relative
 # L2 of the flattened gradient (the forward's limit; see PERF.md)
 TRAIN_REL_L2 = 2e-2
+ACCUM_STEPS, ACCUM_MICRO_STEPS = 2, 3  # phase 11: k, then the micro-steps before the resume
+RANK_TIMEOUT_S = 240  # phase 12: the deadline of each group of rank processes
+# phase 12, two ranks (b4 each) against one (b8), both bf16 networks: the
+# loss each step, relative (6.4e-8 measured: each sample's forward is the
+# same, the batch mean sums in another order); the relative L2 of the
+# weights' updates after 4 steps (2.6e-3 measured: the all-reduced
+# gradients round otherwise, and Adam moves an entry near 0 by up to lr);
+# the samples, max |diff| in metres (0 measured: b8 batches both ways,
+# per-seed generators). NVIDIA H100 80GB HBM3, 700 W.
+TWO_RANK_LOSS_REL, TWO_RANK_UPDATE_REL, TWO_RANK_SAMPLE_ATOL = 1e-5, 2e-2, 1e-5
+REFLOW_ARGS = {"num_pairs": 16, "teacher_steps": 4, "batch_size": B, "train_steps": 4}
 # every batch at which this script runs the network: generate b2, RePaint
 # b4, the other paths b8, the memory probe b32; one forward at each is held
 # against the plain path
@@ -728,7 +762,8 @@ def phase_eval(torch, main_out, tmp, card):
           f"{json.dumps(launches)} (expected {json.dumps(expected)}), figure {size} (expected {want})")
     if launches != expected or size != want:
         raise AssertionError(f"completion_demo: launches {launches}, figure {size}")
-    return {"seconds": seconds, "fd_s": fd_s, "tar": tar, "pth": pth, "work": work, "launches": path_launches}
+    return {"seconds": seconds, "fd_s": fd_s, "tar": tar, "pth": pth, "work": work, "launches": path_launches,
+            "ckpt": ckpt_path, "samples": samples, "json": first}
 
 
 def phase_eval_measure(torch, eval_out, card):
@@ -1261,6 +1296,436 @@ def _profile_train_step(torch, step, state, x_0, g, steps: int = 3):
     return out
 
 
+def phase_accum_cli(torch, tmp):
+    """``python -m r2dm_tpu_torch.train`` with gradient accumulation at
+    config H, b8: ACCUM_MICRO_STEPS micro-steps, then resumed for one more;
+    the checkpoint holds optax MultiSteps' state mid-accumulation."""
+    import numpy as np
+
+    from r2dm_tpu_torch.checkpoint import load_checkpoint
+
+    out = os.path.join(tmp, "train_accum")
+    ckpt = os.path.join(out, "checkpoint.msgpack")
+    argv = ["--data.dataset", "synthetic", "--training.output_dir", out, "--training.seed", "0",
+            "--training.lr_warmup_steps", "1", "--training.gradient_accumulation_steps", str(ACCUM_STEPS),
+            "--training.steps_save_image", "100000", "--training.steps_save_model", "100000"]
+    saved_env = os.environ.get("R2DM_SYNTH_SCANS")
+    os.environ["R2DM_SYNTH_SCANS"] = str(B)
+    try:
+        runs = [_train_cli(torch, argv + ["--training.num_steps", str(ACCUM_MICRO_STEPS)])]
+        first = load_checkpoint(ckpt)
+        runs.append(_train_cli(torch, argv + ["--training.num_steps", str(ACCUM_MICRO_STEPS + 1),
+                                              "--training.resume", ckpt]))
+        second = load_checkpoint(ckpt)
+    finally:
+        if saved_env is None:
+            os.environ.pop("R2DM_SYNTH_SCANS")
+        else:
+            os.environ["R2DM_SYNTH_SCANS"] = saved_env
+    for (seconds, launches), steps in zip(runs, (ACCUM_MICRO_STEPS, 1)):
+        expected = {"fused_group_norm_silu": 50 * steps, "fused_act_ringconv": 96 * steps}
+        print(f"python -m r2dm_tpu_torch.train, k={ACCUM_STEPS}, {steps} micro-steps b{B}: {seconds:.3f} s, "
+              f"launches {json.dumps(launches)} (expected {json.dumps(expected)})")
+        if launches != expected:
+            raise AssertionError(f"accumulating train launches {launches} != {expected}")
+
+    def counts(c):
+        o = c["opt_state"]
+        return (c["global_step"], int(o["mini_step"]), int(o["gradient_step"]),
+                int(o["inner_opt_state"]["1"]["0"]["count"]), int(o["inner_opt_state"]["1"]["2"]["count"]))
+
+    got = [counts(first), counts(second)]
+    acc = [max(float(np.abs(a).max()) for a in _leaves(c["opt_state"]["acc_grads"])) for c in (first, second)]
+    print(f"accumulation checkpoints: (step, mini_step, gradient_step, adam count, schedule count) {got}; "
+          f"max |acc_grads| {acc}")
+    if got != [(3, 1, 1, 1, 1), (4, 0, 2, 2, 2)] or not (acc[0] > 0 and acc[1] == 0):
+        raise AssertionError(f"accumulation state {got}, running mean {acc}")
+    leaves = _leaves(second["weights"]) + _leaves(second["opt_state"])
+    if not all(np.isfinite(np.asarray(a)).all() for a in leaves):
+        raise AssertionError("the accumulating run left non-finite weights or optimizer state")
+    return {"seconds": [r[0] for r in runs], "launches_per_micro_step": {k: v // ACCUM_MICRO_STEPS
+                                                                        for k, v in runs[0][1].items()}}
+
+
+def phase_grad_bf16(torch, ddpm):
+    """One config-H b8 train step with bf16 gradients through the kernel
+    path and through the plain path (gradient relative L2, launch counts),
+    then the step's time and peak memory beside the fp32-gradient step's."""
+    import copy
+
+    from r2dm_tpu_torch import config as config_lib
+    from r2dm_tpu_torch import ops
+    from r2dm_tpu_torch.models import layers
+    from r2dm_tpu_torch.training import EMAConfig, init_train_state, make_optimizer, make_train_step
+
+    model, diffusion = ddpm.model.train(), ddpm.diffusion
+    g = torch.Generator("cuda").manual_seed(4)
+    x_0 = torch.rand((B, 64, 1024, 2), generator=g, device="cuda") * 2 - 1
+    steps = torch.rand((B,), generator=g, device="cuda")
+    noise = torch.randn((B, 64, 1024, 2), generator=g, device="cuda")
+
+    def trainer(grad_bf16: bool, lr: float):
+        m = copy.deepcopy(model)
+        cfg = config_lib.TrainingConfig(grad_bf16=grad_bf16, lr=lr, lr_warmup_steps=0)
+        optimizer, scheduler = make_optimizer(m.parameters(), cfg)
+        state = init_train_state(m, optimizer, scheduler)
+        step = make_train_step(diffusion, optimizer, scheduler, EMAConfig(update_after_step=0, update_every=1),
+                               grad_dtype=torch.bfloat16 if grad_bf16 else None)
+        return state, step
+
+    def grads():  # lr 0: the step's gradients, clipped, on the unchanged weights
+        state, step = trainer(True, 0.0)
+        ops.reset_launch_counts()
+        metrics = step(state, x_0, steps=steps, noise=noise)
+        torch.cuda.synchronize()
+        flat = torch.cat([p.grad.flatten() for p in state.model.parameters()])
+        return metrics, _launches(ops), flat
+
+    metrics, launches, grad_k = grads()
+    saved = {n: getattr(layers, n) for n in ("fused_group_norm_silu", "fused_act_ringconv")}
+    try:
+        layers.fused_group_norm_silu = ops.gn_silu.fused_group_norm_silu_plain
+        layers.fused_act_ringconv = ops.act_ringconv.act_ringconv_plain
+        metrics_p, _, grad_p = grads()
+    finally:
+        for n, fn in saved.items():
+            setattr(layers, n, fn)
+    rel_grad = ((grad_k - grad_p).norm() / grad_p.norm()).item()
+    rel_loss = ((metrics["loss"] - metrics_p["loss"]).abs() / metrics_p["loss"].abs()).item()
+    print(f"grad_bf16 step b{B}, kernel path vs plain path: loss {metrics['loss'].item():.6f} vs "
+          f"{metrics_p['loss'].item():.6f} (relative {rel_loss:.3e}), gradient relative L2 {rel_grad:.3e} "
+          f"(limit {TRAIN_REL_L2}); launches {json.dumps(launches)}")
+    if launches != {"fused_group_norm_silu": 50, "fused_act_ringconv": 96}:
+        raise AssertionError(f"one grad_bf16 step launched {launches}, expected 50 GN and 96 conv")
+    if not (math.isfinite(rel_grad) and rel_loss <= TRAIN_REL_L2 and rel_grad <= TRAIN_REL_L2):
+        raise AssertionError(f"grad_bf16 kernel path vs plain path: loss {rel_loss}, gradient {rel_grad}")
+    del grad_k, grad_p
+
+    timing = {}
+    for name, bf16 in (("fp32 gradients", False), ("bf16 gradients", True)):
+        state, step = trainer(bf16, 1e-4)
+        for _ in range(2):  # warm-up: AdamW's state, the allocator's pools
+            step(state, x_0, steps=steps, noise=noise)
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        ms = []
+        for _ in range(5):
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            step(state, x_0, steps=steps, noise=noise)
+            end.record()
+            torch.cuda.synchronize()
+            ms.append(start.elapsed_time(end))
+        timing[name] = {"median_step_ms": sorted(ms)[len(ms) // 2], "step_ms": ms,
+                        "peak_bytes": torch.cuda.max_memory_allocated() - base}
+        del state, step
+    print(f"train step b{B} (CUDA events, 2 warm-up steps, 5 timed): " + json.dumps(timing))
+    return {"rel_grad": rel_grad, "launches": launches, "timing": timing}
+
+
+RANK_SCRIPT = r"""
+import datetime, json, os, sys
+import torch
+
+rank, world, rendezvous, jobs = int(sys.argv[1]), int(sys.argv[2]), sys.argv[3], json.loads(sys.argv[4])
+sys.modules["torch.utils.tensorboard"] = None  # the JSONL sink alone
+os.environ.update(RANK=str(rank), WORLD_SIZE=str(world), LOCAL_RANK="0")
+torch.distributed.init_process_group("gloo", init_method="file://" + rendezvous, rank=rank, world_size=world,
+                                     timeout=datetime.timedelta(seconds=90))
+import chip_smoke  # on PYTHONPATH, the checkout's root
+
+results = []
+for job in jobs:  # each module's main in turn, in its working directory, under the one group
+    os.chdir(job["cwd"])
+    os.environ.update(job["env"])
+    results.append(chip_smoke.counted_main(torch, job["module"], job["argv"]))
+torch.distributed.destroy_process_group()
+print("RANK_RESULT " + json.dumps(results), flush=True)
+"""
+
+
+def counted_main(torch, module: str, argv: list) -> dict:
+    """``module``'s main on ``argv`` in this process with the launch counters
+    zeroed before and read after; the train module's loss of each step is
+    recorded (this rank's rows)."""
+    import importlib
+
+    from r2dm_tpu_torch import ops
+
+    mod = importlib.import_module(module)
+    losses = []
+    saved = getattr(mod, "make_train_step", None)
+    if module.endswith(".train"):
+        def recording(*args, **kwargs):
+            step = saved(*args, **kwargs)
+
+            def counted(*a, **k):
+                out = step(*a, **k)
+                losses.append(float(out["loss"]))
+                return out
+
+            return counted
+
+        mod.make_train_step = recording
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    t0 = time.time()
+    try:
+        rc = mod.main(argv) if module.endswith(".train") else mod.main(mod.parse_args(argv))
+        torch.cuda.synchronize()
+    finally:
+        if saved is not None:
+            mod.make_train_step = saved
+    return {"module": module, "rc": rc, "seconds": time.time() - t0, "losses": losses,
+            "peak_bytes": torch.cuda.max_memory_allocated(), "launches": _launches(ops)}
+
+
+def _two_ranks(work: str, jobs_by_rank: list) -> list:
+    """Rank r's ``jobs_by_rank[r]`` ({module, argv, cwd, env} each, run in
+    turn) in two processes on this card, each calling init_process_group("gloo") with
+    RANK, WORLD_SIZE=2 and LOCAL_RANK=0 and then each module's main; every
+    rank's list of ``counted_main`` results. Raises when a rank fails or
+    the pair passes RANK_TIMEOUT_S (both are then killed)."""
+    run_dir = os.path.join(work, "ranks")
+    os.makedirs(run_dir)
+    script = os.path.join(run_dir, "rank.py")
+    with open(script, "w") as f:
+        f.write(RANK_SCRIPT)
+    repo = os.path.dirname(os.path.abspath(__file__))
+    env = {**os.environ, "PYTHONPATH": repo}
+    logs = [os.path.join(run_dir, f"rank{r}.log") for r in range(2)]
+    procs = []
+    for r in range(2):
+        with open(logs[r], "w") as log:
+            procs.append(subprocess.Popen(
+                [sys.executable, script, str(r), "2", os.path.join(run_dir, "rendezvous"), json.dumps(jobs_by_rank[r])],
+                cwd=repo, env=env, stdout=log, stderr=subprocess.STDOUT))
+    deadline = time.time() + RANK_TIMEOUT_S
+    try:
+        for p in procs:
+            p.wait(timeout=max(1.0, deadline - time.time()))
+    except subprocess.TimeoutExpired:
+        pass
+    finally:
+        hung = [r for r, p in enumerate(procs) if p.poll() is None]
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    outs = []
+    for path in logs:
+        with open(path) as f:
+            outs.append(f.read())
+    if hung:
+        raise AssertionError(f"ranks {hung} passed the {RANK_TIMEOUT_S} s deadline:\n"
+                             + "\n".join(o[-2000:] for o in outs))
+    results = []
+    for r, (p, out) in enumerate(zip(procs, outs)):
+        lines = [ln for ln in out.splitlines() if ln.startswith("RANK_RESULT ")]
+        if p.returncode != 0 or not lines:
+            raise AssertionError(f"rank {r} exited {p.returncode}:\n{out[-4000:]}")
+        results.append(json.loads(lines[-1][len("RANK_RESULT "):]))
+    return results
+
+
+def phase_two_ranks(torch, tmp, eval_out, card):
+    """The data axis as two gloo ranks sharing this card (a correctness
+    check: they compete for one card, so their times are no scaling
+    number), each path against one rank; then one rank under NCCL."""
+    import socket
+
+    import numpy as np
+
+    from r2dm_tpu_torch import config as config_lib
+    from r2dm_tpu_torch.checkpoint import load_checkpoint
+    from r2dm_tpu_torch.inference import build_model
+    from r2dm_tpu_torch.utils.weights import jax_from_state_dict
+
+    work = os.path.join(tmp, "data_axis")
+    os.makedirs(work)
+    steps = 4
+    out = {"card": card}
+
+    def train_argv(out_dir, n):
+        return ["--data.dataset", "synthetic", "--training.output_dir", out_dir, "--training.seed", "0",
+                "--training.num_steps", str(n), "--training.lr_warmup_steps", "1",
+                "--training.steps_save_image", "100000", "--training.steps_save_model", "100000"]
+
+    # one rank in this process: the trainer for 4 steps at b8, then under
+    # NCCL (torchrun's environment for one rank) for 2
+    one_dir, two_dir, nccl_dir = (os.path.join(work, d) for d in ("train1", "train2", "train_nccl"))
+    saved_env = {k: os.environ.get(k) for k in ("R2DM_SYNTH_SCANS", "RANK", "WORLD_SIZE", "LOCAL_RANK",
+                                                "MASTER_ADDR", "MASTER_PORT")}
+    try:
+        os.environ["R2DM_SYNTH_SCANS"] = str(B)
+        one = counted_main(torch, "r2dm_tpu_torch.train", train_argv(one_dir, steps))
+        with socket.socket() as sock:  # a free port on this machine for the rendezvous
+            sock.bind(("127.0.0.1", 0))
+            port = sock.getsockname()[1]
+        os.environ.update(RANK="0", WORLD_SIZE="1", LOCAL_RANK="0", MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port))
+        nccl = counted_main(torch, "r2dm_tpu_torch.train", train_argv(nccl_dir, 2))
+    finally:
+        for k, v in saved_env.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+    # two ranks: the trainer (global b8, b4 a rank), sample_and_save (phase
+    # 9's 16 samples, the seeds strided) and evaluate (phase 9's JSON, the
+    # extraction split), each rank with its own working directory for the
+    # real-set cache
+    samples = os.path.join(work, "samples")
+    cwds = [os.path.join(work, f"rank{r}") for r in range(2)]
+    for d in cwds:
+        os.makedirs(d)
+    json_dir = os.path.dirname(eval_out["samples"])
+    before = set(os.listdir(json_dir))
+    jobs = [
+        {"module": "r2dm_tpu_torch.train", "argv": train_argv(two_dir, steps), "env": {"R2DM_SYNTH_SCANS": str(B)}},
+        {"module": "r2dm_tpu_torch.sample_and_save", "env": {},
+         "argv": ["--ckpt", eval_out["ckpt"], "--output_dir", samples, "--batch_size", str(B), "--num_samples",
+                  str(2 * B), "--num_steps", "4", "--mode", "ddim"]},
+        {"module": "r2dm_tpu_torch.evaluate", "env": {"R2DM_SYNTH_SCANS": str(2 * B)},
+         "argv": ["--ckpt", eval_out["ckpt"], "--sample_dir", eval_out["samples"], "--batch_size", str(B),
+                  "--rangenet_tar", eval_out["tar"], "--pointnet_ckpt", eval_out["pth"]]},
+    ]
+    t0 = time.time()
+    ranks = _two_ranks(work, [[{**job, "cwd": cwds[r]} for job in jobs] for r in range(2)])
+    seconds = time.time() - t0
+    train2, sample2, eval2 = ([rank[i] for rank in ranks] for i in range(3))
+
+    # ---- the trainer
+    expected = {"fused_group_norm_silu": 50 * steps, "fused_act_ringconv": 96 * steps}
+    launches = [r["launches"] for r in train2]
+    if one["launches"] != expected or launches != [expected, expected]:
+        raise AssertionError(f"train launches: one rank {one['launches']}, two ranks {launches}; each {expected}")
+    global_loss = [(a + b) / 2 for a, b in zip(train2[0]["losses"], train2[1]["losses"])]
+    loss_rel = [abs(a - b) / abs(b) for a, b in zip(global_loss, one["losses"])]
+    with torch.random.fork_rng(devices=[]):  # the trainer's initial weights, from its seed
+        torch.manual_seed(0)
+        w0 = jax_from_state_dict(build_model(config_lib.Config(), dtype=torch.bfloat16, device="cpu").state_dict())
+    w = [load_checkpoint(os.path.join(d, "checkpoint.msgpack"))["weights"] for d in (one_dir, two_dir)]
+    start, w1, w2 = (np.concatenate([np.asarray(a, np.float64).ravel() for a in _leaves(t["params"])])
+                     for t in (w0, w[0], w[1]))
+    upd_rel = float(np.linalg.norm(w2 - w1) / np.linalg.norm(w1 - start))
+    out["train"] = {"one_rank_loss": one["losses"], "two_rank_loss": global_loss, "loss_rel": loss_rel,
+                    "update_rel_l2": upd_rel, "max_abs_weight_diff": float(np.abs(w2 - w1).max()),
+                    "launches_per_rank_per_step": {k: v // steps for k, v in launches[0].items()},
+                    "seconds": [one["seconds"], train2[0]["seconds"]],
+                    "peak_bytes": [one["peak_bytes"], train2[0]["peak_bytes"]]}
+    print(f"two ranks on one card, train {steps} steps at global b{B} (b{B // 2} a rank) against one rank "
+          f"({card}; ranks share the card: a correctness check, no scaling number): {json.dumps(out['train'])}")
+    if not (len(global_loss) == steps and max(loss_rel) <= TWO_RANK_LOSS_REL and upd_rel <= TWO_RANK_UPDATE_REL):
+        raise AssertionError(f"two ranks against one: loss {loss_rel} (limit {TWO_RANK_LOSS_REL}), "
+                             f"update {upd_rel} (limit {TWO_RANK_UPDATE_REL})")
+
+    # ---- sample_and_save
+    files = sorted(os.listdir(samples))
+    gaps = [float(np.abs(np.load(os.path.join(samples, f))["sample"]
+                         - np.load(os.path.join(eval_out["samples"], f))["sample"]).max()) for f in files]
+    expected = {"fused_group_norm_silu": 50 * 4, "fused_act_ringconv": 48 * 4}  # 8 seeds a rank, 4 steps, one batch
+    out["sample_and_save"] = {"files": len(files), "max_abs_diff_vs_one_rank": max(gaps),
+                              "launches": [r["launches"] for r in sample2], "seconds": sample2[0]["seconds"]}
+    print(f"two ranks, sample_and_save {2 * B} samples ({card}): {json.dumps(out['sample_and_save'])}")
+    if files != sorted(os.listdir(eval_out["samples"])) or [r["launches"] for r in sample2] != [expected] * 2 \
+            or not max(gaps) <= TWO_RANK_SAMPLE_ATOL:
+        raise AssertionError(f"two-rank sample_and_save: {out['sample_and_save']} (limit {TWO_RANK_SAMPLE_ATOL})")
+
+    # ---- evaluate
+    [new] = [f for f in set(os.listdir(json_dir)) - before if f.endswith(".json")]
+    with open(os.path.join(json_dir, new)) as f:
+        got = json.load(f)
+    ref = eval_out["json"]
+    gap = max(abs(got[s][k] - v) / max(abs(v), 1e-30) for s in ("img", "pts", "bev") for k, v in ref[s].items())
+    caches = [[f for f in os.listdir(d) if f.startswith("real_set_")] for d in cwds]
+    out["evaluate"] = {"max_rel_diff_vs_one_rank": gap, "info": got["info"], "caches_by_rank": caches,
+                       "seconds": eval2[0]["seconds"]}
+    print(f"two ranks, evaluate ({card}): {json.dumps(out['evaluate'])}")
+    if not (gap <= 1e-6 and got["info"] == ref["info"] and len(caches[0]) == 1 and not caches[1]
+            and eval2[0]["launches"] == eval2[1]["launches"] == {"fused_group_norm_silu": 0, "fused_act_ringconv": 0}):
+        raise AssertionError(f"two-rank evaluate: {out['evaluate']}")
+
+    # ---- one rank under NCCL
+    expected = {"fused_group_norm_silu": 50 * 2, "fused_act_ringconv": 96 * 2}
+    ck = load_checkpoint(os.path.join(nccl_dir, "checkpoint.msgpack"))
+    gap = max(abs(a - b) / abs(b) for a, b in zip(nccl["losses"], one["losses"]))
+    out["nccl"] = {"launches": nccl["launches"], "losses": nccl["losses"], "loss_rel_vs_one_rank": gap,
+                   "step": ck["global_step"], "seconds": nccl["seconds"]}
+    print(f"one rank under NCCL, train 2 steps b{B} ({card}): {json.dumps(out['nccl'])}")
+    if nccl["launches"] != expected or ck["global_step"] != 2 or len(nccl["losses"]) != 2 or not gap <= 1e-6:
+        raise AssertionError(f"NCCL one-rank train: {out['nccl']}, expected {expected} and the one-rank losses")
+    out["two_rank_seconds"] = seconds
+    return out
+
+
+def phase_reflow(torch, main_out, tmp, card):
+    """``r2dm_tpu_torch.reflow`` (the entry point ``python -m`` runs) on the
+    random config-H network as a flow checkpoint: exact launch counts of the
+    teacher and of the fine-tune, seconds and peak memory; the result loads
+    through setup_model and samples one finite euler step."""
+    import contextlib
+    import io
+
+    from r2dm_tpu_torch import ops, reflow, setup_model
+
+    work = os.path.join(tmp, "reflow")
+    os.makedirs(work)
+    ckpt = torch.load(main_out["ckpt"], map_location="cpu", weights_only=False)
+    ckpt["cfg"]["diffusion"]["timestep_type"] = "flow"
+    src = os.path.join(work, "r2dm-h-random-flow.pth")
+    torch.save(ckpt, src)
+    del ckpt
+    dst = os.path.join(work, "reflowed.msgpack")
+    counts = {}
+    real_step = reflow.reflow_step
+
+    def counted_step(*args, **kwargs):  # the teacher's launches end where the fine-tune begins
+        if "teacher" not in counts:
+            torch.cuda.synchronize()
+            counts["teacher"] = _launches(ops)
+            counts["teacher_s"] = time.time() - t0
+            ops.reset_launch_counts()
+        return real_step(*args, **kwargs)
+
+    argv = ["--ckpt", src, "--out", dst] + [f"--{k}={v}" for k, v in REFLOW_ARGS.items()]
+    text = io.StringIO()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    reflow.reflow_step = counted_step
+    ops.reset_launch_counts()
+    t0 = time.time()
+    try:
+        with contextlib.redirect_stdout(text):
+            rc = reflow.main(argv)
+        torch.cuda.synchronize()
+    finally:
+        reflow.reflow_step = real_step
+    seconds = time.time() - t0
+    counts["finetune"] = _launches(ops)
+    teacher_forwards = REFLOW_ARGS["num_pairs"] // REFLOW_ARGS["batch_size"] * REFLOW_ARGS["teacher_steps"]
+    expected = {"teacher": {"fused_group_norm_silu": 50 * teacher_forwards, "fused_act_ringconv": 48 * teacher_forwards},
+                "finetune": {"fused_group_norm_silu": 50 * REFLOW_ARGS["train_steps"],
+                             "fused_act_ringconv": 96 * REFLOW_ARGS["train_steps"]}}
+    peak = torch.cuda.max_memory_allocated() - base
+    ddpm, _, cfg = setup_model(dst, dtype=torch.bfloat16, device="cuda")
+    x = ddpm.sample(B, 1, mode="euler", seeds=range(B))
+    finite = bool(torch.isfinite(x).all())
+    losses = [ln for ln in text.getvalue().splitlines() if ln.startswith("reflow step")]
+    result = {"seconds": seconds, "teacher_seconds": counts.get("teacher_s"), "peak_bytes": peak,
+              "launches": {k: counts.get(k) for k in ("teacher", "finetune")}, "losses": losses,
+              "sample_shape": list(x.shape), "sample_finite": finite, "timestep_type": cfg.diffusion.timestep_type}
+    print(f"reflow {json.dumps(REFLOW_ARGS)} at config H ({card}): {json.dumps(result)}")
+    if rc != 0 or result["launches"] != expected or not finite or tuple(x.shape) != (B, 2, 64, 1024) \
+            or cfg.diffusion.timestep_type != "flow":
+        raise AssertionError(f"reflow: {result}, expected launches {expected}")
+    return result
+
+
+
 def main() -> int:
     try:
         import torch
@@ -1289,23 +1754,30 @@ def main() -> int:
         return 1
     gn_err = phases.run("kernel 1 against its plain version", phase_gn, torch)
     conv_err = phases.run("kernel 2 against its plain version", phase_conv, torch)
-    eval_out = None
+    eval_out = accum = two_ranks = reflowed = None
     with tempfile.TemporaryDirectory() as tmp:
         main_out = phases.run("main path", phase_main, torch, tmp)
         if main_out is not None:
             phases.run("serving paths", phase_serving, torch, main_out, tmp)
         phases.run("training: backward of both kernels", phase_train_backward, torch)
         train_cli = phases.run("training: python -m r2dm_tpu_torch.train", phase_train_cli, torch, tmp)
+        accum = phases.run("training: gradient accumulation", phase_accum_cli, torch, tmp)
         if main_out is not None:
             eval_out = phases.run("evaluation: sample_and_save, evaluate, completion_demo", phase_eval, torch,
                                   main_out, tmp, card)
             if eval_out is not None:
                 phases.run("evaluation: extractor times, memory, precision", phase_eval_measure, torch, eval_out,
                            card)
+                two_ranks = phases.run("data axis: two ranks on one card, one rank under NCCL", phase_two_ranks,
+                                       torch, tmp, eval_out, card)
+            reflowed = phases.run("reflow", phase_reflow, torch, main_out, tmp, card)
     step_out = phases.run("training: kernel path against plain path", phase_train_step, torch)
-    train_time = None
+    train_time = bf16 = None
     if step_out is not None:
-        train_time = phases.run("training: step time and memory", phase_train_time, torch, step_out.pop("ddpm"))
+        ddpm = step_out.pop("ddpm")
+        train_time = phases.run("training: step time and memory", phase_train_time, torch, ddpm)
+        bf16 = phases.run("training: bf16 gradients", phase_grad_bf16, torch, ddpm)
+        del ddpm
     if main_out is not None and gn_err is not None and conv_err is not None and train_cli is not None:
         errs = {**gn_err, "fused_act_ringconv": conv_err}
         rows = phases.run("timing", phase_time, torch, main_out["launches"], train_cli["launches"], errs)
@@ -1316,9 +1788,15 @@ def main() -> int:
         for line in phases.failed:
             log(f"FAILED {line}")
         return 1
-    for row in rows:  # the evaluation entry points' own counts
+    for row in rows:  # the other paths' own counts, each read right after its run
+        name = row["name"]
         for path, counts in eval_out["launches"].items():
-            row[f"{path}_launches"] = counts[row["name"]]
+            row[f"{path}_launches"] = counts[name]
+        row["accum_train_launches_per_micro_step"] = accum["launches_per_micro_step"][name]
+        row["grad_bf16_step_launches"] = bf16["launches"][name]
+        row["two_rank_train_launches_per_rank_per_step"] = two_ranks["train"]["launches_per_rank_per_step"][name]
+        row["reflow_teacher_launches"] = reflowed["launches"]["teacher"][name]
+        row["reflow_finetune_launches"] = reflowed["launches"]["finetune"][name]
     print(f"ddim16_b{B}_img_per_s {main_out['ddim16_img_s']:.4f}")
     print(f"train_step_b{B}_median_ms {train_time['median_step_ms']:.3f} "
           f"({train_time['img_per_s']:.3f} img/s, peak {train_time['peak_bytes'] / 1e9:.3f} GB)")

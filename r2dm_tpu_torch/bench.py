@@ -2,6 +2,7 @@
 64x1024 on one card.
 
     python -m r2dm_tpu_torch.bench [--batch 256] [--steps 256] [--trials 4]
+    torchrun --nproc_per_node N -m r2dm_tpu_torch.bench [--mesh N] ...   # on N cards
 
 Prints one JSON line with img/s and MFU. The protocol of the repo's
 ``bench.py``: batch 256, 256 DDPM steps, the continuous-time cosine schedule,
@@ -14,6 +15,12 @@ budget ``$R2DM_BENCH_BUDGET_S`` (default 900 s) covers another, at most
 seconds. A second measurement, ``ddim32_*``,
 times 32-step DDIM chains if the budget allows. The first chain's samples
 must be finite and not constant.
+
+Under ``torchrun`` every rank runs the protocol on its own card, and rank 0
+prints one line with the aggregate img/s (the ranks' sum) beside each
+rank's: the counterpart of the JAX ``bench.py --mesh N``, which shards the
+batch over N devices and reports aggregate img/s. ``--mesh`` ('N' or
+'Nx1') must equal the world size; a width axis exits.
 
 MFU is achieved FLOP/s over the H100 SXM's dense bf16 tensor rate (989
 TFLOP/s), with the FLOP count of a config-H forward computed from the
@@ -35,6 +42,7 @@ import time
 import torch
 
 from . import config as config_lib
+from . import parallel
 from .inference import DDPM, build_diffusion, build_model, model_coords
 from .models.efficient_unet import EfficientUNet
 from .models.layers import RingConv
@@ -129,9 +137,42 @@ def _timed(ddpm: DDPM, batch: int, steps: int, mode: str, seed: int):
     return start.elapsed_time(end) / 1e3, x
 
 
-def main(batch: int = BATCH, steps: int = STEPS, trials: int = MAX_TRIALS, ddim_steps: int = DDIM_STEPS) -> dict:
+def aggregate(results: list[dict]) -> dict:
+    """One line from every rank's result: rank 0's, with ``value`` and
+    ``ddim*_img_per_s`` the ranks' sums, MFU against the ranks' summed peak,
+    and each rank's img/s beside them. One rank's result is returned as it
+    is."""
+    if len(results) == 1:
+        return results[0]
+    out = dict(results[0])
+    out["ranks"] = len(results)
+    out["per_rank_img_per_s"] = [r["value"] for r in results]
+    out["value"] = sum(out["per_rank_img_per_s"])
+    for key in ("mfu", "mfu_all"):
+        out[key] = sum(r[key] for r in results) / len(results)
+    for key in [k for k in out if k.startswith("ddim") and k.endswith("_img_per_s")]:
+        per_rank = [r.get(key) for r in results]
+        out[f"per_rank_{key}"] = per_rank
+        out[key] = sum(per_rank) if None not in per_rank else None
+    return out
+
+
+def main(batch: int = BATCH, steps: int = STEPS, trials: int = MAX_TRIALS, ddim_steps: int = DDIM_STEPS,
+         mesh: str = "") -> dict:
     if not torch.cuda.is_available():
         raise SystemExit("r2dm_tpu_torch.bench: no CUDA device; the benchmark runs on an NVIDIA card")
+    world = parallel.init("cuda")
+    try:
+        parallel.parse_mesh(mesh, world.size)
+        result = aggregate(parallel.all_gather_objects(world, _protocol(batch, steps, trials, ddim_steps)))
+    finally:
+        world.close()
+    if world.is_main:
+        print(json.dumps(result), flush=True)
+    return result
+
+
+def _protocol(batch: int, steps: int, trials: int, ddim_steps: int) -> dict:
     budget_s = float(os.environ.get("R2DM_BENCH_BUDGET_S", "900"))
     t_start = time.time()
     build.build_all()
@@ -190,7 +231,6 @@ def main(batch: int = BATCH, steps: int = STEPS, trials: int = MAX_TRIALS, ddim_
         result[f"ddim{ddim_steps}_img_per_s"] = batch / statistics.median(dts)
         result[f"ddim{ddim_steps}_seconds_median"] = statistics.median(dts)
         result[f"ddim{ddim_steps}_trials"] = len(dts)
-    print(json.dumps(result), flush=True)
     return result
 
 
@@ -200,5 +240,6 @@ if __name__ == "__main__":
     parser.add_argument("--steps", type=int, default=STEPS, help="DDPM steps (protocol: 256)")
     parser.add_argument("--trials", type=int, default=MAX_TRIALS, help="most timed chains")
     parser.add_argument("--ddim_steps", type=int, default=DDIM_STEPS, help="steps of the DDIM measurement")
+    parser.add_argument("--mesh", type=str, default="", help="'N' data axis: must equal the torchrun world size")
     a = parser.parse_args()
-    main(a.batch, a.steps, a.trials, a.ddim_steps)
+    main(a.batch, a.steps, a.trials, a.ddim_steps, a.mesh)

@@ -264,49 +264,78 @@ def optax_opt_state(state) -> dict:
     """The state of AdamW in the layout optax gives ``make_optimizer``'s
     chain (clip, then adamw: scale_by_adam, add_decayed_weights,
     scale_by_schedule): ``{'0': {}, '1': {'0': {count, mu, nu}, '1': {},
-    '2': {count}}}``, mu and nu in the flax params tree, the counts int32.
-    Before the first update the moments are zeros."""
+    '2': {count}}}``, mu and nu in the flax params tree, the counts int32
+    and equal to the updates done. Before the first update the moments are
+    zeros. With ``state.accumulation_steps`` > 1 that state sits inside
+    optax ``MultiSteps``' ``{mini_step, gradient_step, inner_opt_state,
+    acc_grads, skip_state: {}}``, the running mean in the params tree."""
     mu, nu = {}, {}
     for name, p in state.model.named_parameters():
         st = state.optimizer.state.get(p, {})
         mu[name] = st.get("exp_avg", torch.zeros_like(p))
         nu[name] = st.get("exp_avg_sq", torch.zeros_like(p))
-    count = np.asarray(state.step, np.int32)
-    return {"0": {}, "1": {
+    count = np.asarray(state.updates, np.int32)
+    adam = {"0": {}, "1": {
         "0": {"count": count, "mu": jax_from_state_dict(mu)["params"], "nu": jax_from_state_dict(nu)["params"]},
         "1": {},
         "2": {"count": count},
     }}
+    if state.accumulation_steps == 1:
+        return adam
+    acc = dict(zip((n for n, _ in state.model.named_parameters()), state.acc_grads))
+    return {
+        "mini_step": np.asarray(state.mini_step, np.int32),
+        "gradient_step": count,
+        "inner_opt_state": adam,
+        "acc_grads": jax_from_state_dict(acc)["params"],
+        "skip_state": {},
+    }
 
 
 def load_opt_state(state, stored: dict) -> None:
     """Put an optax-layout AdamW state (``optax_opt_state``'s, or the JAX
     package's ``make_optimizer`` state as a checkpoint holds it) into
-    ``state.optimizer``."""
-    adam = stored["1"]["0"]
+    ``state.optimizer``, and set ``state.updates`` to its count; a
+    ``MultiSteps`` state also sets ``state.mini_step`` and the running mean.
+    A layout that does not match ``state.accumulation_steps`` raises, as
+    flax's ``from_state_dict`` does in the JAX trainer."""
+    multi = "inner_opt_state" in stored
+    if multi != (state.accumulation_steps > 1):
+        raise ValueError(
+            f"the checkpoint's optimizer state is {'an optax MultiSteps' if multi else 'a plain AdamW'} state, "
+            f"but this run accumulates over gradient_accumulation_steps={state.accumulation_steps}: "
+            "resume with the setting the checkpoint was written with"
+        )
+    adam = (stored["inner_opt_state"] if multi else stored)["1"]["0"]
     count = int(np.asarray(adam["count"]))
     mu = state_dict_from_jax({"params": adam["mu"]})
     nu = state_dict_from_jax({"params": adam["nu"]})
-    for name, p in state.model.named_parameters():
+    acc = state_dict_from_jax({"params": stored["acc_grads"]}) if multi else None
+    for i, (name, p) in enumerate(state.model.named_parameters()):
         state.optimizer.state[p] = {
             "step": torch.tensor(float(count), dtype=torch.float32),
             "exp_avg": mu[name].to(device=p.device, dtype=p.dtype),
             "exp_avg_sq": nu[name].to(device=p.device, dtype=p.dtype),
         }
+        if multi:
+            state.acc_grads[i].copy_(acc[name])
+    state.updates = count
+    if multi:
+        state.mini_step = int(np.asarray(stored["mini_step"]))
 
 
-def save_checkpoint(path: str, cfg: dict, state) -> str:
-    """Write ``state`` (a ``training.TrainState``) as the JAX package's
-    checkpoint (r2dm_tpu/checkpoint.py:29-51): ``{cfg: JSON, step, weights,
-    ema_weights, opt_state}``, the weights in the flax ``{'params',
-    'buffers': {'coords'}}`` layout. Atomic: the bytes go to ``path.tmp``,
-    which then replaces ``path``."""
+def write_checkpoint(path: str, cfg: dict, weights: dict, ema_weights=None, opt_state=None, step: int = 0) -> str:
+    """Write the JAX package's checkpoint (r2dm_tpu/checkpoint.py:29-51):
+    ``{cfg: JSON, step, weights, ema_weights, opt_state}``, the weights as
+    flax ``{'params', 'buffers'}`` trees of arrays; a missing part is an
+    empty map, as there. Atomic: the bytes go to ``path.tmp``, which then
+    replaces ``path``."""
     payload = {
         "cfg": json.dumps(cfg),
-        "step": int(state.step),
-        "weights": jax_from_state_dict(state.model.state_dict()),
-        "ema_weights": jax_from_state_dict(state.ema_model.state_dict()),
-        "opt_state": optax_opt_state(state),
+        "step": int(step),
+        "weights": weights,
+        "ema_weights": ema_weights if ema_weights is not None else {},
+        "opt_state": opt_state if opt_state is not None else {},
     }
     data = packb(payload)
     os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
@@ -315,3 +344,15 @@ def save_checkpoint(path: str, cfg: dict, state) -> str:
         f.write(data)
     os.replace(tmp, path)
     return path
+
+
+def save_checkpoint(path: str, cfg: dict, state) -> str:
+    """Write ``state`` (a ``training.TrainState``) with ``write_checkpoint``:
+    the weights and EMA weights of its (unwrapped) modules in the flax
+    ``{'params', 'buffers': {'coords'}}`` layout, the optimizer state in
+    optax's (``optax_opt_state``)."""
+    return write_checkpoint(
+        path, cfg, jax_from_state_dict(state.model.state_dict()),
+        ema_weights=jax_from_state_dict(state.ema_model.state_dict()),
+        opt_state=optax_opt_state(state), step=state.step,
+    )

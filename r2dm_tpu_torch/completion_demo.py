@@ -4,6 +4,7 @@ write a figure.
 
     python -m r2dm_tpu_torch.completion_demo --ckpt ckpt.msgpack [--rangenet_tar darknet53.tar.gz]
     python -m r2dm_tpu_torch.completion_demo --device cpu ...   # on the CPU
+    torchrun --nproc_per_node N -m r2dm_tpu_torch.completion_demo ...   # the mask rows over N cards
 
 The port's counterpart of the repo's ``completion_demo.py`` (reference
 completion_demo.py:18-167): one scan of the test split, the masks full /
@@ -18,9 +19,12 @@ bird's-eye view, the completion's depth and reflectance, its labels
 (viridis by height, or the label colours). ``--few_step`` is the 8 x 4 x 1
 grid in bf16. On CUDA the network computes in bfloat16, the kernels' type.
 
+Under ``torchrun`` the four mask rows are split over the ranks (each row
+has its own seed, so a row does not depend on its rank) and gathered to
+rank 0, which labels them and writes the figure. ``--mesh`` ('N' or 'Nx1')
+must equal the world size and divide the four rows; a width axis exits.
 Not ported: ``--latency_layout`` (the W2C layout is a TPU-only re-lowering
-of the same network, ROADMAP.md North star) and ``--mesh`` (ROADMAP.md
-queue 1, parallelism); each exits with a message.
+of the same network, ROADMAP.md North star), which exits with a message.
 """
 
 from __future__ import annotations
@@ -31,6 +35,7 @@ import sys
 import numpy as np
 import torch
 
+from . import parallel
 from . import render as render_lib
 from .colormaps import VIRIDIS
 from .data import make_dataset, nearest_exact_resize
@@ -112,13 +117,18 @@ def main(args: argparse.Namespace) -> int:
         print("--latency_layout: the width-pair-merged (W2C) layout is a TPU-only re-lowering of the same "
               "network and is not ported (ROADMAP.md, North star)", file=sys.stderr)
         return 2
-    if args.mesh:
-        print("--mesh: completion over more than one device is not ported yet (ROADMAP.md queue 1, parallelism)",
-              file=sys.stderr)
-        return 2
+    world = parallel.init(args.device)
+    try:
+        return _run(args, world)
+    finally:
+        world.close()
+
+
+def _run(args: argparse.Namespace, world: parallel.World) -> int:
+    parallel.parse_mesh(args.mesh, world.size, batch_size=BATCH)
     if args.few_step:
         apply_few_step_preset(args)
-    device = torch.device(args.device)
+    device = world.device
     bf16 = args.bf16 or device.type == "cuda"
     ddpm, lidar, cfg = setup_model(args.ckpt, dtype=torch.bfloat16 if bf16 else None, device=device)
     lidar.data_format = "NHWC"
@@ -139,9 +149,14 @@ def main(args: argparse.Namespace) -> int:
     # --------------------------------------------------- corrupt, complete
     mask = torch.from_numpy(make_masks(rng, H, W)).to(device)
     x_in = mask * x_orig + (1 - mask) * -1.0
-    x_out = ddpm.repaint(known=x_in, mask=mask, num_steps=args.num_steps, num_resample_steps=args.num_resample_steps,
-                         jump_length=args.jump_length, seeds=list(range(BATCH)), data_format="NHWC", progress=True)
-    x_out = torch.clamp(x_out, -1, 1)
+    rows = np.array_split(np.arange(BATCH), world.size)[world.rank].tolist()
+    x_rows = ddpm.repaint(known=x_in[rows], mask=mask[rows], num_steps=args.num_steps,
+                          num_resample_steps=args.num_resample_steps, jump_length=args.jump_length,
+                          seeds=rows, data_format="NHWC", progress=world.is_main)
+    parts = parallel.gather_objects(world, x_rows.cpu())
+    if not world.is_main:
+        return 0
+    x_out = torch.clamp(torch.cat(parts).to(device), -1, 1)
 
     # ------------------------------------------- semantic labels (optional)
     labels = None
@@ -174,7 +189,7 @@ def parse_args(argv=None) -> argparse.Namespace:
     parser.add_argument("--seed", type=int, default=0)
     parser.add_argument("--sample_id", type=int, default=-1)
     parser.add_argument("--rangenet_tar", type=str, default=None)
-    parser.add_argument("--mesh", type=str, default="", help="not ported (ROADMAP.md queue 1, parallelism)")
+    parser.add_argument("--mesh", type=str, default="", help="'N' data axis: must equal the torchrun world size")
     parser.add_argument("--device", type=str, default="cuda", help="cuda (default) or cpu")
     return parser.parse_args(argv)
 

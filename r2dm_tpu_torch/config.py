@@ -140,7 +140,10 @@ def _add_dataclass_args(parser: argparse.ArgumentParser, cls, prefix: str) -> No
     for f in dataclasses.fields(cls):
         arg = f"--{prefix}.{f.name}"
         default = f.default
-        if isinstance(default, bool):
+        if default is None and "Tuple" in str(f.type):  # mesh_shape: None, or ints split on commas or spaces
+            parser.add_argument(arg, type=lambda s: None if s == "None" else tuple(
+                int(x) for x in s.replace(",", " ").split()), default=default)
+        elif isinstance(default, bool):
             parser.add_argument(arg, type=lambda s: s.lower() in ("1", "true", "yes"), default=default)
         elif isinstance(default, tuple):
             parser.add_argument(

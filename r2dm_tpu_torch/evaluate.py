@@ -4,6 +4,7 @@ BEV JSD/MMD.
     python -m r2dm_tpu_torch.evaluate --ckpt ckpt.msgpack --sample_dir samples \\
         --rangenet_tar darknet53.tar.gz --pointnet_ckpt cls_model_39.pth
     python -m r2dm_tpu_torch.evaluate --device cpu ...   # on the CPU
+    torchrun --nproc_per_node N -m r2dm_tpu_torch.evaluate ...   # on N cards
 
 The port's counterpart of the repo's ``evaluate.py`` (reference
 evaluate.py): the lidargen depth gate (0.5, 63) m, RangeNet-53 "lidargen"
@@ -21,8 +22,14 @@ The extractor weights are local files (nothing is downloaded): the official
 bonnetal ``darknet53.tar.gz`` (``--rangenet_tar``) and SpareNet's
 ``cls_model_39.pth`` (``--pointnet_ckpt``). ``--allow_random_extractors``
 runs the pipeline on random weights from fixed seeds (the metrics are then
-not comparable to published numbers). ``--mesh`` is not ported (ROADMAP.md
-queue 1, parallelism) and exits with a message.
+not comparable to published numbers).
+
+Under ``torchrun`` each rank extracts every world-th batch of ``--batch_size``
+scans; the features and histograms are gathered to rank 0 over the gloo side
+group in their original order, and rank 0 alone computes the distances,
+writes the JSON and the real-set cache (the counterpart of the JAX
+package's data-parallel extraction, evaluate.py:94-107). ``--mesh`` ('N' or
+'Nx1') must equal the world size; a width axis exits.
 """
 
 from __future__ import annotations
@@ -39,6 +46,7 @@ from pathlib import Path
 import numpy as np
 import torch
 
+from . import parallel
 from .data import make_dataset, nearest_exact_resize
 from .inference import load_config
 from .metrics import bev, distribution
@@ -134,21 +142,31 @@ def real_set_cache(args: argparse.Namespace, cfg) -> Path:
     return Path(f"real_set_torch_{ds_tag}_{cfg.data.projection}_{H}x{W}_{args.dataset}_{ext}.npz")
 
 
-def _features(extract, batches) -> dict:
+def _features(extract, batches, world: parallel.World) -> dict:
+    """The features of this rank's share of ``batches`` (a list of
+    callables, each making one batch): every world-th from its rank. On rank
+    0 the whole set in the original order, gathered over the side group;
+    None on the others."""
     keys = ("img_feats", "pts_feats", "bev_hists")
-    out = {k: [] for k in keys}
-    for imgs, mask in batches:
-        for k, v in zip(keys, extract(imgs, mask)):
-            out[k].append(v)
-    return {k: np.concatenate(v) for k, v in out.items()}
+    mine = [(i, extract(*batches[i]())) for i in range(world.rank, len(batches), world.size)]
+    parts = parallel.gather_objects(world, mine)
+    if parts is None:
+        return None
+    ordered = [f for _, f in sorted((p for part in parts for p in part), key=lambda p: p[0])]
+    return {k: np.concatenate([f[j] for f in ordered]) for j, k in enumerate(keys)}
 
 
 def main(args: argparse.Namespace) -> int:
-    if args.mesh:
-        print("--mesh: extraction over more than one device is not ported yet (ROADMAP.md queue 1, parallelism)",
-              file=sys.stderr)
-        return 2
-    device = torch.device(args.device)
+    world = parallel.init(args.device)
+    try:
+        return _run(args, world)
+    finally:
+        world.close()
+
+
+def _run(args: argparse.Namespace, world: parallel.World) -> int:
+    parallel.parse_mesh(args.mesh, world.size)
+    device = world.device
     cfg = load_config(args.ckpt)
     H, W = cfg.data.resolution
     extract = build_extractors(args, device)
@@ -156,43 +174,46 @@ def main(args: argparse.Namespace) -> int:
 
     # ------------------------------------------------------------ real set
     cache = real_set_cache(args, cfg)
-    if cache.exists():
-        print(f"found cached {cache}")
-        with np.load(cache) as f:
-            real = {k: f[k] for k in f.files}
+    if parallel.broadcast_object(world, cache.exists()):  # rank 0's answer, so every rank takes the same way
+        real = None
+        if world.is_main:
+            print(f"found cached {cache}")
+            with np.load(cache) as f:
+                real = {k: f[k] for k in f.files}
     else:
         dataset = make_dataset(cfg.data.dataset, args.data_root or cfg.data.data_root, args.dataset,
                                cfg.data.projection)
         n = len(dataset)
 
-        def real_batches():
-            for lo in range(0, n, args.batch_size):
-                planes = np.stack([dataset.planes(i) for i in range(lo, min(lo + args.batch_size, n))])
-                planes = nearest_exact_resize(torch.from_numpy(planes), (H, W)).numpy()  # [x, y, z, r, d, m]
-                depth = planes[..., 4:5]
-                mask = planes[..., 5:6] * gated(depth)
-                imgs = np.concatenate([depth, planes[..., 0:3], planes[..., 3:4]], axis=-1)
-                print(f"real [{lo + len(planes)}/{n}]", flush=True)
-                yield imgs.transpose(0, 3, 1, 2), mask.transpose(0, 3, 1, 2)
+        def real_batch(lo):
+            planes = np.stack([dataset.planes(i) for i in range(lo, min(lo + args.batch_size, n))])
+            planes = nearest_exact_resize(torch.from_numpy(planes), (H, W)).numpy()  # [x, y, z, r, d, m]
+            depth = planes[..., 4:5]
+            mask = planes[..., 5:6] * gated(depth)
+            imgs = np.concatenate([depth, planes[..., 0:3], planes[..., 3:4]], axis=-1)
+            print(f"real [{lo + len(planes)}/{n}]", flush=True)
+            return imgs.transpose(0, 3, 1, 2), mask.transpose(0, 3, 1, 2)
 
-        real = _features(extract, real_batches())
-        tmp = cache.with_suffix(f".{os.getpid()}.tmp.npz")
-        np.savez(tmp, **real)
-        os.replace(tmp, cache)
-    results["info"]["#real"] = len(real["pts_feats"])
+        real = _features(extract, [lambda lo=lo: real_batch(lo) for lo in range(0, n, args.batch_size)], world)
+        if world.is_main:
+            tmp = cache.with_suffix(f".{os.getpid()}.tmp.npz")
+            np.savez(tmp, **real)
+            os.replace(tmp, cache)
 
     # ------------------------------------------------------------- gen set
     paths = sorted(Path(args.sample_dir).glob("*.npz")) or sorted(Path(args.sample_dir).glob("*.pth"))
     paths = paths[:MAX_SCANS]
 
-    def gen_batches():
-        for lo in range(0, len(paths), args.batch_size):
-            imgs = np.stack([load_sample(p) for p in paths[lo:lo + args.batch_size]]).astype(np.float32)
-            mask = gated(imgs[:, 0:1])
-            print(f"gen [{lo + len(imgs)}/{len(paths)}]", flush=True)
-            yield imgs * mask, mask
+    def gen_batch(lo):
+        imgs = np.stack([load_sample(p) for p in paths[lo:lo + args.batch_size]]).astype(np.float32)
+        mask = gated(imgs[:, 0:1])
+        print(f"gen [{lo + len(imgs)}/{len(paths)}]", flush=True)
+        return imgs * mask, mask
 
-    gen = _features(extract, gen_batches())
+    gen = _features(extract, [lambda lo=lo: gen_batch(lo) for lo in range(0, len(paths), args.batch_size)], world)
+    if not world.is_main:
+        return 0
+    results["info"]["#real"] = len(real["pts_feats"])
     results["info"]["#fake"] = len(gen["pts_feats"])
 
     # ------------------------------------------------------------- metrics
@@ -228,7 +249,7 @@ def parse_args(argv=None) -> argparse.Namespace:
     parser.add_argument("--rangenet_tar", type=str, default=None)
     parser.add_argument("--pointnet_ckpt", type=str, default=None)
     parser.add_argument("--allow_random_extractors", action="store_true")
-    parser.add_argument("--mesh", type=str, default="", help="not ported (ROADMAP.md queue 1, parallelism)")
+    parser.add_argument("--mesh", type=str, default="", help="'N' data axis: must equal the torchrun world size")
     parser.add_argument("--device", type=str, default="cuda", help="cuda (default) or cpu")
     return parser.parse_args(argv)
 

@@ -1,0 +1,186 @@
+"""Data parallelism across processes: one process per card.
+
+The counterpart of ``r2dm_tpu/parallel/mesh.py``. The JAX package drives
+every device of a host from one process through a ``jax.sharding.Mesh``
+whose ``data`` axis splits the batch; here each card has its own process
+(the torch idiom, as the reference's accelerate DDP does, reference
+train.py:45-53), and the data axis is the process group:
+
+- ``init(device)`` joins the group ``torchrun`` describes in the environment
+  (``RANK``, ``WORLD_SIZE``, ``LOCAL_RANK``, ``MASTER_ADDR``/``MASTER_PORT``):
+  NCCL on CUDA, gloo on the CPU. Without that environment the world has one
+  process and no group, and nothing changes. A group the caller has already
+  initialised (a test, a launcher of its own) is used as it stands, with its
+  backend. A group that fails to initialise raises; so do two NCCL ranks on
+  one card. Each rank runs on ``cuda:LOCAL_RANK``.
+- One gloo side group carries host objects: the stop flag, gathered
+  features, per-rank results. It is the default group when that is gloo.
+- ``parse_mesh`` (the CLIs' ``--mesh``) and ``check_mesh_shape``
+  (``training.mesh_shape``) keep the JAX function's checks and messages:
+  ``'N'`` or ``'Nx1'`` must equal the world size, and a width axis over one
+  exits, since only the data axis is ported.
+"""
+
+from __future__ import annotations
+
+import os
+import socket
+from dataclasses import dataclass
+from typing import Any, Optional
+
+import torch
+import torch.distributed as dist
+
+WIDTH_AXIS_ITEM = "ROADMAP.md queue 1, parallelism (width axis)"
+
+
+@dataclass
+class World:
+    """This process's place on the data axis."""
+
+    rank: int = 0
+    size: int = 1
+    local_rank: int = 0
+    device: torch.device = torch.device("cpu")
+    distributed: bool = False  # a process group exists (possibly of one rank)
+    side: Any = None  # the gloo group for host objects (None: no group)
+    owns_group: bool = False  # init() created the default group and close() destroys it
+
+    @property
+    def is_main(self) -> bool:
+        return self.rank == 0
+
+    def close(self) -> None:
+        if self.owns_group and dist.is_initialized():
+            dist.destroy_process_group()
+        self.owns_group = False
+
+
+def _launched() -> bool:
+    """Whether the environment describes a process group (torchrun's)."""
+    return "RANK" in os.environ and "WORLD_SIZE" in os.environ
+
+
+def init(device="cuda") -> World:
+    """This process's ``World``: the caller's group, torchrun's, or none."""
+    device = torch.device(device)
+    owns = False
+    local_rank = int(os.environ.get("LOCAL_RANK", "0"))
+    if not dist.is_initialized():
+        if not _launched():
+            return World(device=_rank_device(device, 0))
+        if device.type == "cuda":
+            torch.cuda.set_device(local_rank)
+        dist.init_process_group("nccl" if device.type == "cuda" else "gloo")  # env://; raises on failure
+        owns = True
+    backend = dist.get_backend()
+    side = dist.group.WORLD if backend == "gloo" else dist.new_group(backend="gloo")
+    if device.type == "cuda":
+        torch.cuda.set_device(local_rank)
+    world = World(rank=dist.get_rank(), size=dist.get_world_size(), local_rank=local_rank,
+                  device=_rank_device(device, local_rank), distributed=True, side=side, owns_group=owns)
+    if backend == "nccl" and world.size > 1:
+        _check_one_card_per_rank(world)
+    return world
+
+
+def _rank_device(device: torch.device, local_rank: int) -> torch.device:
+    if device.type == "cuda" and device.index is None:
+        return torch.device("cuda", local_rank)
+    return device
+
+
+def _check_one_card_per_rank(world: World) -> None:
+    """NCCL cannot run two ranks on one card: refuse before the first
+    collective hangs or fails inside NCCL."""
+    me = (socket.gethostname(), str(torch.cuda.get_device_properties(world.device).uuid))
+    cards = all_gather_objects(world, me)
+    if len(set(cards)) != len(cards):
+        shared = sorted({c for c in cards if cards.count(c) > 1})
+        raise RuntimeError(
+            f"NCCL needs one card per rank, but ranks share {shared}: start one process per card "
+            "(torchrun --nproc_per_node N with N cards), or initialise a gloo group yourself"
+        )
+
+
+# ------------------------------------------------------------- host objects
+def any_rank(world: World, flag: bool) -> bool:
+    """True on every rank when ``flag`` is true on any: one all-reduce of a
+    CPU tensor on the gloo side group (a host round trip, no device sync)."""
+    if not world.distributed:
+        return bool(flag)
+    t = torch.tensor([int(bool(flag))], dtype=torch.int32)
+    dist.all_reduce(t, op=dist.ReduceOp.MAX, group=world.side)
+    return bool(t.item())
+
+
+def gather_objects(world: World, obj) -> Optional[list]:
+    """Every rank's ``obj`` in rank order on rank 0; None on the others."""
+    if not world.distributed:
+        return [obj]
+    out = [None] * world.size if world.is_main else None
+    dist.gather_object(obj, out, dst=0, group=world.side)
+    return out
+
+
+def all_gather_objects(world: World, obj) -> list:
+    """Every rank's ``obj`` in rank order, on every rank."""
+    if not world.distributed:
+        return [obj]
+    out = [None] * world.size
+    dist.all_gather_object(out, obj, group=world.side)
+    return out
+
+
+def broadcast_object(world: World, obj):
+    """Rank 0's ``obj`` on every rank."""
+    if not world.distributed:
+        return obj
+    box = [obj]
+    dist.broadcast_object_list(box, src=0, group=world.side)
+    return box[0]
+
+
+# ------------------------------------------------------------------- meshes
+def _mesh_error(shape: tuple, world_size: int) -> Optional[str]:
+    """Why a (data,) or (data, width) mesh cannot run on ``world_size``
+    processes (a phrase that follows the mesh's name), or None."""
+    if len(shape) == 2 and shape[1] > 1:
+        return f"shards the width axis (W = {shape[1]}), which is not ported yet ({WIDTH_AXIS_ITEM})"
+    if shape[0] != world_size:
+        return (f"needs {shape[0]} devices, have {world_size} (one process per device: start "
+                f"{shape[0]} with torchrun --nproc_per_node {shape[0]})")
+    return None
+
+
+def parse_mesh(spec, world_size: int, batch_size: Optional[int] = None) -> Optional[tuple]:
+    """CLI mesh spec -> its shape: '' / 0 / '0' -> None (every rank on the
+    data axis), 'N' or 'Nx1' -> (N,) / (N, 1), which must equal the world
+    size; 'DxW' with W > 1 exits (the width axis is not ported). With
+    ``batch_size``, the batch must divide over the data axis."""
+    if not spec or str(spec) == "0":
+        return None
+    try:
+        shape = tuple(int(s) for s in str(spec).lower().split("x"))
+        assert all(s > 0 for s in shape) and len(shape) in (1, 2)
+    except (ValueError, AssertionError):
+        raise SystemExit(f"--mesh must be 'N' or 'DxW' with positive ints, got {spec!r}")
+    msg = _mesh_error(shape, world_size)
+    if msg is not None:
+        raise SystemExit(f"--mesh {spec} {msg}")
+    if batch_size is not None and batch_size % shape[0]:
+        raise SystemExit(f"batch size {batch_size} not divisible by the {shape[0]}-way data axis")
+    return shape
+
+
+def check_mesh_shape(mesh_shape, world_size: int) -> None:
+    """``training.mesh_shape`` under the rules of ``parse_mesh``: None puts
+    every rank on the data axis; anything else must match the world."""
+    if mesh_shape is None:
+        return
+    shape = tuple(int(s) for s in mesh_shape)
+    if len(shape) not in (1, 2) or not all(s > 0 for s in shape):
+        raise ValueError(f"training.mesh_shape={mesh_shape}: expected (N,) or (D, W) with positive ints")
+    msg = _mesh_error(shape, world_size)
+    if msg is not None:
+        raise ValueError(f"training.mesh_shape={mesh_shape} {msg}")

@@ -2,6 +2,7 @@
 
     python -m r2dm_tpu_torch.sample_and_save --ckpt ckpt.msgpack --output_dir samples
     python -m r2dm_tpu_torch.sample_and_save --device cpu ...   # on the CPU
+    torchrun --nproc_per_node N -m r2dm_tpu_torch.sample_and_save ...   # on N cards
 
 The port's counterpart of the repo's ``sample_and_save.py`` (reference
 sample_and_save.py): ``--num_samples`` scans, seed ``i`` for scan ``i``
@@ -13,9 +14,12 @@ reverted to metres and back-projected, and written as
 reflectance], which ``evaluate`` of either package reads. On CUDA the
 network computes in bfloat16, the kernels' type, so ``--bf16`` is implied.
 
-Not ported: ``--mesh`` and the JAX package's process striding of the seeds
-(ROADMAP.md queue 1, parallelism), and ``$R2DM_TPU_INT8`` (ROADMAP.md queue
-1, int8); each exits with a message.
+Under ``torchrun`` the seeds are strided over the ranks, ``seeds[rank::
+world]``, as the JAX package strides them over processes
+(sample_and_save.py:60-62); samples are per-seed deterministic, so no batch
+is padded. ``--mesh`` ('N' or 'Nx1') must equal the world size; a width axis
+exits (``parallel.parse_mesh``). Not ported: ``$R2DM_TPU_INT8`` (ROADMAP.md
+queue 1, int8), which exits with a message.
 """
 
 from __future__ import annotations
@@ -28,6 +32,7 @@ from pathlib import Path
 import numpy as np
 import torch
 
+from . import parallel
 from .inference import setup_model
 from .lidar import LiDARUtility
 
@@ -44,19 +49,24 @@ def postprocess(x: torch.Tensor, lidar_utils: LiDARUtility) -> torch.Tensor:
 
 
 def main(args: argparse.Namespace) -> int:
-    if args.mesh:
-        print("--mesh: sampling over more than one device is not ported yet (ROADMAP.md queue 1, parallelism)",
-              file=sys.stderr)
-        return 2
     if os.environ.get("R2DM_TPU_INT8"):
         print("R2DM_TPU_INT8: the W8A8 serving lane is not ported yet (ROADMAP.md queue 1, int8)", file=sys.stderr)
         return 2
-    device = torch.device(args.device)
+    world = parallel.init(args.device)
+    try:
+        return _run(args, world)
+    finally:
+        world.close()
+
+
+def _run(args: argparse.Namespace, world: parallel.World) -> int:
+    parallel.parse_mesh(args.mesh, world.size)
+    device = world.device
     bf16 = args.bf16 or device.type == "cuda"
     ddpm, lidar_utils, _ = setup_model(args.ckpt, dtype=torch.bfloat16 if bf16 else None, device=device)
     save_dir = Path(args.output_dir)
     save_dir.mkdir(parents=True, exist_ok=True)
-    seeds = np.arange(args.num_samples)
+    seeds = np.arange(args.num_samples)[world.rank::world.size]
     for lo in range(0, len(seeds), args.batch_size):
         batch_seeds = seeds[lo:lo + args.batch_size]
         x = ddpm.sample(batch_size=len(batch_seeds), num_steps=args.num_steps, seeds=batch_seeds.tolist(),
@@ -77,7 +87,7 @@ def parse_args(argv=None) -> argparse.Namespace:
     parser.add_argument("--num_steps", type=int, default=256)
     parser.add_argument("--mode", choices=MODES, default="ddpm")
     parser.add_argument("--bf16", action="store_true", help="bf16 network compute (implied on CUDA)")
-    parser.add_argument("--mesh", type=str, default="", help="not ported (ROADMAP.md queue 1, parallelism)")
+    parser.add_argument("--mesh", type=str, default="", help="'N' data axis: must equal the torchrun world size")
     parser.add_argument("--device", type=str, default="cuda", help="cuda (default) or cpu")
     return parser.parse_args(argv)
 

@@ -15,16 +15,34 @@ from ``--training.resume``, and SIGTERM/SIGINT: finish the step, write the
 checkpoint, exit 0. ``--training.profile_dir`` writes a ``torch.profiler``
 trace of steps 10-15. On CUDA every train step runs both hand-written
 kernels forward and the ring-conv kernel backward.
+``--training.gradient_accumulation_steps`` and ``--training.grad_bf16`` are
+the JAX trainer's (``training/step.py``).
+
+On N cards, one process per card (the data axis of ``parallel/``):
+
+    torchrun --nproc_per_node N -m r2dm_tpu_torch.train --data.dataset synthetic ...
+
+``batch_size_train`` is the global batch: each rank loads its rows of every
+global batch (``DataLoader(process_index, process_count)``) and draws the
+global batch's timesteps and noise from the step's generator, keeping its
+rows, so the loss sees the numbers one process would. The model runs under
+``DistributedDataParallel`` (``broadcast_buffers=False``: the coordinates
+and FIR taps are constants); the EMA, the checkpoint and the panels use the
+unwrapped module. Rank 0 alone writes ``training_config.json``,
+``metrics.jsonl`` (its loss the global batch's mean), the panels and the
+checkpoint. The ranks agree to stop (a signal on any of them) at one step
+boundary through an all-reduce of the flag on the gloo side group, every
+step: the counterpart of the JAX trainer's ``consensus_any``. With dropout
+> 0 every rank draws its dropout masks from the same generator after the
+global draws, so the masks are not a single process's.
 
 Options of the JAX trainer that this one leaves out or ignores:
 - ``max_host_rss_gb``: ignored; the JAX trainer restarts itself to escape a
   TPU runtime's host-memory retention, which has no counterpart here;
 - ``width_merge_l1``: ignored; a TPU-only layout, an exact re-lowering of
   the same network;
-- ``mesh_shape`` over more than one device: raises (ROADMAP queue 1,
-  parallelism);
-- ``gradient_accumulation_steps > 1`` and ``grad_bf16``: raise
-  (``training/optim.py``);
+- ``mesh_shape`` with a width axis over one: raises (ROADMAP.md queue 1,
+  parallelism (width axis)); a data axis must equal the world size;
 - ``gn_bf16``: the JAX package computes the GroupNorm FMA + SiLU pass in
   bf16 when it is set (the default); the port's kernel computes it in fp32
   and rounds once, about one bf16 ulp apart (ROADMAP, North star).
@@ -33,8 +51,8 @@ Options of the JAX trainer that this one leaves out or ignores:
 from __future__ import annotations
 
 import argparse
+import inspect
 import json
-import math
 import os
 import signal
 import sys
@@ -44,11 +62,13 @@ import numpy as np
 import torch
 
 from . import config as config_lib
+from . import parallel
 from .checkpoint import load_checkpoint, load_opt_state, save_checkpoint
 from .data import DataLoader, make_dataset, preprocess_batch
+from .diffusion.base import normal
 from .inference import build_diffusion, build_model, count_parameters, model_coords
 from .lidar import LiDARUtility
-from .training import EMAConfig, init_train_state, make_optimizer, make_train_step, set_schedule_step
+from .training import EMAConfig, init_train_state, make_optimizer, make_train_step, schedule_lr, set_schedule_step
 from .utils.logging import MetricLogger, save_image_panels
 from .utils.weights import state_dict_from_jax
 
@@ -79,37 +99,61 @@ def _device_batches(loader: DataLoader, keys: list, device: torch.device):
         it.close()  # stops the loader's prefetch thread
 
 
-def _check_supported(cfg: config_lib.Config) -> None:
-    mesh = cfg.training.mesh_shape
-    if mesh is not None and math.prod(mesh) > 1:
-        raise NotImplementedError(
-            f"training.mesh_shape={mesh}: training over more than one device is not ported yet "
-            "(ROADMAP.md queue 1, parallelism)"
-        )
+# DDP's buffer broadcast before every forward, off: the coordinates and FIR
+# taps are constants (PyTorch 2.13 renames broadcast_buffers)
+_NO_BUFFER_SYNC = ({"forward_sync_buffers": False}
+                   if "forward_sync_buffers" in inspect.signature(torch.nn.parallel.DistributedDataParallel).parameters
+                   else {"broadcast_buffers": False})
+
+
+def _rank_draws(diffusion, generator: torch.Generator, global_batch: int, x_0: torch.Tensor, rank: int):
+    """This rank's rows of the global batch's timesteps and noise, drawn in
+    the order ``diffusion.loss`` draws them."""
+    steps = diffusion.sample_timesteps(global_batch, generator, x_0.device)
+    noise = normal(generator, (global_batch, *x_0.shape[1:]), x_0.device)
+    rows = slice(rank * x_0.shape[0], (rank + 1) * x_0.shape[0])
+    return steps[rows], noise[rows]
 
 
 def resume(state, path: str) -> int:
-    """Load weights, EMA weights, AdamW state and step from a checkpoint of
-    this trainer or of the JAX package's; returns the step."""
+    """Load weights, EMA weights, AdamW state (and under accumulation the
+    running mean) and step from a checkpoint of this trainer or of the JAX
+    package's; returns the step."""
     ckpt = load_checkpoint(path)
     state.model.load_state_dict(state_dict_from_jax(ckpt["weights"]))
     state.ema_model.load_state_dict(state_dict_from_jax(ckpt["ema_weights"] or ckpt["weights"]))
+    state.step = ckpt["global_step"]
     if ckpt["opt_state"] is not None:
         load_opt_state(state, ckpt["opt_state"])
-    state.step = ckpt["global_step"]
-    set_schedule_step(state.scheduler, state.step)
+    elif state.accumulation_steps > 1:
+        raise ValueError(f"{path} holds no optimizer state: an accumulating run cannot resume from it")
+    else:
+        state.updates = state.step
+    set_schedule_step(state.scheduler, state.updates)
     return state.step
 
 
 def train(cfg: config_lib.Config, device="cuda"):
-    """Run the training loop; returns the final ``TrainState``."""
-    device = torch.device(device)
-    _check_supported(cfg)
+    """Run the training loop on this process's rank of the data axis (the
+    whole of it without a process group); returns the final ``TrainState``."""
+    world = parallel.init(device)
+    try:
+        return _train(cfg, world)
+    finally:
+        world.close()
+
+
+def _train(cfg: config_lib.Config, world: parallel.World):
+    device = world.device
     tcfg = cfg.training
+    parallel.check_mesh_shape(tcfg.mesh_shape, world.size)
+    parallel.any_rank(world, False)  # the side group's first round trip, while the ranks are aligned
+    is_main = world.is_main
     out_dir = tcfg.output_dir
-    os.makedirs(out_dir, exist_ok=True)
-    with open(os.path.join(out_dir, "training_config.json"), "w") as f:
-        json.dump(config_lib.asdict(cfg), f, indent=2)  # cf. reference train.py:60-64
+    if is_main:
+        os.makedirs(out_dir, exist_ok=True)
+        with open(os.path.join(out_dir, "training_config.json"), "w") as f:
+            json.dump(config_lib.asdict(cfg), f, indent=2)  # cf. reference train.py:60-64
 
     # ---------------------------------------------------------------- model
     channels = int(cfg.data.train_depth) + int(cfg.data.train_reflectance)
@@ -126,27 +170,35 @@ def train(cfg: config_lib.Config, device="cuda"):
         min_depth=cfg.data.min_depth, max_depth=cfg.data.max_depth,
         ray_angles=coords, data_format="NHWC", device=device,
     )
-    print(f"number of parameters: {count_parameters(model) / 1e6:.2f}M")  # cf. reference train.py:111-112
+    if is_main:
+        print(f"number of parameters: {count_parameters(model) / 1e6:.2f}M")  # cf. reference train.py:111-112
 
     # ------------------------------------------------- optimizer and resume
     optimizer, scheduler = make_optimizer(model.parameters(), tcfg)
-    state = init_train_state(model, optimizer, scheduler)
+    state = init_train_state(model, optimizer, scheduler, tcfg.gradient_accumulation_steps)
     start_step = 0
     if tcfg.resume:
         start_step = resume(state, tcfg.resume)
-        print(f"resumed from {tcfg.resume} at step {start_step}")
+        if is_main:
+            print(f"resumed from {tcfg.resume} at step {start_step}")
+    ddp = None
+    if world.distributed:  # after the EMA copy: the wrapper stays out of it
+        ddp = torch.nn.parallel.DistributedDataParallel(
+            model, device_ids=[device.index] if device.type == "cuda" else None, **_NO_BUFFER_SYNC)
     train_step = make_train_step(
-        diffusion, optimizer, scheduler, EMAConfig(beta=tcfg.ema_decay, update_every=tcfg.ema_update_every)
+        diffusion, optimizer, scheduler, EMAConfig(beta=tcfg.ema_decay, update_every=tcfg.ema_update_every),
+        grad_dtype=torch.bfloat16 if tcfg.grad_bf16 else None, ddp=ddp,
     )
     ema_diffusion = build_diffusion(cfg, state.ema_model)
 
     # ----------------------------------------------------------------- data
     dataset = make_dataset(cfg.data.dataset, cfg.data.data_root, "train", cfg.data.projection,
                            cache_dir=os.path.join(out_dir, "cache") if cfg.data.data_root else None)
-    loader = DataLoader(dataset, batch_size=tcfg.batch_size_train, seed=tcfg.seed)
+    loader = DataLoader(dataset, batch_size=tcfg.batch_size_train, seed=tcfg.seed, process_index=world.rank,
+                        process_count=world.size)
     keys = (["depth"] if cfg.data.train_depth else []) + (["reflectance"] if cfg.data.train_reflectance else [])
     batches = _device_batches(loader, keys, device)
-    logger = MetricLogger(out_dir)
+    logger = MetricLogger(out_dir, enabled=is_main)
 
     # ----------------------------------------------------- preemption guard
     # finish the step in flight, write the checkpoint and exit 0; the
@@ -160,7 +212,7 @@ def train(cfg: config_lib.Config, device="cuda"):
         for s, h in prev_handlers.items():
             signal.signal(s, h)
         print(f"received signal {signum}: checkpointing at the next step boundary and exiting "
-              "(repeat the signal to abort)", flush=True)
+              f"(repeat the signal to abort){f' [rank {world.rank}]' if world.distributed else ''}", flush=True)
 
     for sig in (signal.SIGTERM, signal.SIGINT):
         try:
@@ -174,10 +226,14 @@ def train(cfg: config_lib.Config, device="cuda"):
     profiler = None
     t0 = time.time()
     global_step = start_step
+    stopped = False
     try:
-        while global_step < tcfg.num_steps and preempted["signal"] is None:
+        while global_step < tcfg.num_steps:
+            if parallel.any_rank(world, preempted["signal"] is not None):
+                stopped = True
+                break
             batch = next(batches)
-            if tcfg.profile_dir and global_step - start_step == 10:
+            if tcfg.profile_dir and is_main and global_step - start_step == 10:
                 activities = [torch.profiler.ProfilerActivity.CPU]
                 if device.type == "cuda":
                     activities.append(torch.profiler.ProfilerActivity.CUDA)
@@ -186,7 +242,12 @@ def train(cfg: config_lib.Config, device="cuda"):
             x_0 = preprocess_batch(
                 lidar_utils, batch, tuple(cfg.data.resolution), cfg.data.train_depth, cfg.data.train_reflectance
             )
-            metrics = train_step(state, x_0, step_generator(tcfg.seed, global_step, device))
+            g = step_generator(tcfg.seed, global_step, device)
+            if world.distributed:
+                steps, noise = _rank_draws(diffusion, g, tcfg.batch_size_train, x_0, world.rank)
+                metrics = train_step(state, x_0, g, steps=steps, noise=noise)
+            else:
+                metrics = train_step(state, x_0, g)
             global_step += 1
             if profiler is not None and global_step - start_step == 15:
                 if device.type == "cuda":
@@ -198,25 +259,30 @@ def train(cfg: config_lib.Config, device="cuda"):
                 print(f"profile trace written to {tcfg.profile_dir}")
 
             if global_step % 50 == 0 or global_step == 1:
+                if world.distributed:  # the global batch's mean loss
+                    metrics["loss"] = metrics["loss"].clone()
+                    torch.distributed.all_reduce(metrics["loss"])
+                    metrics["loss"] /= world.size
                 m = {k: float(v) for k, v in metrics.items()}
-                m["lr"] = scheduler.get_last_lr()[0]
+                m["lr"] = schedule_lr(scheduler, global_step)
                 m["steps_per_sec"] = (global_step - start_step) / (time.time() - t0)
                 logger.log(global_step, m)  # cf. reference train.py:273-277
 
-            if global_step % tcfg.steps_save_image == 0:
+            if global_step % tcfg.steps_save_image == 0 and is_main:
                 g = step_generator(9, global_step, device)
                 samples = ema_diffusion.sample(min(tcfg.batch_size_eval, 8), SAMPLE_STEPS, generator=g)
                 save_image_panels(out_dir, global_step, samples, lidar_utils, channels)  # cf. train.py:282-289
 
-            if global_step % tcfg.steps_save_model == 0:
+            if global_step % tcfg.steps_save_model == 0 and is_main:
                 write_checkpoint()
 
-        path = write_checkpoint()
-        if preempted["signal"] is not None:
-            print(f"preempted at step {global_step} (signal {preempted['signal']}); "
-                  f"resume with --training.resume {path}")
-        else:
-            print(f"done: {global_step} steps in {time.time() - t0:.0f}s -> {out_dir}")
+        if is_main:
+            path = write_checkpoint()
+            if stopped:
+                print(f"preempted at step {global_step} (signal {preempted['signal'] or 'on another rank'}); "
+                      f"resume with --training.resume {path}")
+            else:
+                print(f"done: {global_step} steps in {time.time() - t0:.0f}s -> {out_dir}")
     finally:
         for s, h in prev_handlers.items():
             signal.signal(s, h)

@@ -43,15 +43,13 @@ def cosine_schedule_with_warmup(num_warmup_steps: int, num_training_steps: int, 
 
 def make_optimizer(params, cfg: TrainingConfig):
     """(AdamW, LambdaLR) for ``params``. Gradient accumulation (optax
-    ``MultiSteps``) and the bf16-cotangent policy are not ported yet."""
-    if cfg.gradient_accumulation_steps > 1:
-        raise NotImplementedError(
-            "training.gradient_accumulation_steps > 1 is not ported yet "
-            "(ROADMAP.md queue 1: gradient accumulation and grad_bf16)"
-        )
-    if cfg.grad_bf16:
-        raise NotImplementedError(
-            "training.grad_bf16 is not ported yet (ROADMAP.md queue 1: gradient accumulation and grad_bf16)"
+    ``MultiSteps``) lives in the train step (``training/step.py``), which
+    steps both every ``gradient_accumulation_steps`` calls. ``grad_bf16``
+    needs a bf16 network, as the JAX trainer requires (train.py:286-290)."""
+    if cfg.grad_bf16 and cfg.mixed_precision != "bf16":
+        raise ValueError(
+            "training.grad_bf16 requires mixed_precision='bf16': with fp32 "
+            "compute the bf16-cast params would dtype-mismatch the convs"
         )
     optimizer = torch.optim.AdamW(
         params, lr=cfg.lr, betas=(cfg.adam_beta1, cfg.adam_beta2),
@@ -61,6 +59,12 @@ def make_optimizer(params, cfg: TrainingConfig):
         optimizer, cosine_schedule_with_warmup(cfg.lr_warmup_steps, cfg.num_steps)
     )
     return optimizer, scheduler
+
+
+def schedule_lr(scheduler, step: int) -> float:
+    """The schedule's lr at ``step``: what the JAX trainer logs as
+    ``lr_schedule(global_step)`` (train.py:390), at the micro-step count."""
+    return scheduler.base_lrs[0] * scheduler.lr_lambdas[0](step)
 
 
 def set_schedule_step(scheduler, step: int) -> None:

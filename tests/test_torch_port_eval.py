@@ -500,13 +500,10 @@ def test_completion_demo_writes_its_figure(tiny_msgpack, tmp_path, monkeypatch):
 
 
 @pytest.mark.parametrize("module,argv", [
-    ("sample_and_save", ["--output_dir", "x", "--mesh", "2"]),
-    ("evaluate", ["--sample_dir", "x", "--mesh", "2"]),
-    ("completion_demo", ["--mesh", "2x1"]),
     ("completion_demo", ["--latency_layout"]),
 ])
 def test_unported_flags_exit_with_their_roadmap_item(tiny_msgpack, module, argv, capsys):
-    mod = {"sample_and_save": sample_and_save, "evaluate": evaluate, "completion_demo": completion_demo}[module]
+    mod = {"completion_demo": completion_demo}[module]
     assert mod.main(mod.parse_args(["--ckpt", tiny_msgpack, *argv])) == 2
     assert "ROADMAP.md" in capsys.readouterr().err
 

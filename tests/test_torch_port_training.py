@@ -279,11 +279,231 @@ def test_lr_schedule_and_ema_decay_match_jax():
         assert ema_decay(step, EMAConfig(beta=0.995)) == float(jax_ema_decay(jnp.asarray(step), JaxEMAConfig(beta=0.995)))
 
 
-@pytest.mark.parametrize("field,value", [("gradient_accumulation_steps", 2), ("grad_bf16", True)])
-def test_unported_optimizer_options_raise(field, value):
-    cfg = port_config.TrainingConfig(**{field: value})
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        make_optimizer([torch.nn.Parameter(torch.zeros(1))], cfg)
+# --------------------------------------- (d') accumulation and grad_bf16
+ACCUM = 2  # optax MultiSteps(tx, 2)
+
+
+def _jax_draws(ddpm, key, x_0):
+    """The steps and noise diffusion.loss draws from ``key``."""
+    t_key, n_key = split_key(key)
+    return np.asarray(ddpm.sample_timesteps(t_key, x_0.shape[0])), np.asarray(jax_normal(n_key, x_0.shape))
+
+
+def _same_tree(got, ref, what):
+    """The same nested keys, and every leaf within rtol and an atol scaled by
+    the leaf's largest value (sums over pixels in another order)."""
+    assert isinstance(got, dict) == isinstance(ref, dict), what
+    if isinstance(ref, dict):
+        assert sorted(got) == sorted(ref), f"{what}: keys {sorted(got)} != {sorted(ref)}"
+        for k in ref:
+            _same_tree(got[k], ref[k], f"{what}/{k}")
+        return
+    ref = np.asarray(ref)
+    got = np.asarray(got)
+    assert got.shape == ref.shape and got.dtype == ref.dtype, f"{what}: {got.shape} {got.dtype} vs {ref.shape} {ref.dtype}"
+    close(got, ref, atol=ATOL * max(float(np.abs(ref).max()) if ref.size else 0.0, 1e-3), what=what)
+
+
+@pytest.fixture(scope="module")
+def jax_accum_trainer(tiny):
+    """The JAX train step with optax MultiSteps(tx, ACCUM)."""
+    ddpm = JaxContinuous(model=tiny[0])
+    tx, _ = jax_make_optimizer(JaxTrainingConfig(**TRAIN, gradient_accumulation_steps=ACCUM))
+    return ddpm, tx, jax.jit(jax_make_train_step(ddpm, tx, JaxEMAConfig(**EMA)))
+
+
+def _accum_state(variables):
+    model = port_net(variables)
+    optimizer, scheduler = make_optimizer(model.parameters(), port_config.TrainingConfig(**TRAIN))
+    state = init_train_state(model, optimizer, scheduler, accumulation_steps=ACCUM)
+    return state, make_train_step(ContinuousTimeGaussianDiffusion(model), optimizer, scheduler, EMAConfig(**EMA))
+
+
+def _check_against_jax(state, jstate, what):
+    params = state_dict_from_jax({"params": jstate.params})
+    emas = state_dict_from_jax({"params": jstate.ema_params})
+    ema_sd = dict(state.ema_model.named_parameters())
+    for name, p in state.model.named_parameters():
+        # lr-scaled atol, as in test_train_steps_match_jax
+        close(p, params[name], atol=2e-5, what=f"{name}, {what}")
+        close(ema_sd[name], emas[name], atol=2e-5, what=f"EMA {name}, {what}")
+
+
+def test_accumulation_matches_optax_multisteps(tiny, jax_accum_trainer):
+    """k = 2 over 4 calls: the running mean, the clip and AdamW on calls 2
+    and 4 only (lr(0) = 0, then lr(1)), the parameters still in between,
+    the EMA on every call at the micro-step count, the logged gradient norm
+    the call's own, and the optimizer state leaf by leaf in optax's layout."""
+    _, variables = tiny
+    variables = {"params": randomize(variables["params"], 2, std=0.3), "buffers": variables["buffers"]}
+    ddpm, tx, jstep = jax_accum_trainer
+    jstate = jax_init_train_state(variables["params"], variables["buffers"], tx)
+    state, pstep = _accum_state(variables)
+    for i in range(4):
+        x_0 = batch(40 + i, B=4)[0]
+        key = jax.random.key(50 + i)
+        before = {n: p.detach().clone() for n, p in state.model.named_parameters()}
+        jstate, jm = jstep(jstate, jnp.asarray(x_0), key, None)
+        steps, noise = _jax_draws(ddpm, key, x_0)
+        pm = pstep(state, t(x_0), steps=t(steps), noise=t(noise))
+        close(pm["loss"], jm["loss"], what=f"loss, call {i}")
+        close(pm["grad_norm"], jm["grad_norm"], what=f"grad norm, call {i}")
+        assert pm["ema_decay"] == pytest.approx(float(jm["ema_decay"]), abs=1e-7)
+        assert (state.step, state.updates, state.mini_step) == (i + 1, (i + 1) // ACCUM, (i + 1) % ACCUM)
+        assert int(jstate.opt_state.gradient_step) == state.updates and int(jstate.opt_state.mini_step) == state.mini_step
+        if i % ACCUM == 0:  # no update: the parameters did not move
+            for n, p in state.model.named_parameters():
+                assert torch.equal(p.detach(), before[n]), n
+        _check_against_jax(state, jstate, f"call {i}")
+        ref = serialization.to_state_dict(jax.tree.map(np.asarray, jstate.opt_state))
+        _same_tree(checkpoint.optax_opt_state(state), ref, f"opt_state after call {i}")
+    moved = max(float((p.detach() - before[n]).abs().max()) for n, p in state.model.named_parameters())
+    assert moved > 1e-4  # the 4th call updated with lr(1)
+
+
+def test_port_resumes_mid_accumulation_from_jax(tiny, jax_accum_trainer, tmp_path):
+    """A JAX checkpoint at mini_step 1 (3 calls of k = 2) into the port: the
+    counts, the running mean and AdamW's moments; then one more call on
+    each side gives the same parameters."""
+    _, variables = tiny
+    ddpm, tx, jstep = jax_accum_trainer
+    jstate = jax_init_train_state(variables["params"], variables["buffers"], tx)
+    for i in range(3):
+        jstate, _ = jstep(jstate, jnp.asarray(batch(60 + i, B=4)[0]), jax.random.key(70 + i), None)
+    path = str(tmp_path / "jax.msgpack")
+    jax_checkpoint.save_checkpoint(
+        path, {}, {"params": jstate.params, "buffers": jstate.buffers},
+        ema_weights={"params": jstate.ema_params, "buffers": jstate.buffers},
+        opt_state=jax.tree.map(np.asarray, jstate.opt_state), step=int(jstate.step),
+    )
+    state, pstep = _accum_state(variables)
+    assert resume(state, path) == 3
+    assert (state.step, state.updates, state.mini_step) == (3, 1, 1)
+    assert state.optimizer.param_groups[0]["lr"] == pytest.approx(2e-3 * cosine_schedule_with_warmup(2, 100)(1))
+    acc = state_dict_from_jax({"params": jstate.opt_state.acc_grads})
+    for (name, _), a in zip(state.model.named_parameters(), state.acc_grads):
+        np.testing.assert_array_equal(a.numpy(), acc[name].numpy(), err_msg=name)
+    x_0, key = batch(63, B=4)[0], jax.random.key(73)
+    jstate, _ = jstep(jstate, jnp.asarray(x_0), key, None)
+    steps, noise = _jax_draws(ddpm, key, x_0)
+    pstep(state, t(x_0), steps=t(steps), noise=t(noise))
+    assert state.updates == int(jstate.opt_state.gradient_step) == 2
+    _check_against_jax(state, jstate, "the call after the resume")
+
+
+def test_jax_resumes_mid_accumulation_from_the_port(tiny, jax_accum_trainer, tmp_path):
+    """The port's checkpoint at mini_step 1 into the JAX trainer's restore
+    (flax from_state_dict into the MultiSteps template), then one more call
+    on each side; a plain-AdamW state into an accumulating run raises."""
+    _, variables = tiny
+    ddpm, tx, jstep = jax_accum_trainer
+    state, pstep = _accum_state(variables)
+    for i in range(3):
+        pstep(state, t(batch(80 + i, B=4)[0]), torch.Generator().manual_seed(i))
+    path = checkpoint.save_checkpoint(str(tmp_path / "port.msgpack"), {}, state)
+    ck = jax_checkpoint.load_checkpoint(path)
+    opt = jax_checkpoint.restore_opt_state(tx.init(variables["params"]), ck["opt_state"])
+    assert (int(opt.mini_step), int(opt.gradient_step), int(opt.inner_opt_state[1][0].count)) == (1, 1, 1)
+    jstate = jax_init_train_state(variables["params"], variables["buffers"], tx).replace(
+        params=jax.tree.map(jnp.asarray, ck["weights"]["params"]),
+        ema_params=jax.tree.map(jnp.asarray, ck["ema_weights"]["params"]),
+        opt_state=opt, step=jnp.asarray(ck["global_step"], jnp.int32),
+    )
+    x_0, key = batch(83, B=4)[0], jax.random.key(93)
+    jstate, _ = jstep(jstate, jnp.asarray(x_0), key, None)
+    steps, noise = _jax_draws(ddpm, key, x_0)
+    pstep(state, t(x_0), steps=t(steps), noise=t(noise))
+    _check_against_jax(state, jstate, "the call after the resume")
+
+    plain = _trained_state(variables)
+    path = checkpoint.save_checkpoint(str(tmp_path / "plain.msgpack"), {}, plain)
+    with pytest.raises(ValueError, match="gradient_accumulation_steps=2"):
+        resume(_accum_state(variables)[0], path)
+    with pytest.raises(ValueError, match="MultiSteps"):
+        load = checkpoint.load_checkpoint(str(tmp_path / "port.msgpack"))
+        checkpoint.load_opt_state(_trained_state(variables, steps=0), load["opt_state"])
+
+
+@pytest.fixture(scope="module")
+def bf16_nets(tiny):
+    """The tiny network in bf16 compute, JAX and port, the same weights."""
+    _, variables = tiny
+    return JaxUNet(dtype=jnp.bfloat16, **TINY), variables
+
+
+def test_grad_bf16_steps_match_jax(bf16_nets, monkeypatch):
+    """Two steps of the bf16-cotangent policy against make_train_step(
+    grad_dtype=bf16), with JAX's GN + SiLU pass in fp32 (its gn_bf16=False,
+    what the port's kernel computes). Both are bf16 networks whose roundings
+    differ. The loss agrees to 1e-4 relative (limit 1e-3). The gradient
+    norm does to 4.2e-2 (limit 6e-2): the same bf16 network with fp32
+    cotangents differs as much between the frameworks (the bias gradients,
+    sums over every pixel), while the port's bf16 and fp32 cotangents agree
+    to 2e-4 (limit 1e-3). Each parameter to 4 lr (Adam moves a parameter
+    by up to lr a step either way, so a gradient entry within rounding of
+    0 may move it 2 lr the other way; measured 3.6 lr), the update direction
+    to a cosine of 0.99 (0.9985). The gradients the port hands the clip are
+    bf16 values."""
+    monkeypatch.setattr(jax_layers, "GN_ACT_COMPUTE_DTYPE", jnp.float32)
+    net, variables = bf16_nets
+    ddpm = JaxContinuous(model=net)
+    cfg = dict(lr=2e-3, lr_warmup_steps=0, num_steps=100)
+    tx, _ = jax_make_optimizer(JaxTrainingConfig(**cfg))
+    jstep = jax.jit(jax_make_train_step(ddpm, tx, JaxEMAConfig(**EMA), grad_dtype=jnp.bfloat16))
+    jstate = jax_init_train_state(variables["params"], variables["buffers"], tx)
+
+    model = EfficientUNet(dtype=torch.bfloat16, **TINY)
+    model.load_state_dict(state_dict_from_jax(variables))
+    optimizer, scheduler = make_optimizer(model.parameters(), port_config.TrainingConfig(**cfg, grad_bf16=True))
+    state = init_train_state(model, optimizer, scheduler)
+    pstep = make_train_step(ContinuousTimeGaussianDiffusion(model), optimizer, scheduler, EMAConfig(**EMA),
+                            grad_dtype=torch.bfloat16)
+    start = {n: p.detach().clone() for n, p in model.named_parameters()}
+    x_0 = batch(100, B=4)[0]
+    steps, noise = _jax_draws(ddpm, jax.random.key(110), x_0)
+    state.model.zero_grad()
+    state.model.train()
+    pstep_loss = ContinuousTimeGaussianDiffusion(model).p_loss(model, t(x_0), t(steps), t(noise))
+    pstep_loss.backward()
+    fp32_cotangent_norm = torch.linalg.vector_norm(torch.stack([p.grad.norm() for p in model.parameters()]))
+    clip = torch.nn.utils.clip_grad_norm_
+    handed = []  # the gradients as the clip receives them
+
+    def recording_clip(params, max_norm):
+        handed.append([p.grad.clone() for p in params])
+        return clip(params, max_norm)
+
+    monkeypatch.setattr(torch.nn.utils, "clip_grad_norm_", recording_clip)
+    for i in range(2):
+        x_0 = batch(100 + i, B=4)[0]
+        key = jax.random.key(110 + i)
+        jstate, jm = jstep(jstate, jnp.asarray(x_0), key, None)
+        steps, noise = _jax_draws(ddpm, key, x_0)
+        pm = pstep(state, t(x_0), steps=t(steps), noise=t(noise))
+        close(pm["loss"], jm["loss"], rtol=1e-3, atol=0, what=f"loss, step {i}")
+        close(pm["grad_norm"], jm["grad_norm"], rtol=6e-2, atol=0, what=f"grad norm, step {i}")
+        if i == 0:
+            close(pm["grad_norm"], fp32_cotangent_norm, rtol=1e-3, atol=0, what="bf16 against fp32 cotangents")
+        assert len(handed[-1]) == len(list(model.parameters()))
+        for g in handed[-1]:
+            assert g.dtype == torch.float32 and torch.equal(g, g.bfloat16().float())
+    params = state_dict_from_jax({"params": jstate.params})
+    dots = n_port = n_jax = 0.0
+    for name, p in model.named_parameters():
+        close(p, params[name], rtol=0, atol=4 * 2e-3, what=name)
+        d_port, d_jax = p.detach() - start[name], params[name] - start[name]
+        dots += float((d_port * d_jax).sum())
+        n_port += float((d_port * d_port).sum())
+        n_jax += float((d_jax * d_jax).sum())
+    assert dots / (n_port * n_jax) ** 0.5 > 0.99
+
+
+def test_grad_bf16_requires_bf16_compute():
+    """As the JAX trainer (train.py:286-290); with bf16 compute it builds."""
+    p = [torch.nn.Parameter(torch.zeros(1))]
+    with pytest.raises(ValueError, match="grad_bf16 requires mixed_precision='bf16'"):
+        make_optimizer(p, port_config.TrainingConfig(grad_bf16=True, mixed_precision="no"))
+    make_optimizer(p, port_config.TrainingConfig(grad_bf16=True))
 
 
 # ------------------------------------------------------------ (e) dropout
