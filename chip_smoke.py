@@ -4,11 +4,11 @@
     python3 chip_smoke.py
 
 Phases (any failure makes the exit code non-zero and suppresses the result):
-  1. print the card's name and power limit; build both CUDA kernels from
+  1. print the card's name and power limit; build the CUDA kernels from
      r2dm_tpu_torch/csrc with nvcc (one process per source, in parallel);
-     print each library's HGMMA count (cuobjdump -sass) and each kernel's
-     registers, spill bytes and shared memory (ptxas), and the GroupNorm
-     kernel's cluster size with cudaOccupancyMaxActiveClusters;
+     print each library's HGMMA and IMMA counts (cuobjdump -sass) and each
+     kernel's registers, spill bytes and shared memory (ptxas), and the
+     GroupNorm kernel's cluster size with cudaOccupancyMaxActiveClusters;
   2. kernel 1 (gn_silu.cu) against its plain version at the config-H shapes,
      and its SiLU over z in [-10, 10] to one bf16 step;
   3. kernel 2 (act_ringconv.cu) against its plain version at every
@@ -83,7 +83,23 @@ Phases (any failure makes the exit code non-zero and suppresses the result):
      flow checkpoint, 16 pairs of 4 teacher steps at b8 (400 GN + 384 conv
      launches) and 4 fine-tune steps (200 GN + 384 conv), its seconds and
      peak memory; the written checkpoint loads through setup_model and a
-     1-step euler sample at b8 is finite.
+     1-step euler sample at b8 is finite;
+ 14. the int8 (W8A8) lane on phase 4's network: the sites it quantizes in a
+     b8 forward (INT8_SITES, the JAX package's count), one forward with
+     exact launches (53 s8 convs and absmax reductions, 50 GN, no bf16
+     conv) within JAX's gate of the bf16 forward, a DDIM-16 b8 chain (the
+     lane's main path: counters zeroed before, read after), ``generate
+     --int8`` (b2) and ``sample_and_save`` under R2DM_TPU_INT8 (b8); the s8
+     kernel (s32 sums equal, bf16 within one step) and the absmax (exact)
+     against their plain versions at every site shape, each timed beside
+     its bound, the plain version and the bf16 ring-conv kernel; a b8 and
+     a b256 forward's device time on both lanes;
+ 15. the LiDARGen RefineNet at its published width (base 128, (1, 2, 2, 2),
+     64x1024) on random weights: setup_model from a reference-layout .pth
+     and a msgpack, a b8 forward bf16 against fp32 (relative L2 <= 2e-2)
+     with its conv FLOPs, DDIM-16 b8, ``generate`` b2, ``train`` for 4 + 2
+     resumed steps at b8 on the synthetic set, the train step's ms and peak
+     memory; no hand-written kernel runs there (every counter 0).
 The line before the last is the kernels JSON; the last line is
 {"ok": true, "device": {...}}. Exits non-zero, printing no result, without a
 CUDA device or without the port's package.
@@ -125,6 +141,14 @@ PEAK_BF16_FLOPS = 989e12  # H100 SXM dense bf16 tensor-core rate
 PEAK_FP32_FLOPS = 67e12  # H100 SXM fp32 outside the tensor cores
 PEAK_TF32_FLOPS = 495e12  # H100 SXM dense TF32 tensor-core rate
 PEAK_BYTES = 3.35e12  # H100 SXM HBM3
+PEAK_INT8_OPS = 1979e12  # H100 SXM dense int8 tensor-core rate
+# the int8 lane at config H: the convs the JAX package quantizes (the 48
+# ResidualBlock convs, in_conv, out_conv and the three up convs; counted
+# against JAX on a tiny net in tests/test_torch_port_quant.py), each one s8
+# conv launch and one absmax launch; its main path is a DDIM chain of
+# INT8_DDIM_STEPS steps at b8
+INT8_SITES = 48 + 2 + 3
+INT8_DDIM_STEPS = 16
 
 # config H, batch 8: (C, H, W) of every GroupNorm input. 64x1024x128 is the
 # u_block1 concat input; 8x128x512 / 8x128x256 are also the attention norms.
@@ -150,6 +174,9 @@ CONV_SHAPES = {
 SOURCES = {
     "fused_group_norm_silu": ("r2dm_tpu_torch/csrc/gn_silu.cu", "r2dm_tpu/ops/pallas_gn.py:107"),
     "fused_act_ringconv": ("r2dm_tpu_torch/csrc/act_ringconv.cu", "r2dm_tpu/ops/pallas_resconv.py:174"),
+    # the int8 lane replaces an XLA int8 conv and its absmax, not a Pallas kernel
+    "ring_conv_w8a8": ("r2dm_tpu_torch/csrc/w8a8_ringconv.cu", "r2dm_tpu/ops/quant.py:78"),
+    "act_absmax": ("r2dm_tpu_torch/csrc/w8a8_ringconv.cu", "r2dm_tpu/ops/quant.py:59"),
 }
 
 
@@ -272,10 +299,13 @@ def phase_build():
         if sass.returncode != 0:
             raise RuntimeError(f"cuobjdump -sass {lib}: {sass.stderr.strip()}")
         info = {"hgmma": sum("HGMMA" in line for line in sass.stdout.splitlines()),
+                "imma": sum("IMMA" in line for line in sass.stdout.splitlines()),
                 "kernels": ptxas_kernels(build.build_log(name))}
         print(f"build {name}: {json.dumps(info)}")
         if name == "act_ringconv" and info["hgmma"] == 0:
             raise RuntimeError("the ring-conv library has no HGMMA instruction: wgmma was not compiled")
+        if name == "w8a8_ringconv" and info["imma"] == 0:
+            raise RuntimeError("the s8 ring-conv library has no IMMA instruction: the s8 mma was not compiled")
         for line in build.build_log(name).splitlines():
             if "warning" in line.lower() or "wgmma" in line.lower():
                 log(f"[{name}] {line.strip()}")
@@ -397,7 +427,7 @@ def phase_main(torch, tmp):
     forwards = 16 + 4
     # per forward: 48 ResidualBlock norms and 2 attention norms through the
     # whole function, 48 convs without their prologue
-    expected = {"fused_group_norm_silu": 50 * forwards, "fused_act_ringconv": 48 * forwards}
+    expected = launches_of(50 * forwards, 48 * forwards)
     print(f"main path launches {json.dumps(launches)} (expected {json.dumps(expected)})")
     if launches != expected:
         raise AssertionError(f"launch counts {launches} != {expected}")
@@ -492,7 +522,7 @@ def phase_serving(torch, main_out, tmp):
         torch.cuda.synchronize()
         seconds[name] = time.time() - t0
         launches = {fn_.__name__: fn_.launches for fn_ in ops.KERNEL_WRAPPERS}
-        expected = {"fused_group_norm_silu": 50 * forwards, "fused_act_ringconv": 48 * forwards}
+        expected = launches_of(50 * forwards, 48 * forwards)
         x = out if isinstance(out, torch.Tensor) else None
         peak = x.abs().max().item() if x is not None else float("nan")
         print(f"path {name}: {seconds[name]:.3f} s, {forwards} forwards, launches {json.dumps(launches)}"
@@ -635,6 +665,13 @@ def _launches(ops) -> dict:
     return {fn.__name__: fn.launches for fn in ops.KERNEL_WRAPPERS}
 
 
+def launches_of(gn: int, conv: int, s8: int = 0) -> dict:
+    """The launch counts a run must read: GroupNorm, the bf16 ring conv, and
+    the int8 lane's s8 ring conv with its absmax reduction (one each a
+    quantized conv)."""
+    return {"fused_group_norm_silu": gn, "fused_act_ringconv": conv, "ring_conv_w8a8": s8, "act_absmax": s8}
+
+
 def phase_eval(torch, main_out, tmp, card):
     """The evaluation path at config H and full width, on phase_main's random
     U-Net (its config set to the synthetic set) and random extractor weights
@@ -677,7 +714,7 @@ def phase_eval(torch, main_out, tmp, card):
                                                 "--mode", "ddim"])
     seconds["sample_and_save"] = time.time() - t0
     launches = path_launches["sample_and_save"] = _launches(ops)
-    expected = {"fused_group_norm_silu": 50 * 8, "fused_act_ringconv": 48 * 8}
+    expected = launches_of(50 * 8, 48 * 8)
     files = sorted(os.listdir(samples))
     arrays = [np.load(os.path.join(samples, f))["sample"] for f in files]
     valid = float(np.mean([((a[0] > 3) & (a[0] < 70)).mean() for a in arrays]))
@@ -755,7 +792,7 @@ def phase_eval(torch, main_out, tmp, card):
     torch.cuda.synchronize()
     seconds["completion_demo"] = time.time() - t0
     launches = path_launches["completion_demo"] = _launches(ops)
-    expected = {"fused_group_norm_silu": 50 * 3, "fused_act_ringconv": 48 * 3}
+    expected = launches_of(50 * 3, 48 * 3)
     size = _png_size(os.path.join(work, "completion_T-0002_r-0002_j-0001.png"))
     want = (2 * H + 800 + 2 * H + H + 800 + 5 * 4, 4 * max(W, 800) + 3 * 8)
     print(f"completion_demo T2 r2 j1 b4 with RangeNet-53 labels ({card}): {seconds['completion_demo']:.3f} s, launches "
@@ -1141,7 +1178,7 @@ def phase_train_step(torch):
     print(f"train step b{B}, kernel path vs plain path: loss {loss_k.item():.6f} vs {loss_p.item():.6f}, "
           f"relative L2 of the loss {rel_loss:.3e}, of the flattened gradient ({grad_k.numel()} values) "
           f"{rel_grad:.3e} (limit {TRAIN_REL_L2}); launches {json.dumps(launches)}")
-    if launches != {"fused_group_norm_silu": 50, "fused_act_ringconv": 96}:
+    if launches != launches_of(50, 96):
         raise AssertionError(f"one loss + backward launched {launches}, expected 50 GN and 96 conv")
     if not (math.isfinite(rel_grad) and rel_loss <= TRAIN_REL_L2 and rel_grad <= TRAIN_REL_L2):
         raise AssertionError(f"kernel path vs plain path: loss {rel_loss}, gradient {rel_grad}")
@@ -1186,7 +1223,7 @@ def phase_train_cli(torch, tmp):
         else:
             os.environ["R2DM_SYNTH_SCANS"] = saved_env
     for (seconds, launches), steps in zip(runs, (TRAIN_STEPS, RESUMED_STEPS)):
-        expected = {"fused_group_norm_silu": 50 * steps, "fused_act_ringconv": 96 * steps}
+        expected = launches_of(50 * steps, 96 * steps)
         print(f"python -m r2dm_tpu_torch.train, {steps} steps b{B}: {seconds:.3f} s (build, data, steps, "
               f"checkpoint), launches {json.dumps(launches)} (expected {json.dumps(expected)})")
         if launches != expected:
@@ -1323,7 +1360,7 @@ def phase_accum_cli(torch, tmp):
         else:
             os.environ["R2DM_SYNTH_SCANS"] = saved_env
     for (seconds, launches), steps in zip(runs, (ACCUM_MICRO_STEPS, 1)):
-        expected = {"fused_group_norm_silu": 50 * steps, "fused_act_ringconv": 96 * steps}
+        expected = launches_of(50 * steps, 96 * steps)
         print(f"python -m r2dm_tpu_torch.train, k={ACCUM_STEPS}, {steps} micro-steps b{B}: {seconds:.3f} s, "
               f"launches {json.dumps(launches)} (expected {json.dumps(expected)})")
         if launches != expected:
@@ -1395,7 +1432,7 @@ def phase_grad_bf16(torch, ddpm):
     print(f"grad_bf16 step b{B}, kernel path vs plain path: loss {metrics['loss'].item():.6f} vs "
           f"{metrics_p['loss'].item():.6f} (relative {rel_loss:.3e}), gradient relative L2 {rel_grad:.3e} "
           f"(limit {TRAIN_REL_L2}); launches {json.dumps(launches)}")
-    if launches != {"fused_group_norm_silu": 50, "fused_act_ringconv": 96}:
+    if launches != launches_of(50, 96):
         raise AssertionError(f"one grad_bf16 step launched {launches}, expected 50 GN and 96 conv")
     if not (math.isfinite(rel_grad) and rel_loss <= TRAIN_REL_L2 and rel_grad <= TRAIN_REL_L2):
         raise AssertionError(f"grad_bf16 kernel path vs plain path: loss {rel_loss}, gradient {rel_grad}")
@@ -1598,7 +1635,7 @@ def phase_two_ranks(torch, tmp, eval_out, card):
     train2, sample2, eval2 = ([rank[i] for rank in ranks] for i in range(3))
 
     # ---- the trainer
-    expected = {"fused_group_norm_silu": 50 * steps, "fused_act_ringconv": 96 * steps}
+    expected = launches_of(50 * steps, 96 * steps)
     launches = [r["launches"] for r in train2]
     if one["launches"] != expected or launches != [expected, expected]:
         raise AssertionError(f"train launches: one rank {one['launches']}, two ranks {launches}; each {expected}")
@@ -1626,7 +1663,7 @@ def phase_two_ranks(torch, tmp, eval_out, card):
     files = sorted(os.listdir(samples))
     gaps = [float(np.abs(np.load(os.path.join(samples, f))["sample"]
                          - np.load(os.path.join(eval_out["samples"], f))["sample"]).max()) for f in files]
-    expected = {"fused_group_norm_silu": 50 * 4, "fused_act_ringconv": 48 * 4}  # 8 seeds a rank, 4 steps, one batch
+    expected = launches_of(50 * 4, 48 * 4)  # 8 seeds a rank, 4 steps, one batch
     out["sample_and_save"] = {"files": len(files), "max_abs_diff_vs_one_rank": max(gaps),
                               "launches": [r["launches"] for r in sample2], "seconds": sample2[0]["seconds"]}
     print(f"two ranks, sample_and_save {2 * B} samples ({card}): {json.dumps(out['sample_and_save'])}")
@@ -1645,11 +1682,11 @@ def phase_two_ranks(torch, tmp, eval_out, card):
                        "seconds": eval2[0]["seconds"]}
     print(f"two ranks, evaluate ({card}): {json.dumps(out['evaluate'])}")
     if not (gap <= 1e-6 and got["info"] == ref["info"] and len(caches[0]) == 1 and not caches[1]
-            and eval2[0]["launches"] == eval2[1]["launches"] == {"fused_group_norm_silu": 0, "fused_act_ringconv": 0}):
+            and eval2[0]["launches"] == eval2[1]["launches"] == launches_of(0, 0)):
         raise AssertionError(f"two-rank evaluate: {out['evaluate']}")
 
     # ---- one rank under NCCL
-    expected = {"fused_group_norm_silu": 50 * 2, "fused_act_ringconv": 96 * 2}
+    expected = launches_of(50 * 2, 96 * 2)
     ck = load_checkpoint(os.path.join(nccl_dir, "checkpoint.msgpack"))
     gap = max(abs(a - b) / abs(b) for a, b in zip(nccl["losses"], one["losses"]))
     out["nccl"] = {"launches": nccl["launches"], "losses": nccl["losses"], "loss_rel_vs_one_rank": gap,
@@ -1707,9 +1744,8 @@ def phase_reflow(torch, main_out, tmp, card):
     seconds = time.time() - t0
     counts["finetune"] = _launches(ops)
     teacher_forwards = REFLOW_ARGS["num_pairs"] // REFLOW_ARGS["batch_size"] * REFLOW_ARGS["teacher_steps"]
-    expected = {"teacher": {"fused_group_norm_silu": 50 * teacher_forwards, "fused_act_ringconv": 48 * teacher_forwards},
-                "finetune": {"fused_group_norm_silu": 50 * REFLOW_ARGS["train_steps"],
-                             "fused_act_ringconv": 96 * REFLOW_ARGS["train_steps"]}}
+    expected = {"teacher": launches_of(50 * teacher_forwards, 48 * teacher_forwards),
+                "finetune": launches_of(50 * REFLOW_ARGS["train_steps"], 96 * REFLOW_ARGS["train_steps"])}
     peak = torch.cuda.max_memory_allocated() - base
     ddpm, _, cfg = setup_model(dst, dtype=torch.bfloat16, device="cuda")
     x = ddpm.sample(B, 1, mode="euler", seeds=range(B))
@@ -1724,6 +1760,384 @@ def phase_reflow(torch, main_out, tmp, card):
         raise AssertionError(f"reflow: {result}, expected launches {expected}")
     return result
 
+
+
+def _lane_sites(torch, net, x, cond):
+    """Each ring_conv_w8a8 call of one forward under the lane: (x shape, x
+    dtype, F, out dtype), in order."""
+    from r2dm_tpu_torch.models import layers
+
+    sites, real = [], layers.ring_conv_w8a8
+
+    def recorded(x, kernel, bias, out_dtype=None, packed=None):
+        sites.append((tuple(x.shape), x.dtype, kernel.shape[3], out_dtype or x.dtype))
+        return real(x, kernel, bias, out_dtype, packed)
+
+    layers.ring_conv_w8a8 = recorded
+    try:
+        with torch.inference_mode():
+            net(x, cond)
+    finally:
+        layers.ring_conv_w8a8 = real
+    return sites
+
+
+def phase_int8(torch, main_out, tmp, card):
+    """The int8 (W8A8) serving lane at config H on phase 4's random network:
+    the s8 kernel and the absmax reduction against their plain versions at
+    every site the lane serves at b8 (the s32 sums equal, the bf16 output
+    within one bf16 step, the absmax equal), a b8 forward with exact launches
+    and its distance from the bf16 forward, a DDIM-16 b8 chain (the lane's
+    main path: counters zeroed before, read after), ``generate --int8`` (b2)
+    and ``sample_and_save`` under R2DM_TPU_INT8 (b8), then each site's ms
+    beside its bound, the plain version and the bf16 kernel at that shape,
+    and the device time of a b8 and a b256 forward on both lanes."""
+    import numpy as np
+
+    from r2dm_tpu_torch import ops
+    from r2dm_tpu_torch.models import layers
+    from r2dm_tpu_torch.ops import act_ringconv, quant
+
+    ddpm = main_out["ddpm"]
+    net = ddpm.model
+    H, W = ddpm.sampling_shape[:2]
+    out = {}
+    xin = randn(torch, (B, H, W, 2), 30)
+    cond = torch.linspace(-5.0, 5.0, B, device="cuda")
+    layers.set_quant_conv(net, "w8a8")
+    try:
+        sites = _lane_sites(torch, net, xin, cond)
+        unique = {}
+        for s in sites:
+            unique[s] = unique.get(s, 0) + 1
+        print(f"int8 lane sites of one b{B} forward: {len(sites)} calls, {len(unique)} shapes "
+              + json.dumps([[list(k[0]), str(k[1]), k[2], str(k[3]), n] for k, n in unique.items()]))
+        if len(sites) != INT8_SITES:
+            raise AssertionError(f"the lane quantized {len(sites)} convs a forward, expected {INT8_SITES}")
+
+        # (b) one forward: exact launches, and the distance from the bf16 forward
+        with torch.inference_mode():
+            ops.reset_launch_counts()
+            y8 = net(xin, cond)
+            torch.cuda.synchronize()
+            launches = _launches(ops)
+            layers.set_quant_conv(net, None)
+            y16 = net(xin, cond)
+            layers.set_quant_conv(net, "w8a8")
+        rel = ((y8 - y16).norm() / y16.norm()).item()
+        cos = (torch.sum(y8 * y16) / (y8.norm() * y16.norm())).item()
+        out["forward"] = {"launches": launches, "rel_l2_vs_bf16": rel, "cos_vs_bf16": cos}
+        print(f"int8 forward b{B} ({card}): {json.dumps(out['forward'])} (JAX's gate: rel < 0.25, cos > 0.97)")
+        if launches != launches_of(50, 0, INT8_SITES) or not (rel < 0.25 and cos > 0.97):
+            raise AssertionError(f"int8 forward: {out['forward']}")
+
+        # the lane's main path: a DDIM-16 b8 chain, counters zeroed just before
+        ddpm.sample(B, 1, mode="ddim", seeds=range(B))  # warm-up
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        t0 = time.time()
+        x = ddpm.sample(B, INT8_DDIM_STEPS, mode="ddim", seeds=range(B))
+        torch.cuda.synchronize()
+        chain_s = time.time() - t0
+        launches = _launches(ops)
+        peak = x.abs().max().item()
+        gap = (x - main_out["ddim16"]).abs().max().item()
+        out["ddim16"] = {"seconds": chain_s, "img_per_s": B / chain_s, "launches": launches, "max_abs": peak,
+                         "max_abs_diff_vs_bf16_chain": gap}
+        print(f"int8 ddim{INT8_DDIM_STEPS} b{B} ({card}): {json.dumps(out['ddim16'])}")
+        if launches != launches_of(50 * INT8_DDIM_STEPS, 0, INT8_SITES * INT8_DDIM_STEPS) \
+                or not (bool(torch.isfinite(x).all()) and peak <= 1.02):
+            raise AssertionError(f"int8 ddim chain: {out['ddim16']}")
+        out["launches"] = launches
+    finally:
+        layers.set_quant_conv(net, None)
+
+    # generate --int8 (b2, 4 DDIM steps) and sample_and_save under R2DM_TPU_INT8
+    gen_dir = os.path.join(tmp, "generate_int8")
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    _run_cli("r2dm_tpu_torch.generate", ["--ckpt", main_out["ckpt"], "--int8", "--batch_size", "2",
+                                         "--sampling_steps", "4", "--mode", "ddim", "--out_dir", gen_dir])
+    torch.cuda.synchronize()
+    gen = _launches(ops)
+    sizes = {n: _png_size(os.path.join(gen_dir, n)) for n in ("samples_img.png", "samples_bev.png")}
+    sas_dir = os.path.join(tmp, "samples_int8")
+    os.environ["R2DM_TPU_INT8"] = "1"
+    try:
+        ops.reset_launch_counts()
+        _run_cli("r2dm_tpu_torch.sample_and_save", ["--ckpt", main_out["ckpt"], "--output_dir", sas_dir,
+                                                    "--num_samples", str(B), "--batch_size", str(B),
+                                                    "--num_steps", "2", "--mode", "ddim"])
+        torch.cuda.synchronize()
+        sas = _launches(ops)
+    finally:
+        os.environ.pop("R2DM_TPU_INT8")
+    files = sorted(os.listdir(sas_dir))
+    finite = all(np.isfinite(np.load(os.path.join(sas_dir, f))["sample"]).all() for f in files)
+    out["generate"], out["sample_and_save"] = gen, sas
+    print(f"generate --int8 b2: launches {json.dumps(gen)}, PNGs {json.dumps(sizes)}; sample_and_save under "
+          f"R2DM_TPU_INT8 b{B}: launches {json.dumps(sas)}, {len(files)} files, finite {finite}")
+    if gen != launches_of(50 * 4, 0, INT8_SITES * 4) or sizes["samples_img.png"] != (2 * 2 * H, W):
+        raise AssertionError(f"generate --int8: {gen}, {sizes}")
+    if sas != launches_of(50 * 2, 0, INT8_SITES * 2) or len(files) != B or not finite:
+        raise AssertionError(f"sample_and_save under R2DM_TPU_INT8: {sas}, {files}")
+
+    # (a) each site the lane serves, at b8: kernel against plain version, then times
+    per_site, worst, worst_absmax = [], 0.0, 0.0
+    for i, ((shape, x_dtype, Fo, out_dtype), count) in enumerate(unique.items()):
+        Bs, Hs, Ws, C = shape
+        x = randn(torch, shape, 31 + i, x_dtype, scale=1.5)
+        k = randn(torch, (3, 3, C, Fo), 50 + i, scale=(9 * C) ** -0.5)
+        bias = randn(torch, (Fo,), 70 + i, scale=0.1)
+        packed = quant.pack_weight(k)
+        with torch.inference_mode():
+            amax = quant.act_absmax(x)
+            ref_amax = x.float().abs().max()
+            acc = quant.w8a8_accumulators(x, k, packed)
+            ref_acc = quant.conv_s8(quant.act_qparams(x)[0], quant.weight_qparams(k)[0])
+            y = quant.ring_conv_w8a8(x, k, bias, out_dtype, packed)
+            ref = quant.ring_conv_w8a8_plain(x, k, bias, out_dtype)
+            y32 = quant.ring_conv_w8a8(x, k, bias, torch.float32, packed)
+            ref32 = quant.ring_conv_w8a8_plain(x, k, bias, torch.float32)
+        steps = (y.view(torch.int16).int() - ref.view(torch.int16).int()).abs().max().item()
+        ok = (torch.equal(acc, ref_acc) and torch.equal(y32, ref32) and steps <= 1
+              and amax.item() == ref_amax.item())
+        worst = max(worst, (y.float() - ref.float()).abs().max().item())
+        worst_absmax = max(worst_absmax, abs(amax.item() - ref_amax.item()))
+        if not ok:
+            raise AssertionError(f"s8 kernel at {shape} -> {Fo}: accumulators equal {torch.equal(acc, ref_acc)}, "
+                                 f"fp32 equal {torch.equal(y32, ref32)}, bf16 steps {steps}, absmax "
+                                 f"{amax.item()} vs {ref_amax.item()}")
+        with torch.inference_mode():
+            ms = graph_ms(torch, lambda: quant.ring_conv_w8a8(x, k, bias, out_dtype, packed, amax))
+            absmax_ms = graph_ms(torch, lambda: quant.act_absmax(x))
+            absmax_lib = graph_ms(torch, lambda: torch.linalg.vector_norm(x, float("inf")))
+            absmax_plain = graph_ms(torch, lambda: x.to(torch.float32).abs().amax())
+            plain = cuda_ms(torch, lambda: quant.ring_conv_w8a8_plain(x, k, bias, out_dtype), iters=2, warmup=1)
+            bf16_ms = None
+            if C % 8 == 0 and Fo % 8 == 0:
+                xb = x.to(torch.bfloat16)
+                bf16_ms = graph_ms(torch, lambda: act_ringconv.fused_act_ringconv(xb, None, None, k, bias,
+                                                                                    apply_act=False))
+        ops_ = 2 * 9 * C * Fo * Bs * Hs * Ws
+        nbytes = x.numel() * x.element_size() + Bs * Hs * Ws * Fo * torch.tensor([], dtype=out_dtype).element_size() \
+            + 9 * C * Fo + Fo * 8
+        t_bytes, t_ops = nbytes / PEAK_BYTES * 1e3, ops_ / PEAK_INT8_OPS * 1e3
+        per_site.append({"shape": list(shape), "x_dtype": str(x_dtype).split(".")[-1], "f": Fo, "per_forward": count,
+                         "ms": ms, "bound_ms": max(t_bytes, t_ops), "bound_by": "bytes" if t_bytes >= t_ops
+                         else "operations", "plain_ms": plain, "bf16_act_ringconv_ms": bf16_ms,
+                         "tops": ops_ / ms / 1e9, "absmax_ms": absmax_ms,
+                         "absmax_bound_ms": x.numel() * x.element_size() / PEAK_BYTES * 1e3,
+                         "absmax_plain_ms": absmax_plain, "absmax_library_ms": absmax_lib})
+        print(f"s8 ring conv ok at {list(shape)} {str(x_dtype).split('.')[-1]} -> {Fo}: " + json.dumps(per_site[-1]))
+    total = {key: sum(s[key] * s["per_forward"] for s in per_site)
+             for key in ("ms", "bound_ms", "plain_ms", "absmax_ms", "absmax_bound_ms")}
+    bf16_sites = [s for s in per_site if s["bf16_act_ringconv_ms"] is not None]
+    total["sites_with_a_bf16_kernel"] = sum(s["per_forward"] for s in bf16_sites)
+    total["ms_there"] = sum(s["ms"] * s["per_forward"] for s in bf16_sites)
+    total["bf16_act_ringconv_ms_there"] = sum(s["bf16_act_ringconv_ms"] * s["per_forward"] for s in bf16_sites)
+    print(f"int8 lane per b{B} forward ({card}): " + json.dumps(total))
+
+    # device time of a forward, both lanes, at b8 (CUDA graph) and b256 (events)
+    times = {}
+    with torch.inference_mode():
+        for lane in (None, "w8a8"):
+            layers.set_quant_conv(net, lane)
+            try:
+                times[f"b{B}_{lane or 'bf16'}_ms"] = graph_ms(torch, lambda: net(xin, cond), iters=3)
+                xb = randn(torch, (256, H, W, 2), 32)
+                cb = torch.linspace(-5.0, 5.0, 256, device="cuda")
+                times[f"b256_{lane or 'bf16'}_ms"] = cuda_ms(torch, lambda: net(xb, cb), iters=2, warmup=1)
+                del xb
+            finally:
+                layers.set_quant_conv(net, None)
+    print(f"forward device time, int8 lane against bf16 ({card}): " + json.dumps(times))
+    level1 = next(s for s in per_site if s["shape"][1:] == [H, W, 64] and s["f"] == 64 and s["x_dtype"] == "bfloat16")
+    out.update({"sites": per_site, "per_forward": total, "forward_times": times, "level1": level1,
+                "max_abs_err": worst, "absmax_max_abs_err": worst_absmax})
+    return out
+
+
+REFINENET_FLAGS = ["--model.architecture", "refinenet", "--model.base_channels", "128",
+                   "--model.channel_multiplier", "1,2,2,2"]
+
+
+def phase_refinenet(torch, tmp, card):
+    """The LiDARGen RefineNet at its published width (base 128, (1, 2, 2, 2),
+    64x1024), random weights from seed 0: setup_model from a reference-layout
+    .pth and from a msgpack, a b8 forward bf16 against fp32 on the card, a
+    DDIM-16 b8 chain, ``generate`` (b2), ``train`` for 4 steps + 2 resumed at
+    b8 on the synthetic set, and the ms of a forward and of a train step with
+    their peak memory. It runs no hand-written kernel (plain PyTorch, as the
+    JAX package has no Pallas kernel behind it): every counter reads 0."""
+    import numpy as np
+
+    from r2dm_tpu_torch import config as config_lib
+    from r2dm_tpu_torch import ops, setup_model
+    from r2dm_tpu_torch.checkpoint import load_checkpoint, write_checkpoint
+    from r2dm_tpu_torch.diffusion import ContinuousTimeGaussianDiffusion
+    from r2dm_tpu_torch.inference import build_model
+    from r2dm_tpu_torch.models.refinenet import LiDARGenRefineNet, unit_grid
+    from r2dm_tpu_torch.training import EMAConfig, init_train_state, make_optimizer, make_train_step
+    from r2dm_tpu_torch.utils.weights import to_jax
+
+    torch.backends.cudnn.allow_tf32 = False  # the fp32 reference forward in full fp32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = config_lib.Config(model=config_lib.ModelConfig(architecture="refinenet", base_channels=128,
+                                                         channel_multiplier=(1, 2, 2, 2)))
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(0)
+        net32 = build_model(cfg, device="cpu")
+    sd = net32.state_dict()
+    work = os.path.join(tmp, "refinenet")
+    os.makedirs(work)
+    pth = os.path.join(work, "refinenet-random.pth")
+    torch.save({"cfg": config_lib.asdict(cfg), "weights": {f"model.{k}": v for k, v in sd.items()},
+                "ema_weights": {**{f"ema_model.model.{k}": v for k, v in sd.items()},
+                                "initted": torch.tensor(True), "step": torch.tensor(1)}, "global_step": 1}, pth)
+    pack = write_checkpoint(os.path.join(work, "refinenet-random.msgpack"), config_lib.asdict(cfg),
+                            to_jax(sd, "refinenet"), ema_weights=to_jax(sd, "refinenet"), step=1)
+    out = {"parameters": sum(p.numel() for p in net32.parameters())}
+    ops.reset_launch_counts()
+    for path in (pth, pack):
+        ddpm, lidar, cfg2 = setup_model(path, dtype=torch.bfloat16, device="cuda")
+        got = ddpm.model.state_dict()
+        same = all(torch.equal(got[k].cpu(), v) for k, v in sd.items()) and got.keys() == sd.keys()
+        grid = np.allclose(lidar.ray_angles.cpu().numpy(), unit_grid(cfg.data.resolution)[0].transpose(1, 2, 0))
+        if not (same and grid and isinstance(ddpm.model, LiDARGenRefineNet)):
+            raise AssertionError(f"setup_model({os.path.basename(path)}): weights equal {same}, ray angles the "
+                                 f"grid {grid}, {type(ddpm.model).__name__}")
+    print(f"RefineNet {out['parameters']} parameters: setup_model from a reference .pth and a msgpack, weights "
+          f"equal, ray angles its [0, 1] grid")
+
+    # a b8 forward, bf16 against fp32 (TF32 off), and its ms
+    net32 = net32.cuda().eval()
+    net = ddpm.model
+    H, W = cfg.data.resolution
+    xin = randn(torch, (B, H, W, 2), 40)
+    cond = torch.linspace(0.0, 1.0, B, device="cuda")
+    # FLOPs of one forward: every conv's 2 x output pixels x weight size
+    # (a multiply-add counts 2), read off the output shapes with hooks
+    conv_flops = []
+    hooks = [m.register_forward_hook(lambda m, a, y: conv_flops.append(2 * y[0, 0].numel() * m.weight.numel()))
+             for m in net.modules() if isinstance(m, torch.nn.Conv2d)]
+    with torch.inference_mode():
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        y16 = net(xin, cond)
+        torch.cuda.synchronize()
+        fwd_peak = torch.cuda.max_memory_allocated() - base
+        for h in hooks:
+            h.remove()
+        y32 = net32(xin, cond)
+        rel = ((y16 - y32).norm() / y32.norm()).item()
+        fwd_ms = graph_ms(torch, lambda: net(xin, cond), iters=3)
+        fwd32_ms = cuda_ms(torch, lambda: net32(xin, cond), iters=2, warmup=1)
+    del net32, y32
+    flops = sum(conv_flops) // B
+    out["forward"] = {"rel_l2_bf16_vs_fp32": rel, "bf16_ms": fwd_ms, "fp32_ms": fwd32_ms, "peak_bytes": fwd_peak,
+                      "conv_gflop_per_image": flops / 1e9, "bf16_tflops": flops * B / fwd_ms / 1e9}
+    print(f"RefineNet forward b{B} ({card}): {json.dumps(out['forward'])} (limit 2e-2)")
+    if not rel <= 2e-2:
+        raise AssertionError(f"RefineNet bf16 against fp32: relative L2 {rel}")
+
+    # DDIM-16 b8 and generate b2
+    t0 = time.time()
+    x = ddpm.sample(B, 16, mode="ddim", seeds=range(B))
+    torch.cuda.synchronize()
+    out["ddim16_s"] = time.time() - t0
+    gen_dir = os.path.join(work, "generate")
+    _run_cli("r2dm_tpu_torch.generate", ["--ckpt", pth, "--batch_size", "2", "--sampling_steps", "4", "--mode",
+                                         "ddim", "--out_dir", gen_dir])
+    size = _png_size(os.path.join(gen_dir, "samples_img.png"))
+    print(f"RefineNet ddim16 b{B}: {out['ddim16_s']:.3f} s, max|x| {x.abs().max().item():.4f}; generate b2: "
+          f"samples_img.png {size}")
+    if not (bool(torch.isfinite(x).all()) and x.abs().max().item() <= 1.02 and size == (2 * 2 * H, W)):
+        raise AssertionError(f"RefineNet sampling: finite {bool(torch.isfinite(x).all())}, PNG {size}")
+    del ddpm, net
+
+    # python -m r2dm_tpu_torch.train: 4 steps, then 2 resumed
+    run_dir = os.path.join(work, "train")
+    argv = REFINENET_FLAGS + ["--data.dataset", "synthetic", "--training.output_dir", run_dir,
+                              "--training.steps_save_image", "100000", "--training.steps_save_model", "100000"]
+    os.environ["R2DM_SYNTH_SCANS"] = str(B)
+    try:
+        t0 = time.time()
+        _run_cli("r2dm_tpu_torch.train", argv + ["--training.num_steps", "4"])
+        first = load_checkpoint(os.path.join(run_dir, "checkpoint.msgpack"))
+        _run_cli("r2dm_tpu_torch.train", argv + ["--training.num_steps", "6", "--training.resume",
+                                                 os.path.join(run_dir, "checkpoint.msgpack")])
+        torch.cuda.synchronize()
+        out["train_cli_s"] = time.time() - t0
+    finally:
+        os.environ.pop("R2DM_SYNTH_SCANS")
+    second = load_checkpoint(os.path.join(run_dir, "checkpoint.msgpack"))
+    counts = [(c["global_step"], int(c["opt_state"]["1"]["0"]["count"])) for c in (first, second)]
+    finite = all(np.isfinite(np.asarray(a)).all() for a in _leaves(second["weights"]))
+    with open(os.path.join(run_dir, "metrics.jsonl")) as f:
+        losses = [json.loads(line)["loss"] for line in f]
+    print(f"RefineNet train b{B}, 4 + 2 resumed steps: {out['train_cli_s']:.3f} s, (step, AdamW count) {counts}, "
+          f"losses logged {losses}, weights finite {finite}")
+    if counts != [(4, 4), (6, 6)] or not finite or not all(math.isfinite(v) for v in losses):
+        raise AssertionError(f"RefineNet train: {counts}, finite {finite}, losses {losses}")
+
+    # the train step's ms and peak memory (CUDA events, 2 warm-up + 5 timed)
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(1)
+        model = build_model(cfg, dtype=torch.bfloat16, device="cuda").train()
+    optimizer, scheduler = make_optimizer(model.parameters(), config_lib.TrainingConfig(lr_warmup_steps=1))
+    state = init_train_state(model, optimizer, scheduler)
+    step = make_train_step(ContinuousTimeGaussianDiffusion(model), optimizer, scheduler,
+                           EMAConfig(update_after_step=0, update_every=1))
+    g = torch.Generator("cuda").manual_seed(3)
+    x_0 = torch.rand((B, H, W, 2), generator=g, device="cuda") * 2 - 1
+    for _ in range(2):
+        step(state, x_0, g)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    step_ms = []
+    for _ in range(5):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        metrics = step(state, x_0, g)
+        end.record()
+        torch.cuda.synchronize()
+        step_ms.append(start.elapsed_time(end))
+    med = sorted(step_ms)[len(step_ms) // 2]
+    out["train_step"] = {"median_ms": med, "img_per_s": B / med * 1e3, "step_ms": step_ms,
+                         "peak_bytes": torch.cuda.max_memory_allocated() - base, "resident_bytes": base,
+                         "loss": metrics["loss"].item()}
+    launches = _launches(ops)
+    out["launches"] = launches
+    print(f"RefineNet train step b{B} ({card}): {json.dumps(out['train_step'])}; hand-written kernel launches "
+          f"over the phase {json.dumps(launches)}")
+    if launches != launches_of(0, 0) or not math.isfinite(out["train_step"]["loss"]):
+        raise AssertionError(f"RefineNet: launches {launches}, loss {out['train_step']['loss']}")
+    return out
+
+
+def int8_rows(int8, main_launches, train_launches) -> list:
+    """The kernels line's rows of the int8 lane's two kernels, at the level-1
+    ResidualBlock site (64 -> 64 at 64x1024, b8): ``launches`` from the
+    lane's main path, the DDIM-16 chain; no single PyTorch call computes the
+    int8 conv (library_ms null), ``torch.linalg.vector_norm(x, inf)`` does the
+    absmax."""
+    lv = int8["level1"]
+    shape = lv["shape"] + [lv["f"]]
+    rows = []
+    for name, ms, plain, bound, bound_by, lib, err in (
+            ("ring_conv_w8a8", lv["ms"], lv["plain_ms"], lv["bound_ms"], lv["bound_by"], None, int8["max_abs_err"]),
+            ("act_absmax", lv["absmax_ms"], lv["absmax_plain_ms"], lv["absmax_bound_ms"], "bytes",
+             lv["absmax_library_ms"], int8["absmax_max_abs_err"])):
+        src, replaces = SOURCES[name]
+        rows.append({"name": name, "route": "cuda", "source": src, "replaces": replaces,
+                     "launches": int8["launches"][name], "max_abs_err": err, "ms": ms, "plain_ms": plain,
+                     "bound_ms": bound, "bound_by": bound_by, "library_ms": lib, "shape": shape,
+                     "bf16_act_ringconv_ms": lv["bf16_act_ringconv_ms"], "main_path_launches": main_launches[name],
+                     "train_launches_per_step": train_launches[name] // TRAIN_STEPS})
+    return rows
 
 
 def main() -> int:
@@ -1754,11 +2168,15 @@ def main() -> int:
         return 1
     gn_err = phases.run("kernel 1 against its plain version", phase_gn, torch)
     conv_err = phases.run("kernel 2 against its plain version", phase_conv, torch)
-    eval_out = accum = two_ranks = reflowed = None
+    eval_out = accum = two_ranks = reflowed = int8 = None
     with tempfile.TemporaryDirectory() as tmp:
         main_out = phases.run("main path", phase_main, torch, tmp)
         if main_out is not None:
             phases.run("serving paths", phase_serving, torch, main_out, tmp)
+            int8 = phases.run("int8 lane: the s8 ring conv, a forward, DDIM, generate, sample_and_save", phase_int8,
+                              torch, main_out, tmp, card)
+        refinenet = phases.run("RefineNet at full width: load, forward, sample, train", phase_refinenet, torch,
+                               tmp, card)
         phases.run("training: backward of both kernels", phase_train_backward, torch)
         train_cli = phases.run("training: python -m r2dm_tpu_torch.train", phase_train_cli, torch, tmp)
         accum = phases.run("training: gradient accumulation", phase_accum_cli, torch, tmp)
@@ -1782,6 +2200,8 @@ def main() -> int:
         errs = {**gn_err, "fused_act_ringconv": conv_err}
         rows = phases.run("timing", phase_time, torch, main_out["launches"], train_cli["launches"], errs)
         phases.run("breakdown", phase_breakdown, torch, main_out["ddpm"])
+        if rows is not None and int8 is not None:
+            rows += int8_rows(int8, main_out["launches"], train_cli["launches"])
     else:
         rows = None
     if phases.failed:
@@ -1797,7 +2217,13 @@ def main() -> int:
         row["two_rank_train_launches_per_rank_per_step"] = two_ranks["train"]["launches_per_rank_per_step"][name]
         row["reflow_teacher_launches"] = reflowed["launches"]["teacher"][name]
         row["reflow_finetune_launches"] = reflowed["launches"]["finetune"][name]
+        row["int8_ddim16_launches"] = int8["launches"][name]
+        row["refinenet_phase_launches"] = refinenet["launches"][name]
     print(f"ddim16_b{B}_img_per_s {main_out['ddim16_img_s']:.4f}")
+    print(f"int8_ddim16_b{B}_img_per_s {int8['ddim16']['img_per_s']:.4f}; int8 forward device ms "
+          f"{json.dumps(int8['forward_times'])}")
+    print(f"refinenet_b{B} forward {refinenet['forward']['bf16_ms']:.3f} ms, train step "
+          f"{refinenet['train_step']['median_ms']:.3f} ms (peak {refinenet['train_step']['peak_bytes'] / 1e9:.3f} GB)")
     print(f"train_step_b{B}_median_ms {train_time['median_step_ms']:.3f} "
           f"({train_time['img_per_s']:.3f} img/s, peak {train_time['peak_bytes'] / 1e9:.3f} GB)")
     print(card)

@@ -22,6 +22,12 @@ rank's: the counterpart of the JAX ``bench.py --mesh N``, which shards the
 batch over N devices and reports aggregate img/s. ``--mesh`` ('N' or
 'Nx1') must equal the world size; a width axis exits.
 
+``$R2DM_TPU_INT8`` (any non-empty value) runs the network on the int8
+serving lane (``models/layers.py::set_quant_conv``, the s8 ring-conv
+kernel), as the JAX ``bench.py:149-155`` does; the line then says
+``"int8": "w8a8"``, and MFU stays against the bf16 peak, so the two lanes'
+numbers compare.
+
 MFU is achieved FLOP/s over the H100 SXM's dense bf16 tensor rate (989
 TFLOP/s), with the FLOP count of a config-H forward computed from the
 port's module shapes (``forward_flops``): its convolutions (3x3, 1x1 and the
@@ -45,7 +51,7 @@ from . import config as config_lib
 from . import parallel
 from .inference import DDPM, build_diffusion, build_model, model_coords
 from .models.efficient_unet import EfficientUNet
-from .models.layers import RingConv
+from .models.layers import RingConv, set_quant_conv
 from .ops import build
 
 PEAK_BF16_FLOPS = 989e12  # H100 SXM dense bf16 tensor-core rate
@@ -99,10 +105,16 @@ def protocol_flops(flops: dict[str, int]) -> int:
     return flops["conv"] + flops["resample"]
 
 
-def random_ddpm(device="cuda", seed: int = 0) -> DDPM:
-    """Config H with every parameter N(0, 0.05^2) from ``seed`` (so the zero-
-    initialised output conv is not zero), bf16 on CUDA."""
-    cfg = config_lib.Config()
+def int8_lane():
+    """The serving lane ``$R2DM_TPU_INT8`` asks for: "w8a8", or None."""
+    return "w8a8" if os.environ.get("R2DM_TPU_INT8") else None
+
+
+def random_ddpm(device="cuda", seed: int = 0, cfg=None) -> DDPM:
+    """Config H (or ``cfg``) with every parameter N(0, 0.05^2) from ``seed``
+    (so the zero-initialised output conv is not zero), bf16 on CUDA, on the
+    int8 lane under ``$R2DM_TPU_INT8``."""
+    cfg = cfg or config_lib.Config()
     bf16 = torch.device(device).type == "cuda"
     model = build_model(cfg, dtype=torch.bfloat16 if bf16 else None, device="cpu")
     g = torch.Generator().manual_seed(seed)
@@ -110,7 +122,7 @@ def random_ddpm(device="cuda", seed: int = 0) -> DDPM:
         for p in model.parameters():
             p.copy_(torch.randn(p.shape, generator=g) * 0.05)
         model.coords.copy_(torch.from_numpy(model_coords(cfg).transpose(2, 0, 1)[None].copy()))
-    model = model.to(device)
+    model = set_quant_conv(model.to(device), int8_lane())
     return DDPM(build_diffusion(cfg, model), cfg)
 
 
@@ -177,6 +189,8 @@ def _protocol(batch: int, steps: int, trials: int, ddim_steps: int) -> dict:
     t_start = time.time()
     build.build_all()
     ddpm = random_ddpm("cuda")
+    if int8_lane():
+        print("R2DM_TPU_INT8: the network runs the int8 (W8A8) lane; MFU against the bf16 peak", flush=True)
     flops = forward_flops(ddpm.model)
     h, w = ddpm.sampling_shape[:2]
 
@@ -219,6 +233,7 @@ def _protocol(batch: int, steps: int, trials: int, ddim_steps: int) -> dict:
         "seconds_all": times,
         "warmup_step_s": warm_s,
         "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
+        "int8": int8_lane(),
         "device": torch.cuda.get_device_name(0),
         "card": card(),
     }

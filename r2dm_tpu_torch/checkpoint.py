@@ -30,7 +30,7 @@ from typing import Any
 import numpy as np
 import torch
 
-from .utils.weights import jax_from_state_dict, state_dict_from_jax
+from .utils.weights import from_jax, to_jax
 
 EXT_NDARRAY = 1
 EXT_NPSCALAR = 3
@@ -275,8 +275,9 @@ def optax_opt_state(state) -> dict:
         mu[name] = st.get("exp_avg", torch.zeros_like(p))
         nu[name] = st.get("exp_avg_sq", torch.zeros_like(p))
     count = np.asarray(state.updates, np.int32)
+    arch = state.model.architecture
     adam = {"0": {}, "1": {
-        "0": {"count": count, "mu": jax_from_state_dict(mu)["params"], "nu": jax_from_state_dict(nu)["params"]},
+        "0": {"count": count, "mu": to_jax(mu, arch)["params"], "nu": to_jax(nu, arch)["params"]},
         "1": {},
         "2": {"count": count},
     }}
@@ -287,7 +288,7 @@ def optax_opt_state(state) -> dict:
         "mini_step": np.asarray(state.mini_step, np.int32),
         "gradient_step": count,
         "inner_opt_state": adam,
-        "acc_grads": jax_from_state_dict(acc)["params"],
+        "acc_grads": to_jax(acc, arch)["params"],
         "skip_state": {},
     }
 
@@ -308,9 +309,10 @@ def load_opt_state(state, stored: dict) -> None:
         )
     adam = (stored["inner_opt_state"] if multi else stored)["1"]["0"]
     count = int(np.asarray(adam["count"]))
-    mu = state_dict_from_jax({"params": adam["mu"]})
-    nu = state_dict_from_jax({"params": adam["nu"]})
-    acc = state_dict_from_jax({"params": stored["acc_grads"]}) if multi else None
+    arch = state.model.architecture
+    mu = from_jax({"params": adam["mu"]}, arch)
+    nu = from_jax({"params": adam["nu"]}, arch)
+    acc = from_jax({"params": stored["acc_grads"]}, arch) if multi else None
     for i, (name, p) in enumerate(state.model.named_parameters()):
         state.optimizer.state[p] = {
             "step": torch.tensor(float(count), dtype=torch.float32),
@@ -351,8 +353,9 @@ def save_checkpoint(path: str, cfg: dict, state) -> str:
     the weights and EMA weights of its (unwrapped) modules in the flax
     ``{'params', 'buffers': {'coords'}}`` layout, the optimizer state in
     optax's (``optax_opt_state``)."""
+    arch = state.model.architecture
     return write_checkpoint(
-        path, cfg, jax_from_state_dict(state.model.state_dict()),
-        ema_weights=jax_from_state_dict(state.ema_model.state_dict()),
+        path, cfg, to_jax(state.model.state_dict(), arch),
+        ema_weights=to_jax(state.ema_model.state_dict(), arch),
         opt_state=optax_opt_state(state), step=state.step,
     )

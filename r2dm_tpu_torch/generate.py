@@ -8,7 +8,10 @@ seeds and a progress line, and writes ``samples_img.png`` (the channels of
 each scan stacked, turbo colours) and ``samples_bev.png`` (a bird's-eye
 render, viridis height colours). ``--video`` writes the reverse process as
 a PNG frame sequence under ``samples_frames/``. On CUDA the network computes
-in bfloat16 (the kernels' type), so ``--bf16`` is implied there.
+in bfloat16 (the kernels' type), so ``--bf16`` is implied there. ``--int8``
+runs the ring convs on the W8A8 serving lane (``models/layers.py::
+set_quant_conv``; on the card the s8 ring-conv kernel), as the JAX
+``generate.py --int8`` does.
 """
 
 from __future__ import annotations
@@ -24,6 +27,7 @@ from . import render as render_lib
 from .colormaps import VIRIDIS
 from .inference import setup_model
 from .lidar import LiDARUtility
+from .models.layers import set_quant_conv
 
 MODES = ("ddpm", "ddim", "dpmpp_2m", "euler", "midpoint")
 MAX_FRAMES = 128
@@ -48,9 +52,6 @@ def render_panels(x: torch.Tensor, lidar_utils: LiDARUtility) -> tuple[np.ndarra
 
 
 def main(args: argparse.Namespace) -> int:
-    if args.int8:
-        print("--int8: the W8A8 serving lane is not ported yet (ROADMAP.md queue 1, int8)", file=sys.stderr)
-        return 2
     if args.latency_layout:
         print("--latency_layout: the width-pair-merged (W2C) layout is a TPU-only re-lowering of the same "
               "network and is not ported (ROADMAP.md, North star)", file=sys.stderr)
@@ -58,6 +59,9 @@ def main(args: argparse.Namespace) -> int:
     device = torch.device(args.device)
     bf16 = args.bf16 or device.type == "cuda"
     ddpm, lidar_utils, _ = setup_model(args.ckpt, dtype=torch.bfloat16 if bf16 else None, device=device)
+    if args.int8:
+        set_quant_conv(ddpm.model, "w8a8")
+        print("--int8: ring convs on the W8A8 lane", file=sys.stderr)
     xs = ddpm.sample(
         batch_size=args.batch_size,
         num_steps=args.sampling_steps,
@@ -101,7 +105,7 @@ def parse_args(argv=None) -> argparse.Namespace:
     parser.add_argument("--seed", type=int, default=0)
     parser.add_argument("--video", action="store_true")
     parser.add_argument("--bf16", action="store_true", help="bf16 network compute (implied on CUDA)")
-    parser.add_argument("--int8", action="store_true", help="W8A8 ring convs (not ported yet)")
+    parser.add_argument("--int8", action="store_true", help="W8A8 int8 ring convs (the serving lane)")
     parser.add_argument("--latency_layout", action="store_true", help="width-pair-merged level 1 (TPU-only)")
     parser.add_argument("--device", type=str, default="cuda", help="cuda (default) or cpu")
     parser.add_argument("--out_dir", type=str, default=".", help="where the PNGs go")

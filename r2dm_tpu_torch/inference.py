@@ -29,8 +29,10 @@ from .diffusion import ContinuousTimeGaussianDiffusion, DiscreteTimeGaussianDiff
 from .diffusion.base import Generators, NoiseSource, check_repaint_grid
 from .lidar import LiDARUtility, nearest_exact_resize_hw
 from .models.efficient_unet import EfficientUNet
+from .models.layers import quant_conv_mode
+from .models.refinenet import LiDARGenRefineNet
 from .ops.encoding import get_hdl64e_linear_ray_angles
-from .utils.weights import reference_unet_state_dict, state_dict_from_jax
+from .utils.weights import from_jax, reference_state_dict
 
 # the JAX package's unfolding angle tables, read in place as data
 ANGLES_DIR = Path(__file__).resolve().parent.parent / "r2dm_tpu" / "data" / "angles"
@@ -51,13 +53,25 @@ def _check_dtype(device, dtype) -> None:
         raise ValueError("the CUDA kernels compute in bfloat16: pass dtype=torch.bfloat16 for a CUDA model")
 
 
-def build_model(cfg: config_lib.Config, dtype: Optional[torch.dtype] = None, device="cuda") -> EfficientUNet:
-    """The denoiser from a Config (reference utils/inference.py:38-58)."""
-    if cfg.model.architecture != "efficient_unet":
-        raise NotImplementedError(f"architecture {cfg.model.architecture!r} is not ported yet")
+def build_model(cfg: config_lib.Config, dtype: Optional[torch.dtype] = None, device="cuda"):
+    """The denoiser from a Config (reference utils/inference.py:38-58):
+    ``cfg.model.architecture`` "efficient_unet" or "refinenet" (JAX
+    inference.py:71-81)."""
     _check_dtype(device, dtype)
+    in_channels = int(cfg.data.train_depth) + int(cfg.data.train_reflectance)
+    if cfg.model.architecture == "refinenet":
+        model = LiDARGenRefineNet(
+            in_channels=in_channels,
+            resolution=tuple(cfg.data.resolution),
+            base_channels=cfg.model.base_channels,
+            channel_multiplier=tuple(cfg.model.channel_multiplier),
+            dtype=dtype,
+        )
+        return model.to(device).eval()
+    if cfg.model.architecture != "efficient_unet":
+        raise ValueError(f"unknown architecture: {cfg.model.architecture}")
     model = EfficientUNet(
-        in_channels=int(cfg.data.train_depth) + int(cfg.data.train_reflectance),
+        in_channels=in_channels,
         resolution=tuple(cfg.data.resolution),
         base_channels=cfg.model.base_channels,
         temb_channels=cfg.model.temb_channels,
@@ -96,7 +110,7 @@ def model_coords(cfg: config_lib.Config) -> np.ndarray:
     raise ValueError(f"unknown projection: {cfg.data.projection}")
 
 
-def build_diffusion(cfg: config_lib.Config, model: EfficientUNet):
+def build_diffusion(cfg: config_lib.Config, model: torch.nn.Module):
     """The configured diffusion process (reference utils/inference.py:62-78;
     r2dm_tpu/inference.py:115-140)."""
     common = dict(
@@ -156,6 +170,12 @@ class DDPM:
     # DDIM step 112.7 MB), so 0.7 x 85.0 GB / m = 520.9 and n = 512
     # (58.5 GB).
     MAX_BATCH_PIXELS = 512 * 64 * 1024
+    # Under the int8 lane the JAX package's bounds (r2dm_tpu/inference.py:
+    # 396-397: a batch over 384 images runs as chunks of 256): one
+    # activation scale covers a whole chunk, so an int8 sample depends on
+    # the samples it is chunked with, and the port chunks as JAX does.
+    INT8_MAX_BATCH_PIXELS = 384 * 64 * 1024
+    INT8_BATCH_CHUNK_PIXELS = 256 * 64 * 1024
 
     def __init__(self, diffusion, cfg: Optional[config_lib.Config] = None):
         self.diffusion = diffusion
@@ -164,7 +184,7 @@ class DDPM:
         self._auto_calls = 0
 
     @property
-    def model(self) -> EfficientUNet:
+    def model(self) -> torch.nn.Module:
         return self.diffusion.model
 
     @property
@@ -191,7 +211,10 @@ class DDPM:
                 raise ValueError(f"batch_chunk must be >= 1, got {batch_chunk}")
             return batch_chunk
         hw = int(np.prod(self.sampling_shape[:-1]))
-        if batch_size * hw <= self.MAX_BATCH_PIXELS:
+        bound, chunk = self.MAX_BATCH_PIXELS, self.MAX_BATCH_PIXELS
+        if quant_conv_mode(self.model) is not None:
+            bound, chunk = self.INT8_MAX_BATCH_PIXELS, self.INT8_BATCH_CHUNK_PIXELS
+        if batch_size * hw <= bound:
             return batch_size
         if seeds is None:
             warnings.warn(
@@ -200,7 +223,7 @@ class DDPM:
                 "determinism",
                 stacklevel=3,
             )
-        return max(1, self.MAX_BATCH_PIXELS // hw)
+        return max(1, chunk // hw)
 
     def _check_mode(self, mode: str) -> None:
         is_flow = isinstance(self.diffusion, RectifiedFlow)
@@ -380,12 +403,15 @@ def setup_model(
     cfg = load_config(ckpt)
     weights = ckpt.get("ema_weights" if ema else "weights") or ckpt.get("weights")
     if "params" in weights:  # a flax tree {'params', 'buffers'}
-        sd = state_dict_from_jax(weights)
+        sd = from_jax(weights, cfg.model.architecture)
     else:
-        sd = reference_unet_state_dict(weights)
+        sd = reference_state_dict(weights)
     model = build_model(cfg, dtype=dtype, device="cpu")
     if "coords" not in sd:
-        sd["coords"] = torch.from_numpy(np.ascontiguousarray(model_coords(cfg).transpose(2, 0, 1)[None]))
+        # the EfficientUNet's grid is the sensor's ray angles; a RefineNet
+        # keeps its own [0, 1] grid, as the flax module's buffer does
+        sd["coords"] = (torch.from_numpy(np.ascontiguousarray(model_coords(cfg).transpose(2, 0, 1)[None]))
+                        if cfg.model.architecture == "efficient_unet" else model.coords)
     model.load_state_dict(sd)
     model = model.to(device)
     ddpm = DDPM(build_diffusion(cfg, model), cfg)

@@ -1,3 +1,4 @@
 from .efficient_unet import EfficientUNet
+from .refinenet import LiDARGenRefineNet
 
-__all__ = ["EfficientUNet"]
+__all__ = ["EfficientUNet", "LiDARGenRefineNet"]

@@ -73,8 +73,10 @@ class UNetBlock(nn.Module):
         super().__init__()
         self.downsample = None
         if down:
+            # the JAX package composes the down conv with the FIR filter,
+            # so the int8 lane leaves it in the compute dtype
             self.downsample = nn.Sequential(
-                RingConv(in_channels, out_channels, dtype=dtype), Resample(up=False)
+                RingConv(in_channels, out_channels, dtype=dtype, quantizable=False), Resample(up=False)
             )
             in_channels = out_channels
         self.residual_blocks = nn.ModuleList(
@@ -108,6 +110,8 @@ class UNetBlock(nn.Module):
 
 class EfficientUNet(nn.Module):
     """forward(images NHWC (B, H, W, in_channels), timesteps (B,)) -> NHWC fp32."""
+
+    architecture = "efficient_unet"
 
     def __init__(
         self,

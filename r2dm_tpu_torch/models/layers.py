@@ -13,6 +13,13 @@ None), as the JAX modules do. GroupNorm statistics and the SiLU run in fp32.
 once, and ``fused_act_ringconv`` convolves it with ``apply_act=False``
 (GN+SiLU -> conv -> AdaGN+SiLU -> [dropout] -> conv -> skip); on CUDA
 tensors those calls are the hand-written kernels, under autograd too.
+
+The int8 serving lane (the JAX package's ``layers.QUANT_CONV = "w8a8"``) is
+a setting of each model, ``set_quant_conv(model, "w8a8")``: every 3x3
+``RingConv`` built ``quantizable`` (all but the down convs, which the JAX
+package composes with their FIR filter and keeps in bf16) then runs
+``ops/quant.py::ring_conv_w8a8`` on the activation as it arrives, in the
+JAX package's dtype at each site, with the output in the compute dtype.
 """
 
 from __future__ import annotations
@@ -27,7 +34,9 @@ import torch.nn.functional as F
 from ..ops.act_ringconv import fused_act_ringconv
 from ..ops.gn_silu import fused_group_norm_silu
 from ..ops.pad import ring_pad
+from ..ops.quant import pack_weight, ring_conv_w8a8
 
+QUANT_MODES = (None, "w8a8")
 RESIDUAL_SCALE = float(1 / math.sqrt(2))
 
 
@@ -56,11 +65,12 @@ class Dense(nn.Linear):
 class RingConv(nn.Module):
     """3x3 conv with circular W / zero H padding (reference ops.Conv2d,
     models/ops.py:149-173), or a 1x1 conv. NHWC in and out; the weight is
-    OIHW like the reference's."""
+    OIHW like the reference's. ``quant``: None, or "w8a8" for the int8
+    lane (only a 3x3 conv built ``quantizable``; ``set_quant_conv``)."""
 
     def __init__(
         self, in_channels: int, out_channels: int, kernel_size: int = 3,
-        dtype: Optional[torch.dtype] = None,
+        dtype: Optional[torch.dtype] = None, quantizable: bool = True,
     ):
         super().__init__()
         assert kernel_size in (1, 3)
@@ -68,12 +78,29 @@ class RingConv(nn.Module):
         self.bias = nn.Parameter(torch.zeros(out_channels))
         nn.init.kaiming_uniform_(self.weight, a=math.sqrt(5))
         self.compute_dtype = dtype
+        self.quantizable = quantizable and kernel_size == 3
+        self.quant: Optional[str] = None
+        self._packed = None  # (key, pack_weight(...)) of the int8 lane on the card
 
     def hwio(self) -> torch.Tensor:
         """The weight in the (kh, kw, C_in, F) layout of the JAX kernels."""
         return self.weight.permute(2, 3, 1, 0)
 
+    def packed_s8(self):
+        """The weight quantized and packed for the s8 kernel, made again only
+        when the weight changes (its version counter, device or storage)."""
+        w = self.weight
+        key = (w._version, w.device, w.data_ptr())
+        if self._packed is None or self._packed[0] != key:
+            self._packed = (key, pack_weight(self.hwio()))
+        return self._packed[1]
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.quant == "w8a8":
+            # quantized from the fp32 master weight and the activation as it
+            # arrives (JAX layers.py:116-123); the output in the compute dtype
+            return ring_conv_w8a8(x, self.hwio(), self.bias, out_dtype=self.compute_dtype or x.dtype,
+                                  packed=self.packed_s8() if x.is_cuda else None)
         cd = _compute_dtype(self.compute_dtype, x, self.weight)
         x = x.to(cd)
         if self.weight.shape[-1] == 3:
@@ -209,6 +236,8 @@ class ResidualBlock(nn.Module):
         )
 
     def _conv(self, conv: RingConv, h: torch.Tensor) -> torch.Tensor:
+        if conv.quant is not None:
+            return conv(h)
         hc = h.to(self.compute_dtype) if self.compute_dtype is not None else h
         return fused_act_ringconv(hc, None, None, conv.hwio(), conv.bias, apply_act=False)
 
@@ -220,3 +249,21 @@ class ResidualBlock(nn.Module):
         h = self._conv(self.conv2, h)
         skip = self.skip(x) if self.skip is not None else x
         return (skip + h) * _scale_in(h, RESIDUAL_SCALE)
+
+
+def set_quant_conv(model: nn.Module, mode: Optional[str]) -> nn.Module:
+    """Turn the int8 serving lane of ``model`` on ("w8a8") or off (None):
+    every quantizable 3x3 ``RingConv`` in it (the JAX package's
+    ``layers.QUANT_CONV``, a global there). Inference-only: the lane raises
+    under autograd. Returns the model."""
+    if mode not in QUANT_MODES:
+        raise ValueError(f"unknown quantization mode {mode!r}; one of {QUANT_MODES}")
+    for m in model.modules():
+        if isinstance(m, RingConv) and m.quantizable:
+            m.quant = mode
+    return model
+
+
+def quant_conv_mode(model: nn.Module) -> Optional[str]:
+    """The lane ``set_quant_conv`` set on ``model`` (None when it is off)."""
+    return next((m.quant for m in model.modules() if isinstance(m, RingConv) and m.quant), None)

@@ -27,7 +27,7 @@ NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-lineinfo", "-Xptxas", "-v",
 )
-SOURCES = ("gn_silu", "act_ringconv")
+SOURCES = ("gn_silu", "act_ringconv", "w8a8_ringconv")
 
 _lock = threading.Lock()
 _libs: dict[str, ctypes.CDLL] = {}

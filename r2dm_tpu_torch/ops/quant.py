@@ -1,0 +1,211 @@
+"""The W8A8 int8 serving lane: a 3x3 ring convolution on s8 x s8 -> s32,
+NHWC. The CUDA kernels ``csrc/w8a8_ringconv.cu`` and their plain PyTorch
+version.
+
+Replaces ``r2dm_tpu/ops/quant.py::ring_conv_w8a8``, an XLA int8 convolution
+(not a Pallas kernel), with the same arithmetic:
+
+  * weights: symmetric per-output-channel s8 of the fp32 master kernel,
+    scale = absmax / 127 + 1e-12 (``weight_qparams``);
+  * activations: symmetric per-tensor s8 with a dynamic scale, the absmax
+    taken in fp32 over the whole tensor (``act_qparams``), so a sample's
+    values depend on the rest of its batch;
+  * q = clip(round_half_even(v / scale), -127, 127), a true division;
+  * y = float(conv(ring_pad(xq), kq)) * (x_scale * w_scale[f]) + bias[f],
+    cast to ``out_dtype``; the s32 sum is exact (|sum| <= 9 C 127^2 < 2^31
+    for C_in up to 14,793).
+
+A CPU tensor takes the plain version (the integer conv in float64, which is
+exact); a CUDA tensor launches the kernels or raises: ``act_absmax`` (the
+activation's absmax, one fp32 value on the card) and the s8 conv, each
+counting its launches in ``.launches``. The lane is inference-only, as in
+the JAX package (round has no gradient): under autograd it raises.
+
+On CUDA, PyTorch computes ``tensor / python_float`` as a multiplication by
+the reciprocal, which rounds otherwise than the JAX package's division, so
+every division here takes a tensor divisor.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import Optional
+
+import torch
+import torch.nn.functional as F
+
+from . import build
+from .pad import ring_pad
+
+EPS = 1e-12
+QMAX = 127
+K_CHUNK = 64  # input channels per K slice of the kernel; the packed weight pads C_in to it
+_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.int32: 2}
+
+
+def _lib():
+    lib = build.load("w8a8_ringconv")
+    if lib.w8a8_ringconv_launch.argtypes is None:
+        lib.w8a8_ringconv_launch.argtypes = [ctypes.c_void_p, ctypes.c_int] + [ctypes.c_void_p] * 5 + \
+            [ctypes.c_int] * 7 + [ctypes.c_void_p]
+        lib.w8a8_ringconv_launch.restype = ctypes.c_int
+        lib.absmax_launch.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_void_p,
+                                      ctypes.c_void_p]
+        lib.absmax_launch.restype = ctypes.c_int
+    return lib
+
+
+def _scale(absmax: torch.Tensor) -> torch.Tensor:
+    """absmax / 127 + 1e-12 in fp32, a true division (quant.py:53,62)."""
+    return absmax / torch.full((), float(QMAX), device=absmax.device) + EPS
+
+
+def _quantize(v: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
+    return torch.clamp(torch.round(v / scale), -QMAX, QMAX).to(torch.int8)
+
+
+def weight_qparams(kernel: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """HWIO kernel -> (s8 kernel, fp32 scale (F,)) with kernel ~= kq * scale
+    (quant.py:46-56)."""
+    k = kernel.to(torch.float32)
+    scale = _scale(k.abs().amax(dim=(0, 1, 2)))
+    return _quantize(k, scale), scale
+
+
+def act_qparams(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Dynamic per-tensor s8 of an activation: (xq, fp32 scale ()) (quant.py:
+    59-64)."""
+    xf = x.to(torch.float32)
+    scale = _scale(xf.abs().amax())
+    return _quantize(xf, scale), scale
+
+
+def conv_s8(xq: torch.Tensor, kq: torch.Tensor) -> torch.Tensor:
+    """The integer part, exactly: conv(ring_pad(xq), kq) as int32 (B, H, W,
+    F), W wrapped and H zero-padded, summed in float64 (every partial sum is
+    an integer below 2^53)."""
+    xp = ring_pad(xq.to(torch.float64), 1).permute(0, 3, 1, 2)
+    y = F.conv2d(xp, kq.to(torch.float64).permute(3, 2, 0, 1))
+    return y.permute(0, 2, 3, 1).round().to(torch.int32).contiguous()
+
+
+def ring_conv_w8a8_plain(x, kernel, bias, out_dtype=None) -> torch.Tensor:
+    """The plain version: quantize, the exact integer conv, then
+    float(y) * (x_scale * w_scale) + bias, cast to ``out_dtype`` (x's
+    dtype when None) in the order of quant.py:104-107."""
+    out_dtype = out_dtype or x.dtype
+    xq, xs = act_qparams(x)
+    kq, ks = weight_qparams(kernel)
+    out = conv_s8(xq, kq).to(torch.float32) * (xs * ks)
+    if bias is not None:
+        out = out + bias.to(torch.float32)
+    return out.to(out_dtype)
+
+
+def pack_weight(kernel: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """HWIO fp32 kernel -> (s8 (F, 9, Cp) with column (kh*3 + kw, c), C_in
+    zero-padded to Cp, a multiple of K_CHUNK; fp32 scales (F,)): the
+    kernel's K-major B operand."""
+    kq, ks = weight_qparams(kernel)
+    C, Fo = kq.shape[2], kq.shape[3]
+    cp = -(-C // K_CHUNK) * K_CHUNK
+    packed = torch.zeros((Fo, 9, cp), dtype=torch.int8, device=kernel.device)
+    packed[:, :, :C] = kq.permute(3, 0, 1, 2).reshape(Fo, 9, C)
+    return packed, ks.contiguous()
+
+
+def _check(x: torch.Tensor, what: str) -> None:
+    if not x.is_cuda:
+        raise ValueError(f"{what}: expected a CPU or CUDA tensor, got {x.device}")
+    if x.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"{what}: the CUDA kernels take float32 or bfloat16 activations, got {x.dtype}")
+    if not x.is_contiguous() or x.data_ptr() % 16:
+        raise ValueError(f"{what}: expected a contiguous tensor on a 16-byte boundary")
+
+
+def act_absmax(x: torch.Tensor) -> torch.Tensor:
+    """max |x| over the whole tensor, as a 0-d fp32 tensor: the reduction
+    kernel on a CUDA tensor (every block folds its maximum in with an
+    integer atomicMax on the float's bits, exact for non-negative values
+    and independent of the order), ``x.abs().amax()`` on a CPU one."""
+    if x.device.type == "cpu":
+        return x.to(torch.float32).abs().amax()
+    _check(x, "act_absmax")
+    lib = _lib()
+    out = torch.zeros((), dtype=torch.float32, device=x.device)
+    rc = lib.absmax_launch(x.data_ptr(), _DTYPE_CODE[x.dtype], x.numel(), out.data_ptr(),
+                           build.stream_ptr(x.device))
+    build.check(lib, rc, "act_absmax")
+    act_absmax.launches += 1
+    return out
+
+
+def _launch(x, kernel, packed, bias, out_dtype, amax=None) -> torch.Tensor:
+    _check(x, "ring_conv_w8a8")
+    if x.dim() != 4:
+        raise ValueError(f"ring_conv_w8a8: expected NHWC x, got shape {tuple(x.shape)}")
+    B, H, W, C = x.shape
+    if kernel.dim() != 4 or tuple(kernel.shape[:3]) != (3, 3, C):
+        raise ValueError(f"ring_conv_w8a8: kernel shape {tuple(kernel.shape)} is not (3, 3, {C}, F)")
+    wq, ks = packed if packed is not None else pack_weight(kernel)
+    Fo, taps, cp = wq.shape
+    if (Fo, taps, cp) != (kernel.shape[3], 9, -(-C // K_CHUNK) * K_CHUNK) or tuple(ks.shape) != (Fo,):
+        raise ValueError(f"ring_conv_w8a8: packed weight {tuple(wq.shape)} is not the kernel's")
+    if bias is not None:
+        if tuple(bias.shape) != (Fo,):
+            raise ValueError(f"ring_conv_w8a8: bias shape {tuple(bias.shape)} is not ({Fo},)")
+        bias = bias.to(torch.float32).contiguous()
+    for t in (wq, ks) + ((bias,) if bias is not None else ()):
+        if t.device != x.device:
+            raise ValueError(f"ring_conv_w8a8: operands on {t.device} and {x.device}")
+    lib = _lib()
+    if amax is None:
+        amax = act_absmax(x)
+    elif amax.dtype != torch.float32 or amax.numel() != 1 or amax.device != x.device:
+        raise ValueError("ring_conv_w8a8: amax must be one fp32 value on x's device")
+    y = torch.empty((B, H, W, Fo), dtype=out_dtype, device=x.device)
+    rc = lib.w8a8_ringconv_launch(
+        x.data_ptr(), _DTYPE_CODE[x.dtype], amax.data_ptr(), wq.data_ptr(), ks.data_ptr(),
+        bias.data_ptr() if bias is not None else None, y.data_ptr(), _DTYPE_CODE[out_dtype],
+        B, H, W, C, cp, Fo, build.stream_ptr(x.device),
+    )
+    build.check(lib, rc, "ring_conv_w8a8")
+    ring_conv_w8a8.launches += 1
+    return y
+
+
+def _no_grad(*tensors) -> None:
+    if torch.is_grad_enabled() and any(t is not None and t.requires_grad for t in tensors):
+        raise RuntimeError(
+            "ring_conv_w8a8: the int8 lane is inference-only (round has no gradient); "
+            "run it under torch.no_grad() or torch.inference_mode()"
+        )
+
+
+def ring_conv_w8a8(x, kernel, bias, out_dtype: Optional[torch.dtype] = None, packed=None,
+                   amax: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """3x3 ring conv in W8A8, NHWC: x (B, H, W, C) fp32 or bf16, kernel (3,
+    3, C, F) HWIO (the fp32 master), bias (F,) or None; the output in
+    ``out_dtype`` (x's dtype when None). On the CUDA route, ``packed`` is
+    ``pack_weight(kernel)`` kept by the caller (packed here otherwise) and
+    ``amax`` x's ``act_absmax`` when the caller has it (launched here
+    otherwise); the plain version takes both from x and kernel."""
+    _no_grad(x, kernel, bias)
+    out_dtype = out_dtype or x.dtype
+    if x.device.type == "cpu":
+        return ring_conv_w8a8_plain(x, kernel, bias, out_dtype)
+    return _launch(x, kernel, packed, bias, out_dtype, amax)
+
+
+def w8a8_accumulators(x, kernel, packed=None) -> torch.Tensor:
+    """The s32 sums conv(ring_pad(xq), kq) alone, int32 (B, H, W, F): the
+    kernel without its epilogue on a CUDA tensor (a launch of the same
+    kernel, counted), ``conv_s8`` on a CPU one."""
+    _no_grad(x, kernel)
+    if x.device.type == "cpu":
+        return conv_s8(act_qparams(x)[0], weight_qparams(kernel)[0])
+    return _launch(x, kernel, packed, None, torch.int32)
+
+
+ring_conv_w8a8.launches = 0
+act_absmax.launches = 0

@@ -41,7 +41,7 @@ from .checkpoint import write_checkpoint
 from .diffusion.base import normal
 from .diffusion.flow import RectifiedFlow
 from .inference import setup_model
-from .utils.weights import jax_from_state_dict
+from .utils.weights import to_jax
 
 
 def _generator(seed: int, index: int, device) -> torch.Generator:
@@ -114,7 +114,7 @@ def main(argv=None) -> int:
             print(f"reflow step {step}: loss {float(loss):.2e}", flush=True)
 
     # ---- 3. save (the JAX layout; EMA lane = the reflowed weights) -------
-    weights = jax_from_state_dict(model.state_dict())
+    weights = to_jax(model.state_dict(), model.architecture)
     write_checkpoint(args.out, config_lib.asdict(cfg), weights, ema_weights=weights, step=args.train_steps)
     print(f"wrote {args.out} — sample with --mode euler and 1-4 steps")
     return 0

@@ -18,8 +18,10 @@ Under ``torchrun`` the seeds are strided over the ranks, ``seeds[rank::
 world]``, as the JAX package strides them over processes
 (sample_and_save.py:60-62); samples are per-seed deterministic, so no batch
 is padded. ``--mesh`` ('N' or 'Nx1') must equal the world size; a width axis
-exits (``parallel.parse_mesh``). Not ported: ``$R2DM_TPU_INT8`` (ROADMAP.md
-queue 1, int8), which exits with a message.
+exits (``parallel.parse_mesh``). ``$R2DM_TPU_INT8`` (any non-empty value)
+samples on the W8A8 serving lane (``models/layers.py::set_quant_conv``), as
+the JAX package's does (sample_and_save.py:29-35); an int8 scan depends on
+the batch it ran in (one activation scale a tensor).
 """
 
 from __future__ import annotations
@@ -35,6 +37,7 @@ import torch
 from . import parallel
 from .inference import setup_model
 from .lidar import LiDARUtility
+from .models.layers import set_quant_conv
 
 MODES = ("ddpm", "ddim", "dpmpp_2m", "euler", "midpoint")
 
@@ -49,9 +52,6 @@ def postprocess(x: torch.Tensor, lidar_utils: LiDARUtility) -> torch.Tensor:
 
 
 def main(args: argparse.Namespace) -> int:
-    if os.environ.get("R2DM_TPU_INT8"):
-        print("R2DM_TPU_INT8: the W8A8 serving lane is not ported yet (ROADMAP.md queue 1, int8)", file=sys.stderr)
-        return 2
     world = parallel.init(args.device)
     try:
         return _run(args, world)
@@ -64,6 +64,8 @@ def _run(args: argparse.Namespace, world: parallel.World) -> int:
     device = world.device
     bf16 = args.bf16 or device.type == "cuda"
     ddpm, lidar_utils, _ = setup_model(args.ckpt, dtype=torch.bfloat16 if bf16 else None, device=device)
+    if os.environ.get("R2DM_TPU_INT8"):
+        set_quant_conv(ddpm.model, "w8a8")
     save_dir = Path(args.output_dir)
     save_dir.mkdir(parents=True, exist_ok=True)
     seeds = np.arange(args.num_samples)[world.rank::world.size]

@@ -16,7 +16,10 @@ checkpoint, exit 0. ``--training.profile_dir`` writes a ``torch.profiler``
 trace of steps 10-15. On CUDA every train step runs both hand-written
 kernels forward and the ring-conv kernel backward.
 ``--training.gradient_accumulation_steps`` and ``--training.grad_bf16`` are
-the JAX trainer's (``training/step.py``).
+the JAX trainer's (``training/step.py``). ``--model.architecture refinenet``
+trains the LiDARGen RefineNet (plain PyTorch, no hand-written kernel); as
+the JAX trainer does, its ``coords`` buffer is set to the sensor's grid of
+``model_coords`` like the EfficientUNet's (train.py:219-225).
 
 On N cards, one process per card (the data axis of ``parallel/``):
 
@@ -70,7 +73,7 @@ from .inference import build_diffusion, build_model, count_parameters, model_coo
 from .lidar import LiDARUtility
 from .training import EMAConfig, init_train_state, make_optimizer, make_train_step, schedule_lr, set_schedule_step
 from .utils.logging import MetricLogger, save_image_panels
-from .utils.weights import state_dict_from_jax
+from .utils.weights import from_jax
 
 CHECKPOINT = "checkpoint.msgpack"
 SAMPLE_STEPS = 256  # the EMA panels' DDPM chain, as in the JAX trainer
@@ -120,8 +123,9 @@ def resume(state, path: str) -> int:
     running mean) and step from a checkpoint of this trainer or of the JAX
     package's; returns the step."""
     ckpt = load_checkpoint(path)
-    state.model.load_state_dict(state_dict_from_jax(ckpt["weights"]))
-    state.ema_model.load_state_dict(state_dict_from_jax(ckpt["ema_weights"] or ckpt["weights"]))
+    arch = state.model.architecture
+    state.model.load_state_dict(from_jax(ckpt["weights"], arch))
+    state.ema_model.load_state_dict(from_jax(ckpt["ema_weights"] or ckpt["weights"], arch))
     state.step = ckpt["global_step"]
     if ckpt["opt_state"] is not None:
         load_opt_state(state, ckpt["opt_state"])

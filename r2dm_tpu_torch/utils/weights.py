@@ -1,16 +1,21 @@
-"""Weights in and out of the port's ``EfficientUNet``, and into its
-evaluation networks.
+"""Weights in and out of the port's denoisers (``EfficientUNet``,
+``LiDARGenRefineNet``), and into its evaluation networks.
 
 The port's parameters carry the reference torch ``state_dict`` names, so a
-reference checkpoint needs only its wrapper prefixes stripped and the
-constants it registers as buffers dropped (FIR kernels, residual ``scale``,
-coordinate-encoding tables, ``_dummy``, discrete beta tables), which the port
-recomputes. ``state_dict_from_jax`` carries a flax ``{'params', 'buffers'}``
-tree of numpy arrays over: HWIO -> OIHW, (I, O) -> (O, I), the packed qkv,
-and ``coords`` (H, W, 2) -> (1, 2, H, W); ``jax_from_state_dict`` is its
-inverse, for the checkpoint writer. The extractors' converters map a
-bonnetal RangeNet state dict (both ways) and the JAX package's flax RangeNet
-and PointNet trees to the port's reference torch names.
+reference checkpoint of either network needs only its wrapper prefixes
+stripped and the constants it registers as buffers dropped (FIR kernels,
+residual ``scale``, coordinate-encoding tables, ``_dummy``, discrete beta
+tables), which the port recomputes (``reference_state_dict``).
+``state_dict_from_jax`` carries a flax EfficientUNet ``{'params',
+'buffers'}`` tree of numpy arrays over: HWIO -> OIHW, (I, O) -> (O, I), the
+packed qkv, and ``coords`` (H, W, 2) -> (1, 2, H, W); ``jax_from_state_dict``
+is its inverse, for the checkpoint writer. ``refinenet_state_dict_from_jax``
+and ``refinenet_jax_from_state_dict`` are the same pair for the RefineNet
+(``convert_refinenet_state_dict`` / ``export_refinenet_state_dict`` of
+r2dm_tpu/utils/torch_import.py); ``from_jax``/``to_jax`` pick the pair by
+architecture. The extractors' converters map a bonnetal RangeNet state dict
+(both ways) and the JAX package's flax RangeNet and PointNet trees to the
+port's reference torch names.
 """
 
 from __future__ import annotations
@@ -34,11 +39,11 @@ def _tensor(v) -> torch.Tensor:
     return torch.from_numpy(np.array(v, dtype=np.float32, copy=True))
 
 
-def reference_unet_state_dict(weights: Mapping[str, Any]) -> dict[str, torch.Tensor]:
-    """A reference checkpoint's flat ``weights``/``ema_weights`` -> the
-    port's ``state_dict``: EMA wrappers keep ``ema_model.`` and drop
-    ``online_model.``/``initted``/``step``; ``model.`` is stripped and the
-    recomputed constants dropped (r2dm_tpu/inference.py:777-798)."""
+def reference_state_dict(weights: Mapping[str, Any]) -> dict[str, torch.Tensor]:
+    """A reference checkpoint's flat ``weights``/``ema_weights`` (of either
+    network) -> the port's ``state_dict``: EMA wrappers keep ``ema_model.``
+    and drop ``online_model.``/``initted``/``step``; ``model.`` is stripped
+    and the recomputed constants dropped (r2dm_tpu/inference.py:777-798)."""
     sd = {}
     for key, v in weights.items():
         if key.startswith(("online_model.", "initted", "step")):
@@ -185,6 +190,160 @@ def jax_from_state_dict(sd: Mapping[str, torch.Tensor]) -> dict:
     if buffers:
         out["buffers"] = buffers
     return out
+
+
+# ---------------------------------------------------------------- RefineNet
+# The only block whose conv2 and skip are Sequential(conv, AvgPool2d) on the
+# reference side (key suffix ".0"): the pool fires iff dilation == 1 and the
+# block downsamples, which in the fixed LiDARGen net is d_block2's first
+# (torch_import.py:380-385).
+_REFINENET_POOLED = ("d_block2", "0")
+
+
+def _refinenet_norm(prefix: tuple, rest: list) -> tuple[tuple, str]:
+    if rest == ["alpha"]:
+        return prefix + ("alpha",), "alpha"
+    if rest == ["post_affine", "weight"]:
+        return prefix + ("scale",), "affine"
+    if rest == ["post_affine", "bias"]:
+        return prefix + ("bias",), ""
+    raise KeyError(f"unhandled RefineNet norm parameter: {'.'.join(rest)}")
+
+
+def _refinenet_flax_path(key: str) -> tuple[tuple, str]:
+    """The port's RefineNet parameter name -> (flax path, transform: "conv",
+    "alpha", "affine" or "")."""
+    parts = key.split(".")
+    leaf = {"weight": "kernel", "bias": "bias"}.get(parts[-1])
+    conv = "conv" if leaf == "kernel" else ""
+    if parts[0] == "in_conv" and len(parts) == 2:
+        return ("in_conv", leaf), conv
+    if parts[:2] == ["out_conv", "2"]:
+        return ("out_conv", leaf), conv
+    if parts[:2] == ["out_conv", "0"]:
+        return _refinenet_norm(("out_norm",), parts[2:])
+    if re.fullmatch(r"d_block\d", parts[0]):
+        block, sub = f"{parts[0]}_{parts[1]}", parts[2]
+        if sub in ("norm1", "norm2"):
+            return _refinenet_norm((block, sub), parts[3:])
+        if sub in ("conv1", "conv2", "skip"):
+            return (block, sub, "conv", leaf), conv
+    if re.fullmatch(r"u_block\d", parts[0]):
+        top, sub = parts[0], parts[1]
+        if sub == "adaptive_convs" and parts[3] == "0":  # .units.j.{2k+1}.weight
+            j, k = parts[5], (int(parts[6]) - 1) // 2
+            return (top, f"adapt{parts[2]}_rcu", f"unit{j}_stage{k}", "conv", "kernel"), "conv"
+        if sub == "adaptive_convs" and parts[3] == "1":
+            return (top, f"adapt{parts[2]}_proj", "conv", leaf), conv
+        if sub == "crp":
+            return (top, "crp", f"conv{parts[3]}", "conv", "kernel"), "conv"
+        if sub == "output_conv":
+            return (top, "output_rcu", f"unit{parts[3]}_stage{(int(parts[4]) - 1) // 2}", "conv", "kernel"), "conv"
+    raise KeyError(f"unhandled RefineNet parameter: {key}")
+
+
+def _refinenet_port_key(path: tuple) -> str:
+    """A flax RefineNet leaf path -> the port's parameter name (the inverse
+    of ``_refinenet_flax_path``)."""
+    top, leaf = path[0], path[-1]
+    wb = {"kernel": "weight", "bias": "bias"}.get(leaf)
+    norm = {"alpha": "alpha", "scale": "post_affine.weight", "bias": "post_affine.bias"}
+    if top == "in_conv":
+        return f"in_conv.{wb}"
+    if top == "out_conv":
+        return f"out_conv.2.{wb}"
+    if top == "out_norm":
+        return f"out_conv.0.{norm[leaf]}"
+    m = re.fullmatch(r"(d_block\d)_(\d)", top)
+    if m:
+        sub = path[1]
+        if sub in ("norm1", "norm2"):
+            return f"{m[1]}.{m[2]}.{sub}.{norm[leaf]}"
+        pooled = sub != "conv1" and (m[1], m[2]) == _REFINENET_POOLED
+        return f"{m[1]}.{m[2]}.{sub}{'.0' if pooled else ''}.{wb}"
+    if re.fullmatch(r"u_block\d", top):
+        sub = path[1]
+        unit = re.fullmatch(r"unit(\d+)_stage(\d+)", path[2]) if len(path) > 2 else None
+        m = re.fullmatch(r"adapt(\d+)_(rcu|proj)", sub)
+        if m and m[2] == "rcu":
+            return f"{top}.adaptive_convs.{m[1]}.0.units.{unit[1]}.{2 * int(unit[2]) + 1}.weight"
+        if m:
+            return f"{top}.adaptive_convs.{m[1]}.1.{wb}"
+        if sub == "crp":
+            return f"{top}.crp.convs.{path[2][4:]}.1.weight"
+        if sub == "output_rcu":
+            return f"{top}.output_conv.units.{unit[1]}.{2 * int(unit[2]) + 1}.weight"
+    raise KeyError(f"unhandled flax path: {'/'.join(path)}")
+
+
+def _leaves(node, path=()):
+    if isinstance(node, Mapping):
+        for k, v in node.items():
+            yield from _leaves(v, path + (k,))
+    else:
+        yield path, node
+
+
+def _to_port(a: np.ndarray, transform: str) -> np.ndarray:
+    if transform == "conv":
+        return np.transpose(a, (3, 2, 0, 1))  # HWIO -> OIHW
+    if transform == "alpha":
+        return a.reshape(1, -1, 1, 1)
+    if transform == "affine":
+        return a.reshape(-1, 1, 1, 1)
+    return a
+
+
+def refinenet_state_dict_from_jax(variables: Mapping[str, Any]) -> dict[str, torch.Tensor]:
+    """A flax LiDARGenRefineNet ``{'params', 'buffers'}`` tree -> the port's
+    ``state_dict`` (the names of export_refinenet_state_dict,
+    torch_import.py:368-460, without ``model.``)."""
+    sd: dict[str, torch.Tensor] = {}
+    for path, v in _leaves(variables.get("params", variables)):
+        a = v.float().numpy() if isinstance(v, torch.Tensor) else np.asarray(v, dtype=np.float32)
+        key = _refinenet_port_key(path)
+        sd[key] = _tensor(_to_port(a, _refinenet_flax_path(key)[1]))
+    coords = variables.get("buffers", {}).get("coords")
+    if coords is not None:
+        c = coords.float().numpy() if isinstance(coords, torch.Tensor) else np.asarray(coords, np.float32)
+        sd["coords"] = _tensor(np.transpose(c, (2, 0, 1))[None])
+    return sd
+
+
+def refinenet_jax_from_state_dict(sd: Mapping[str, torch.Tensor]) -> dict:
+    """The port's RefineNet ``state_dict`` (or any name -> tensor map over
+    its parameters) -> a flax ``{'params', 'buffers': {'coords'}}`` tree of
+    fp32 numpy arrays; the inverse of ``refinenet_state_dict_from_jax``."""
+    params: dict = {}
+    buffers: dict = {}
+    for key, v in sd.items():
+        a = v.detach().to(torch.float32).cpu().numpy() if isinstance(v, torch.Tensor) else np.asarray(v, np.float32)
+        if key == "coords":
+            buffers["coords"] = np.ascontiguousarray(np.transpose(a[0], (1, 2, 0)))
+            continue
+        path, transform = _refinenet_flax_path(key)
+        if transform == "conv":
+            a = np.transpose(a, (2, 3, 1, 0))  # OIHW -> HWIO
+        elif transform:
+            a = a.reshape(-1)
+        node = params
+        for p in path[:-1]:
+            node = node.setdefault(p, {})
+        node[path[-1]] = np.ascontiguousarray(a)
+    out = {"params": params}
+    if buffers:
+        out["buffers"] = buffers
+    return out
+
+
+def from_jax(variables: Mapping[str, Any], architecture: str = "efficient_unet") -> dict[str, torch.Tensor]:
+    """A flax tree -> the port's ``state_dict``, for ``architecture``."""
+    return refinenet_state_dict_from_jax(variables) if architecture == "refinenet" else state_dict_from_jax(variables)
+
+
+def to_jax(sd: Mapping[str, torch.Tensor], architecture: str = "efficient_unet") -> dict:
+    """The port's ``state_dict`` -> a flax tree, for ``architecture``."""
+    return refinenet_jax_from_state_dict(sd) if architecture == "refinenet" else jax_from_state_dict(sd)
 
 
 # ------------------------------------------------------- RangeNet, PointNet

@@ -31,6 +31,10 @@ from r2dm_tpu_torch.lidar import LiDARUtility
 from r2dm_tpu_torch.train import main as train_main
 from r2dm_tpu_torch.train import step_generator
 
+# one intra-op thread: the suite runs in several processes at once, and each
+# one's default (every core) oversubscribes the machine
+torch.set_num_threads(1)
+
 REPO = Path(__file__).resolve().parent.parent
 GOLDEN = REPO / "tests" / "golden"
 TINY_FLAGS = [
@@ -149,7 +153,7 @@ def test_train_cli_checkpoints_and_exits_0_on_sigterm(tmp_path):
             "sys.modules['torch.utils.tensorboard'] = None  # the JSONL sink alone\n"
             f"sys.argv = ['r2dm_tpu_torch.train'] + {argv!r}\n"
             "runpy.run_module('r2dm_tpu_torch.train', run_name='__main__', alter_sys=True)\n")
-    env = {**os.environ, "R2DM_SYNTH_SCANS": "8"}
+    env = {**os.environ, "R2DM_SYNTH_SCANS": "8", "OMP_NUM_THREADS": "1"}
     proc = subprocess.Popen([sys.executable, "-c", code], cwd=REPO, env=env,
                             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
     try:

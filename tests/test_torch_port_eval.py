@@ -34,6 +34,10 @@ from r2dm_tpu_torch.metrics.extractor import postprocess as pp
 from r2dm_tpu_torch.metrics.extractor import rangenet as rn
 from r2dm_tpu_torch.utils import weights
 
+# one intra-op thread: the suite runs in several processes at once, and each
+# one's default (every core) oversubscribes the machine
+torch.set_num_threads(1)
+
 REPO = Path(__file__).resolve().parent.parent
 GOLDEN = Path(__file__).parent / "golden"
 # tests/test_metrics.py's tolerances for the goldens
@@ -42,16 +46,6 @@ STEM_TOL = dict(rtol=1e-4, atol=1e-5)
 # the same float32 weights and inputs in both frameworks: the sums only
 # reassociate
 FP32_TOL = dict(rtol=1e-4, atol=1e-5)
-
-
-@pytest.fixture(autouse=True)
-def two_threads():
-    """Two intra-op threads: the suite runs in several processes at once, and
-    each one's default (every core) oversubscribes the machine."""
-    saved = torch.get_num_threads()
-    torch.set_num_threads(2)
-    yield
-    torch.set_num_threads(saved)
 
 
 def t(x) -> torch.Tensor:
@@ -506,10 +500,3 @@ def test_unported_flags_exit_with_their_roadmap_item(tiny_msgpack, module, argv,
     mod = {"completion_demo": completion_demo}[module]
     assert mod.main(mod.parse_args(["--ckpt", tiny_msgpack, *argv])) == 2
     assert "ROADMAP.md" in capsys.readouterr().err
-
-
-def test_sample_and_save_refuses_the_int8_lane(tiny_msgpack, monkeypatch, capsys):
-    monkeypatch.setenv("R2DM_TPU_INT8", "1")
-    args = sample_and_save.parse_args(["--ckpt", tiny_msgpack, "--output_dir", "x", "--device", "cpu"])
-    assert sample_and_save.main(args) == 2
-    assert "ROADMAP.md queue 1, int8" in capsys.readouterr().err

@@ -19,6 +19,10 @@ from r2dm_tpu_torch.metrics.extractor import pointnet as pn
 from r2dm_tpu_torch.metrics.extractor import rangenet as rn
 from r2dm_tpu_torch.metrics.extractor import strict_fp32
 
+# one intra-op thread: the suite runs in several processes at once, and each
+# one's default (every core) oversubscribes the machine
+torch.set_num_threads(1)
+
 pytestmark = pytest.mark.cuda
 
 

@@ -16,6 +16,10 @@ from r2dm_tpu.ops.pallas_gn import fused_group_norm_silu as jax_gn_silu
 from r2dm_tpu.ops.pallas_resconv import fused_act_ringconv as jax_act_ringconv
 from r2dm_tpu_torch.ops import act_ringconv, gn_silu
 
+# one intra-op thread: the suite runs in several processes at once, and each
+# one's default (every core) oversubscribes the machine
+torch.set_num_threads(1)
+
 
 def t(x):
     return torch.from_numpy(np.ascontiguousarray(x))

@@ -20,18 +20,12 @@ from r2dm_tpu_torch.data.projection import project_points, project_points_numpy
 from r2dm_tpu_torch.ops import build
 from r2dm_tpu_torch.train import main as train_main
 
+# one intra-op thread: the suite runs in several processes at once, and each
+# one's default (every core) oversubscribes the machine
+torch.set_num_threads(1)
+
 GOLDEN = Path(__file__).parent / "golden"
 PROJ = "spherical-256"
-
-
-@pytest.fixture(autouse=True)
-def two_threads():
-    """Two intra-op threads: the suite runs in several processes at once, and
-    each one's default (every core) oversubscribes the machine."""
-    saved = torch.get_num_threads()
-    torch.set_num_threads(2)
-    yield
-    torch.set_num_threads(saved)
 
 
 def write_scan(path: Path, seed: int, n: int = 3000) -> None:

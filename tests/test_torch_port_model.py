@@ -16,6 +16,10 @@ from r2dm_tpu_torch.models.efficient_unet import EfficientUNet
 from r2dm_tpu_torch.models.layers import ResidualBlock
 from r2dm_tpu_torch.utils.weights import DROP, state_dict_from_jax
 
+# one intra-op thread: the suite runs in several processes at once, and each
+# one's default (every core) oversubscribes the machine
+torch.set_num_threads(1)
+
 GOLDEN = Path(__file__).parent / "golden"
 TINY = dict(
     in_channels=2,

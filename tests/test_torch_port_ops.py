@@ -24,6 +24,10 @@ from r2dm_tpu_torch.ops import encoding as enc
 from r2dm_tpu_torch.ops.pad import ring_pad
 from r2dm_tpu_torch.ops.resample import fir_kernel, fir_resample
 
+# one intra-op thread: the suite runs in several processes at once, and each
+# one's default (every core) oversubscribes the machine
+torch.set_num_threads(1)
+
 GOLDEN = Path(__file__).parent / "golden"
 ATOL = 1e-5
 

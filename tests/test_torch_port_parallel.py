@@ -36,13 +36,17 @@ from r2dm_tpu_torch.inference import build_model, model_coords
 from r2dm_tpu_torch.train import main as train_main
 from r2dm_tpu_torch.utils.weights import jax_from_state_dict
 
+# one intra-op thread: the suite runs in several processes at once, and each
+# one's default (every core) oversubscribes the machine
+torch.set_num_threads(1)
+
 REPO = Path(__file__).resolve().parent.parent
 RANK_TIMEOUT_S = 180
 RUNNER = r'''
 import datetime, json, os, runpy, sys
 import torch
 
-torch.set_num_threads(2)
+torch.set_num_threads(1)
 rank, world, init_file, module = int(sys.argv[1]), int(sys.argv[2]), sys.argv[3], sys.argv[4]
 argv, prelude = json.loads(sys.argv[5]), sys.argv[6]
 sys.modules["torch.utils.tensorboard"] = None  # the JSONL sink alone
@@ -86,7 +90,7 @@ class Ranks:
         script = self.dir / "rank.py"
         script.write_text(RUNNER)
         world = len(argvs)
-        env = {**os.environ, "PYTHONPATH": str(REPO), "OMP_NUM_THREADS": "2", **(env or {})}
+        env = {**os.environ, "PYTHONPATH": str(REPO), "OMP_NUM_THREADS": "1", **(env or {})}
         self.logs = [self.dir / f"rank{r}.log" for r in range(world)]
         self.procs = []
         for r, argv in enumerate(argvs):

@@ -22,6 +22,10 @@ from r2dm_tpu_torch.bench import random_ddpm
 from r2dm_tpu_torch.models import layers
 from r2dm_tpu_torch.training import EMAConfig, init_train_state, make_optimizer, make_train_step
 
+# one intra-op thread: the suite runs in several processes at once, and each
+# one's default (every core) oversubscribes the machine
+torch.set_num_threads(1)
+
 pytestmark = pytest.mark.cuda
 TRAIN_REL_L2 = 2e-2  # kernel path against plain path, as chip_smoke.py
 
@@ -66,7 +70,8 @@ def test_one_rank_nccl_ddp_residual_block_gradients_equal_the_plain_block(dev, t
         ddp(x, emb).backward(dy)
         plain(x, emb).backward(dy)
         assert {fn.__name__: fn.launches for fn in ops.KERNEL_WRAPPERS} == {
-            "fused_group_norm_silu": 4, "fused_act_ringconv": 8}  # 2 GN and 2 + 2 conv a block
+            "fused_group_norm_silu": 4, "fused_act_ringconv": 8,  # 2 GN and 2 + 2 conv a block
+            "ring_conv_w8a8": 0, "act_absmax": 0}
         for (name, p), q in zip(block.named_parameters(), plain.parameters()):
             assert p.grad is not None and torch.equal(p.grad, q.grad), name
     finally:
@@ -99,7 +104,8 @@ def test_grad_bf16_step_runs_both_kernels(dev):
         return metrics, launches, [p.grad for p in m.parameters()]
 
     metrics, launches, grads = grads_of_one_step()
-    assert launches == {"fused_group_norm_silu": 50, "fused_act_ringconv": 96}
+    assert launches == {"fused_group_norm_silu": 50, "fused_act_ringconv": 96, "ring_conv_w8a8": 0,
+                        "act_absmax": 0}
     assert torch.isfinite(metrics["loss"]) and torch.isfinite(metrics["grad_norm"])
     saved = {n: getattr(layers, n) for n in ("fused_group_norm_silu", "fused_act_ringconv")}
     try:
@@ -109,7 +115,8 @@ def test_grad_bf16_step_runs_both_kernels(dev):
     finally:
         for n, fn in saved.items():
             setattr(layers, n, fn)
-    assert plain_launches == {"fused_group_norm_silu": 0, "fused_act_ringconv": 0}
+    assert plain_launches == {"fused_group_norm_silu": 0, "fused_act_ringconv": 0, "ring_conv_w8a8": 0,
+                              "act_absmax": 0}
     flat, flat_plain = (torch.cat([gr.flatten() for gr in gs]) for gs in (grads, plain_grads))
     rel = ((flat - flat_plain).norm() / flat_plain.norm()).item()
     assert rel <= TRAIN_REL_L2, rel

@@ -26,6 +26,10 @@ from r2dm_tpu_torch.inference import build_model, model_coords
 from r2dm_tpu_torch.models.efficient_unet import EfficientUNet
 from r2dm_tpu_torch.utils.weights import jax_from_state_dict, state_dict_from_jax
 
+# one intra-op thread: the suite runs in several processes at once, and each
+# one's default (every core) oversubscribes the machine
+torch.set_num_threads(1)
+
 TINY = dict(in_channels=2, resolution=(16, 64), base_channels=8, channel_multiplier=(1, 2, 2, 2),
             num_residual_blocks=(1, 1, 1, 1), gn_num_groups=4, attn_num_heads=2, coords_encoding=None)
 RTOL, ATOL = 1e-4, 2e-5

@@ -20,6 +20,10 @@ from r2dm_tpu.utils.torch_import import export_unet_state_dict
 from r2dm_tpu_torch import pretrained_r2dm, setup_model
 from r2dm_tpu_torch.inference import model_coords
 
+# one intra-op thread: the suite runs in several processes at once, and each
+# one's default (every core) oversubscribes the machine
+torch.set_num_threads(1)
+
 GOLDEN = Path(__file__).parent / "golden"
 
 

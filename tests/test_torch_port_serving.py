@@ -29,7 +29,11 @@ from r2dm_tpu_torch import config as port_config
 from r2dm_tpu_torch.diffusion import DiscreteTimeGaussianDiffusion, schedules
 from r2dm_tpu_torch.inference import DDPM, build_model, model_coords, pretrained_r2dm, setup_rng
 from r2dm_tpu_torch.models.efficient_unet import EfficientUNet
-from r2dm_tpu_torch.utils.weights import reference_unet_state_dict
+from r2dm_tpu_torch.utils.weights import reference_state_dict
+
+# one intra-op thread: the suite runs in several processes at once, and each
+# one's default (every core) oversubscribes the machine
+torch.set_num_threads(1)
 
 GOLDEN = Path(__file__).parent / "golden"
 TINY_MODEL = dict(base_channels=16, gn_num_groups=4, attn_num_heads=4, num_residual_blocks=(1, 1, 1, 1))
@@ -227,7 +231,7 @@ def test_discrete_p_step_matches_golden():
         in_channels=2, resolution=(16, 64), base_channels=16, num_residual_blocks=(1, 1, 1, 1),
         gn_num_groups=4, attn_num_heads=4, coords_encoding="fourier_features",
     )
-    net.load_state_dict(reference_unet_state_dict({k[4:]: c[k] for k in c.files if k.startswith("sd::")}))
+    net.load_state_dict(reference_state_dict({k[4:]: c[k] for k in c.files if k.startswith("sd::")}))
     diff = DiscreteTimeGaussianDiffusion(net, prediction_type="eps", noise_schedule="cosine", num_training_steps=64)
     x_t = torch.from_numpy(np.transpose(g["x_t"], (0, 2, 3, 1)).copy())
     steps = torch.from_numpy(g["steps"].astype(np.int64))

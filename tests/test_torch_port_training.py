@@ -47,6 +47,10 @@ from r2dm_tpu_torch.training import (
 )
 from r2dm_tpu_torch.utils.weights import jax_from_state_dict, state_dict_from_jax
 
+# one intra-op thread: the suite runs in several processes at once, and each
+# one's default (every core) oversubscribes the machine
+torch.set_num_threads(1)
+
 # tests/test_training.py:25-34
 TINY = dict(
     in_channels=2,
