@@ -6,7 +6,7 @@
 Phases (any failure makes the exit code non-zero and suppresses the result):
   1. print the card's name and power limit; build the CUDA kernels from
      r2dm_tpu_torch/csrc with nvcc (one process per source, in parallel);
-     print each library's HGMMA and IMMA counts (cuobjdump -sass) and each
+     print each library's HGMMA and IGMMA counts (cuobjdump -sass) and each
      kernel's registers, spill bytes and shared memory (ptxas), and the
      GroupNorm kernel's cluster size with cudaOccupancyMaxActiveClusters;
   2. kernel 1 (gn_silu.cu) against its plain version at the config-H shapes,
@@ -86,14 +86,17 @@ Phases (any failure makes the exit code non-zero and suppresses the result):
      1-step euler sample at b8 is finite;
  14. the int8 (W8A8) lane on phase 4's network: the sites it quantizes in a
      b8 forward (INT8_SITES, the JAX package's count), one forward with
-     exact launches (53 s8 convs and absmax reductions, 50 GN, no bf16
-     conv) within JAX's gate of the bf16 forward, a DDIM-16 b8 chain (the
-     lane's main path: counters zeroed before, read after), ``generate
-     --int8`` (b2) and ``sample_and_save`` under R2DM_TPU_INT8 (b8); the s8
-     kernel (s32 sums equal, bf16 within one step) and the absmax (exact)
-     against their plain versions at every site shape, each timed beside
-     its bound, the plain version and the bf16 ring-conv kernel; a b8 and
-     a b256 forward's device time on both lanes;
+     exact launches (53 absmax reductions, quantize passes and s8 convs, 50
+     GN, no bf16 conv) within JAX's gate of the bf16 forward, a DDIM-16 b8
+     chain (the lane's main path: counters zeroed before, read after),
+     ``generate --int8`` (b2) and ``sample_and_save`` under R2DM_TPU_INT8
+     (b8); at every site shape the absmax (exact), the quantize pass (s8
+     bit for bit) and the s8 conv (s32 sums, fp32 and bf16 outputs bit for
+     bit) against their plain versions, each timed beside its bound and
+     plain version (the conv also beside the bf16 ring-conv kernel, with
+     its TOPS, registers and spills); a NaN in x giving an all-NaN output
+     on the card as from the plain version; a b8 and a b256 forward's
+     device time on both lanes;
  15. the LiDARGen RefineNet at its published width (base 128, (1, 2, 2, 2),
      64x1024) on random weights: setup_model from a reference-layout .pth
      and a msgpack, a b8 forward bf16 against fp32 (relative L2 <= 2e-2)
@@ -174,9 +177,11 @@ CONV_SHAPES = {
 SOURCES = {
     "fused_group_norm_silu": ("r2dm_tpu_torch/csrc/gn_silu.cu", "r2dm_tpu/ops/pallas_gn.py:107"),
     "fused_act_ringconv": ("r2dm_tpu_torch/csrc/act_ringconv.cu", "r2dm_tpu/ops/pallas_resconv.py:174"),
-    # the int8 lane replaces an XLA int8 conv and its absmax, not a Pallas kernel
+    # the int8 lane replaces an XLA int8 conv, its absmax and its quantization,
+    # not a Pallas kernel
     "ring_conv_w8a8": ("r2dm_tpu_torch/csrc/w8a8_ringconv.cu", "r2dm_tpu/ops/quant.py:78"),
     "act_absmax": ("r2dm_tpu_torch/csrc/w8a8_ringconv.cu", "r2dm_tpu/ops/quant.py:59"),
+    "act_quantize": ("r2dm_tpu_torch/csrc/w8a8_ringconv.cu", "r2dm_tpu/ops/quant.py:63"),
 }
 
 
@@ -299,13 +304,13 @@ def phase_build():
         if sass.returncode != 0:
             raise RuntimeError(f"cuobjdump -sass {lib}: {sass.stderr.strip()}")
         info = {"hgmma": sum("HGMMA" in line for line in sass.stdout.splitlines()),
-                "imma": sum("IMMA" in line for line in sass.stdout.splitlines()),
+                "igmma": sum("IGMMA" in line for line in sass.stdout.splitlines()),
                 "kernels": ptxas_kernels(build.build_log(name))}
         print(f"build {name}: {json.dumps(info)}")
         if name == "act_ringconv" and info["hgmma"] == 0:
             raise RuntimeError("the ring-conv library has no HGMMA instruction: wgmma was not compiled")
-        if name == "w8a8_ringconv" and info["imma"] == 0:
-            raise RuntimeError("the s8 ring-conv library has no IMMA instruction: the s8 mma was not compiled")
+        if name == "w8a8_ringconv" and info["igmma"] == 0:
+            raise RuntimeError("the s8 ring-conv library has no IGMMA instruction: wgmma s8 was not compiled")
         for line in build.build_log(name).splitlines():
             if "warning" in line.lower() or "wgmma" in line.lower():
                 log(f"[{name}] {line.strip()}")
@@ -667,9 +672,10 @@ def _launches(ops) -> dict:
 
 def launches_of(gn: int, conv: int, s8: int = 0) -> dict:
     """The launch counts a run must read: GroupNorm, the bf16 ring conv, and
-    the int8 lane's s8 ring conv with its absmax reduction (one each a
-    quantized conv)."""
-    return {"fused_group_norm_silu": gn, "fused_act_ringconv": conv, "ring_conv_w8a8": s8, "act_absmax": s8}
+    the int8 lane's absmax reduction, quantize pass and s8 ring conv (one
+    each a quantized conv)."""
+    return {"fused_group_norm_silu": gn, "fused_act_ringconv": conv, "ring_conv_w8a8": s8, "act_absmax": s8,
+            "act_quantize": s8}
 
 
 def phase_eval(torch, main_out, tmp, card):
@@ -1882,8 +1888,21 @@ def phase_int8(torch, main_out, tmp, card):
     if sas != launches_of(50 * 2, 0, INT8_SITES * 2) or len(files) != B or not finite:
         raise AssertionError(f"sample_and_save under R2DM_TPU_INT8: {sas}, {files}")
 
-    # (a) each site the lane serves, at b8: kernel against plain version, then times
-    per_site, worst, worst_absmax = [], 0.0, 0.0
+    # (a) each site the lane serves, at b8: the three kernels against their
+    # plain versions, then times; registers and spills from the build log
+    from r2dm_tpu_torch.ops import build
+
+    ptxas = ptxas_kernels(build.build_log("w8a8_ringconv"))
+    mangled = {torch.bfloat16: "I13__nv_bfloat16", torch.float32: "If"}  # template arguments in kernel names
+
+    def regs_of(name: str) -> dict:
+        return next(({"registers": v["registers"], "spill_bytes": v["spill_bytes"]} for k, v in ptxas.items()
+                     if name in k), {"registers": None, "spill_bytes": None})
+
+    def nbytes(t) -> int:
+        return t.numel() * t.element_size()
+
+    per_site, worst, worst_absmax, worst_xq = [], 0.0, 0.0, 0
     for i, ((shape, x_dtype, Fo, out_dtype), count) in enumerate(unique.items()):
         Bs, Hs, Ws, C = shape
         x = randn(torch, shape, 31 + i, x_dtype, scale=1.5)
@@ -1893,50 +1912,80 @@ def phase_int8(torch, main_out, tmp, card):
         with torch.inference_mode():
             amax = quant.act_absmax(x)
             ref_amax = x.float().abs().max()
+            xq = quant.act_quantize(x, amax)
+            ref_xq = quant.act_quantize_plain(x, amax)
             acc = quant.w8a8_accumulators(x, k, packed)
             ref_acc = quant.conv_s8(quant.act_qparams(x)[0], quant.weight_qparams(k)[0])
             y = quant.ring_conv_w8a8(x, k, bias, out_dtype, packed)
             ref = quant.ring_conv_w8a8_plain(x, k, bias, out_dtype)
             y32 = quant.ring_conv_w8a8(x, k, bias, torch.float32, packed)
             ref32 = quant.ring_conv_w8a8_plain(x, k, bias, torch.float32)
-        steps = (y.view(torch.int16).int() - ref.view(torch.int16).int()).abs().max().item()
-        ok = (torch.equal(acc, ref_acc) and torch.equal(y32, ref32) and steps <= 1
-              and amax.item() == ref_amax.item())
+        equal = {"absmax": amax.item() == ref_amax.item(), "xq": torch.equal(xq, ref_xq),
+                 "s32": torch.equal(acc, ref_acc), "fp32": torch.equal(y32, ref32), str(out_dtype): torch.equal(y, ref)}
         worst = max(worst, (y.float() - ref.float()).abs().max().item())
         worst_absmax = max(worst_absmax, abs(amax.item() - ref_amax.item()))
-        if not ok:
-            raise AssertionError(f"s8 kernel at {shape} -> {Fo}: accumulators equal {torch.equal(acc, ref_acc)}, "
-                                 f"fp32 equal {torch.equal(y32, ref32)}, bf16 steps {steps}, absmax "
-                                 f"{amax.item()} vs {ref_amax.item()}")
+        worst_xq = max(worst_xq, (xq.int() - ref_xq.int()).abs().max().item())
+        if not all(equal.values()):
+            raise AssertionError(f"int8 lane at {shape} -> {Fo}: equal to the plain version {equal}")
         with torch.inference_mode():
-            ms = graph_ms(torch, lambda: quant.ring_conv_w8a8(x, k, bias, out_dtype, packed, amax))
+            ms = graph_ms(torch, lambda: quant.ring_conv_s8(xq, amax, packed, bias, out_dtype))
+            plain = cuda_ms(torch, lambda: quant.ring_conv_s8_plain(xq, amax, packed, bias, out_dtype), iters=2,
+                            warmup=1)
+            q_ms = graph_ms(torch, lambda: quant.act_quantize(x, amax))
+            q_plain = graph_ms(torch, lambda: quant.act_quantize_plain(x, amax))
+            lane_ms = graph_ms(torch, lambda: quant.ring_conv_w8a8(x, k, bias, out_dtype, packed, amax))
             absmax_ms = graph_ms(torch, lambda: quant.act_absmax(x))
             absmax_lib = graph_ms(torch, lambda: torch.linalg.vector_norm(x, float("inf")))
             absmax_plain = graph_ms(torch, lambda: x.to(torch.float32).abs().amax())
-            plain = cuda_ms(torch, lambda: quant.ring_conv_w8a8_plain(x, k, bias, out_dtype), iters=2, warmup=1)
             bf16_ms = None
             if C % 8 == 0 and Fo % 8 == 0:
                 xb = x.to(torch.bfloat16)
                 bf16_ms = graph_ms(torch, lambda: act_ringconv.fused_act_ringconv(xb, None, None, k, bias,
                                                                                     apply_act=False))
         ops_ = 2 * 9 * C * Fo * Bs * Hs * Ws
-        nbytes = x.numel() * x.element_size() + Bs * Hs * Ws * Fo * torch.tensor([], dtype=out_dtype).element_size() \
-            + 9 * C * Fo + Fo * 8
-        t_bytes, t_ops = nbytes / PEAK_BYTES * 1e3, ops_ / PEAK_INT8_OPS * 1e3
-        per_site.append({"shape": list(shape), "x_dtype": str(x_dtype).split(".")[-1], "f": Fo, "per_forward": count,
-                         "ms": ms, "bound_ms": max(t_bytes, t_ops), "bound_by": "bytes" if t_bytes >= t_ops
-                         else "operations", "plain_ms": plain, "bf16_act_ringconv_ms": bf16_ms,
-                         "tops": ops_ / ms / 1e9, "absmax_ms": absmax_ms,
-                         "absmax_bound_ms": x.numel() * x.element_size() / PEAK_BYTES * 1e3,
-                         "absmax_plain_ms": absmax_plain, "absmax_library_ms": absmax_lib})
-        print(f"s8 ring conv ok at {list(shape)} {str(x_dtype).split('.')[-1]} -> {Fo}: " + json.dumps(per_site[-1]))
+        t_ops = ops_ / PEAK_INT8_OPS * 1e3
+        w_bytes = nbytes(packed[0]) + nbytes(packed[1]) + Fo * 4
+        t_bytes = (nbytes(xq) + w_bytes + nbytes(y)) / PEAK_BYTES * 1e3  # the conv: s8 xq in
+        lane_bytes = (nbytes(x) + w_bytes + nbytes(y)) / PEAK_BYTES * 1e3  # the lane's function: x in
+        mt = 2 if Ws >= 256 else 1  # launch_conv's m64 tiles per warpgroup
+        per_site.append({
+            "shape": list(shape), "x_dtype": str(x_dtype).split(".")[-1], "f": Fo, "per_forward": count,
+            "ms": ms, "bound_ms": max(t_bytes, t_ops), "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "plain_ms": plain, "tops": ops_ / ms / 1e9,
+            "m64_tiles": mt, **regs_of(f"w8a8_ringconv_kernel{mangled[out_dtype]}Li{mt}E"),
+            "quantize_ms": q_ms, "quantize_bound_ms": (nbytes(x) + nbytes(xq)) / PEAK_BYTES * 1e3,
+            "quantize_plain_ms": q_plain,
+            **{f"quantize_{k_}": v for k_, v in regs_of(f"quantize_kernel{mangled[x_dtype]}E").items()},
+            "lane_ms": lane_ms, "lane_bound_ms": max(lane_bytes, t_ops), "bf16_act_ringconv_ms": bf16_ms,
+            "absmax_ms": absmax_ms, "absmax_bound_ms": nbytes(x) / PEAK_BYTES * 1e3,
+            "absmax_plain_ms": absmax_plain, "absmax_library_ms": absmax_lib})
+        print(f"int8 lane ok at {list(shape)} {str(x_dtype).split('.')[-1]} -> {Fo}: " + json.dumps(per_site[-1]))
     total = {key: sum(s[key] * s["per_forward"] for s in per_site)
-             for key in ("ms", "bound_ms", "plain_ms", "absmax_ms", "absmax_bound_ms")}
+             for key in ("ms", "bound_ms", "plain_ms", "quantize_ms", "quantize_bound_ms", "lane_ms",
+                         "lane_bound_ms", "absmax_ms", "absmax_bound_ms")}
+    total["lane_with_absmax_ms"] = total["lane_ms"] + total["absmax_ms"]
     bf16_sites = [s for s in per_site if s["bf16_act_ringconv_ms"] is not None]
     total["sites_with_a_bf16_kernel"] = sum(s["per_forward"] for s in bf16_sites)
-    total["ms_there"] = sum(s["ms"] * s["per_forward"] for s in bf16_sites)
+    total["lane_ms_there"] = sum(s["lane_ms"] * s["per_forward"] for s in bf16_sites)
     total["bf16_act_ringconv_ms_there"] = sum(s["bf16_act_ringconv_ms"] * s["per_forward"] for s in bf16_sites)
     print(f"int8 lane per b{B} forward ({card}): " + json.dumps(total))
+
+    # a NaN in x: the absmax keeps it, so the scale is NaN and every output,
+    # on the card as from the plain version (and the JAX package)
+    nan = {}
+    for shape, x_dtype, Fo, out_dtype in (next(iter(unique)), max(unique, key=unique.get)):
+        x = randn(torch, shape, 40, x_dtype)
+        x[B - 1, shape[1] // 2, shape[2] // 3, shape[3] - 1] = float("nan")
+        k = randn(torch, (3, 3, shape[3], Fo), 41, scale=0.05)
+        with torch.inference_mode():
+            y = quant.ring_conv_w8a8(x, k, None, out_dtype, quant.pack_weight(k))
+            ref = quant.ring_conv_w8a8_plain(x, k, None, out_dtype)
+        nan[f"{list(shape)} {str(x_dtype).split('.')[-1]}"] = {
+            "absmax_nan": bool(torch.isnan(quant.act_absmax(x))), "all_nan": bool(torch.isnan(y).all()),
+            "plain_all_nan": bool(torch.isnan(ref).all())}
+    print(f"int8 lane, one NaN in x: {json.dumps(nan)}")
+    if not all(all(v.values()) for v in nan.values()):
+        raise AssertionError(f"int8 lane with a NaN in x: {nan}")
 
     # device time of a forward, both lanes, at b8 (CUDA graph) and b256 (events)
     times = {}
@@ -1954,7 +2003,8 @@ def phase_int8(torch, main_out, tmp, card):
     print(f"forward device time, int8 lane against bf16 ({card}): " + json.dumps(times))
     level1 = next(s for s in per_site if s["shape"][1:] == [H, W, 64] and s["f"] == 64 and s["x_dtype"] == "bfloat16")
     out.update({"sites": per_site, "per_forward": total, "forward_times": times, "level1": level1,
-                "max_abs_err": worst, "absmax_max_abs_err": worst_absmax})
+                "max_abs_err": worst, "absmax_max_abs_err": worst_absmax, "quantize_max_abs_err": worst_xq,
+                "nan": nan})
     return out
 
 
@@ -2119,24 +2169,30 @@ def phase_refinenet(torch, tmp, card):
 
 
 def int8_rows(int8, main_launches, train_launches) -> list:
-    """The kernels line's rows of the int8 lane's two kernels, at the level-1
-    ResidualBlock site (64 -> 64 at 64x1024, b8): ``launches`` from the
-    lane's main path, the DDIM-16 chain; no single PyTorch call computes the
-    int8 conv (library_ms null), ``torch.linalg.vector_norm(x, inf)`` does the
-    absmax."""
+    """The kernels line's rows of the int8 lane's three kernels, at the
+    level-1 ResidualBlock site (64 -> 64 at 64x1024, b8): ``launches`` from
+    the lane's main path, the DDIM-16 chain; the s8 conv's row is the conv
+    alone on the quantize pass's output (its bound from s8 xq in; ``lane_ms``
+    quantize + conv, beside the lane function's bound from bf16 x in). No
+    single PyTorch call computes the int8 conv or the quantization
+    (library_ms null); ``torch.linalg.vector_norm(x, inf)`` does the absmax."""
     lv = int8["level1"]
     shape = lv["shape"] + [lv["f"]]
     rows = []
     for name, ms, plain, bound, bound_by, lib, err in (
             ("ring_conv_w8a8", lv["ms"], lv["plain_ms"], lv["bound_ms"], lv["bound_by"], None, int8["max_abs_err"]),
             ("act_absmax", lv["absmax_ms"], lv["absmax_plain_ms"], lv["absmax_bound_ms"], "bytes",
-             lv["absmax_library_ms"], int8["absmax_max_abs_err"])):
+             lv["absmax_library_ms"], int8["absmax_max_abs_err"]),
+            ("act_quantize", lv["quantize_ms"], lv["quantize_plain_ms"], lv["quantize_bound_ms"], "bytes", None,
+             int8["quantize_max_abs_err"])):
         src, replaces = SOURCES[name]
         rows.append({"name": name, "route": "cuda", "source": src, "replaces": replaces,
                      "launches": int8["launches"][name], "max_abs_err": err, "ms": ms, "plain_ms": plain,
                      "bound_ms": bound, "bound_by": bound_by, "library_ms": lib, "shape": shape,
-                     "bf16_act_ringconv_ms": lv["bf16_act_ringconv_ms"], "main_path_launches": main_launches[name],
+                     "main_path_launches": main_launches[name],
                      "train_launches_per_step": train_launches[name] // TRAIN_STEPS})
+    rows[0].update({"lane_ms": lv["lane_ms"], "lane_bound_ms": lv["lane_bound_ms"], "tops": lv["tops"],
+                    "bf16_act_ringconv_ms": lv["bf16_act_ringconv_ms"]})
     return rows
 
 

@@ -1,6 +1,6 @@
 """The W8A8 int8 serving lane: a 3x3 ring convolution on s8 x s8 -> s32,
 NHWC. The CUDA kernels ``csrc/w8a8_ringconv.cu`` and their plain PyTorch
-version.
+versions.
 
 Replaces ``r2dm_tpu/ops/quant.py::ring_conv_w8a8``, an XLA int8 convolution
 (not a Pallas kernel), with the same arithmetic:
@@ -9,16 +9,20 @@ Replaces ``r2dm_tpu/ops/quant.py::ring_conv_w8a8``, an XLA int8 convolution
     scale = absmax / 127 + 1e-12 (``weight_qparams``);
   * activations: symmetric per-tensor s8 with a dynamic scale, the absmax
     taken in fp32 over the whole tensor (``act_qparams``), so a sample's
-    values depend on the rest of its batch;
+    values depend on the rest of its batch; a NaN anywhere makes the scale
+    NaN and so every output NaN;
   * q = clip(round_half_even(v / scale), -127, 127), a true division;
   * y = float(conv(ring_pad(xq), kq)) * (x_scale * w_scale[f]) + bias[f],
     cast to ``out_dtype``; the s32 sum is exact (|sum| <= 9 C 127^2 < 2^31
     for C_in up to 14,793).
 
 A CPU tensor takes the plain version (the integer conv in float64, which is
-exact); a CUDA tensor launches the kernels or raises: ``act_absmax`` (the
-activation's absmax, one fp32 value on the card) and the s8 conv, each
-counting its launches in ``.launches``. The lane is inference-only, as in
+exact); a CUDA tensor launches three kernels or raises, each counting its
+launches in ``.launches``: ``act_absmax`` (the activation's absmax, one fp32
+value on the card), ``act_quantize`` (x quantized once into the conv's
+layout: s8 (B, H, W + 2, Cp), the W ring's columns written in, the channels
+zero-padded to Cp) and the s8 conv on that operand, ``ring_conv_s8``,
+counted in ``ring_conv_w8a8.launches``. The lane is inference-only, as in
 the JAX package (round has no gradient): under autograd it raises.
 
 On CUDA, PyTorch computes ``tensor / python_float`` as a multiplication by
@@ -39,16 +43,19 @@ from .pad import ring_pad
 
 EPS = 1e-12
 QMAX = 127
-K_CHUNK = 64  # input channels per K slice of the kernel; the packed weight pads C_in to it
+K_CHUNK = 64  # input channels per K slice of the s8 conv; xq and the packed weight pad C_in to it
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.int32: 2}
 
 
 def _lib():
     lib = build.load("w8a8_ringconv")
     if lib.w8a8_ringconv_launch.argtypes is None:
-        lib.w8a8_ringconv_launch.argtypes = [ctypes.c_void_p, ctypes.c_int] + [ctypes.c_void_p] * 5 + \
-            [ctypes.c_int] * 7 + [ctypes.c_void_p]
+        lib.w8a8_ringconv_launch.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
         lib.w8a8_ringconv_launch.restype = ctypes.c_int
+        lib.quantize_launch.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
+                                        ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                                        ctypes.c_void_p]
+        lib.quantize_launch.restype = ctypes.c_int
         lib.absmax_launch.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_void_p,
                                       ctypes.c_void_p]
         lib.absmax_launch.restype = ctypes.c_int
@@ -102,13 +109,50 @@ def ring_conv_w8a8_plain(x, kernel, bias, out_dtype=None) -> torch.Tensor:
     return out.to(out_dtype)
 
 
+def padded_channels(c: int) -> int:
+    """Cp: C_in rounded up to a multiple of K_CHUNK, the channels of xq and
+    of the packed weight."""
+    return -(-c // K_CHUNK) * K_CHUNK
+
+
+def act_quantize_plain(x: torch.Tensor, amax: torch.Tensor) -> torch.Tensor:
+    """The quantize pass's plain version: x (B, H, W, C) -> s8 (B, H, W + 2,
+    Cp), the values of ``act_qparams`` for the absmax ``amax``, ring-padded
+    by one column each side and zero-padded to Cp channels."""
+    xq = ring_pad(_quantize(x.to(torch.float32), _scale(amax.to(torch.float32))), (1, 1, 0, 0))
+    return F.pad(xq, (0, padded_channels(x.shape[3]) - x.shape[3]))
+
+
+def conv_s8_padded(xq: torch.Tensor, wq: torch.Tensor) -> torch.Tensor:
+    """The s8 conv's integer part on its own operands, exactly: xq (B, H,
+    W + 2, Cp) from the quantize pass and wq (F, 9, Cp) from ``pack_weight``
+    -> int32 (B, H, W, F), H zero-padded, summed in float64."""
+    Fo, _, cp = wq.shape
+    xp = F.pad(xq.to(torch.float64).permute(0, 3, 1, 2), (0, 0, 1, 1))
+    y = F.conv2d(xp, wq.to(torch.float64).view(Fo, 3, 3, cp).permute(0, 3, 1, 2))
+    return y.permute(0, 2, 3, 1).round().to(torch.int32).contiguous()
+
+
+def ring_conv_s8_plain(xq, amax, packed, bias, out_dtype) -> torch.Tensor:
+    """The s8 conv's plain version: ``conv_s8_padded``, then float(y) *
+    (x_scale * w_scale) + bias, cast to ``out_dtype`` (int32: the sums)."""
+    wq, ks = packed
+    acc = conv_s8_padded(xq, wq)
+    if out_dtype == torch.int32:
+        return acc
+    out = acc.to(torch.float32) * (_scale(amax.to(torch.float32)) * ks)
+    if bias is not None:
+        out = out + bias.to(torch.float32)
+    return out.to(out_dtype)
+
+
 def pack_weight(kernel: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     """HWIO fp32 kernel -> (s8 (F, 9, Cp) with column (kh*3 + kw, c), C_in
-    zero-padded to Cp, a multiple of K_CHUNK; fp32 scales (F,)): the
-    kernel's K-major B operand."""
+    zero-padded to Cp (``padded_channels``); fp32 scales (F,)): the conv's
+    K-major B operand."""
     kq, ks = weight_qparams(kernel)
     C, Fo = kq.shape[2], kq.shape[3]
-    cp = -(-C // K_CHUNK) * K_CHUNK
+    cp = padded_channels(C)
     packed = torch.zeros((Fo, 9, cp), dtype=torch.int8, device=kernel.device)
     packed[:, :, :C] = kq.permute(3, 0, 1, 2).reshape(Fo, 9, C)
     return packed, ks.contiguous()
@@ -124,10 +168,11 @@ def _check(x: torch.Tensor, what: str) -> None:
 
 
 def act_absmax(x: torch.Tensor) -> torch.Tensor:
-    """max |x| over the whole tensor, as a 0-d fp32 tensor: the reduction
-    kernel on a CUDA tensor (every block folds its maximum in with an
-    integer atomicMax on the float's bits, exact for non-negative values
-    and independent of the order), ``x.abs().amax()`` on a CPU one."""
+    """max |x| over the whole tensor, as a 0-d fp32 tensor (NaN when x holds
+    one): the reduction kernel on a CUDA tensor (every block folds its
+    maximum in with an integer atomicMax on the bits of |x|, a NaN as the
+    quiet NaN above +inf; exact and independent of the order; the output
+    zero-filled here first), ``x.abs().amax()`` on a CPU one."""
     if x.device.type == "cpu":
         return x.to(torch.float32).abs().amax()
     _check(x, "act_absmax")
@@ -140,38 +185,93 @@ def act_absmax(x: torch.Tensor) -> torch.Tensor:
     return out
 
 
+def _check_amax(amax: torch.Tensor, x: torch.Tensor, what: str) -> None:
+    if amax.dtype != torch.float32 or amax.numel() != 1 or amax.device != x.device:
+        raise ValueError(f"{what}: amax must be one fp32 value on x's device")
+
+
+def act_quantize(x: torch.Tensor, amax: torch.Tensor) -> torch.Tensor:
+    """x (B, H, W, C) fp32 or bf16 quantized once for the s8 conv: s8 (B, H,
+    W + 2, Cp), column 0 x's column W - 1 and column W + 1 its column 0 (the
+    ring), channels past C zero, each value clip(round_half_even(x / xs),
+    -127, 127) with xs from ``amax`` (x's ``act_absmax``). The quantize
+    kernel on a CUDA tensor, ``act_quantize_plain`` on a CPU one."""
+    if x.dim() != 4:
+        raise ValueError(f"act_quantize: expected NHWC x, got shape {tuple(x.shape)}")
+    if x.device.type == "cpu":
+        return act_quantize_plain(x, amax)
+    _check(x, "act_quantize")
+    _check_amax(amax, x, "act_quantize")
+    B, H, W, C = x.shape
+    cp = padded_channels(C)
+    lib = _lib()
+    xq = torch.empty((B, H, W + 2, cp), dtype=torch.int8, device=x.device)
+    rc = lib.quantize_launch(x.data_ptr(), _DTYPE_CODE[x.dtype], amax.data_ptr(), xq.data_ptr(), B * H, W, C, cp,
+                             build.stream_ptr(x.device))
+    build.check(lib, rc, "act_quantize")
+    act_quantize.launches += 1
+    return xq
+
+
+def ring_conv_s8(xq: torch.Tensor, amax: torch.Tensor, packed, bias, out_dtype: torch.dtype) -> torch.Tensor:
+    """The s8 conv alone, on the quantize pass's output xq (B, H, W + 2, Cp)
+    and ``pack_weight``'s (wq, ks): (B, H, W, F) in ``out_dtype`` (float32,
+    bfloat16, or int32 for the raw sums). The kernel on CUDA tensors (its
+    launches counted in ``ring_conv_w8a8.launches``), ``ring_conv_s8_plain``
+    on CPU ones."""
+    wq, ks = packed
+    if xq.dim() != 4 or xq.dtype != torch.int8 or wq.dim() != 3 or tuple(wq.shape[1:]) != (9, xq.shape[3]) \
+            or xq.shape[3] % K_CHUNK or tuple(ks.shape) != (wq.shape[0],):
+        raise ValueError(f"ring_conv_s8: xq {tuple(xq.shape)} {xq.dtype} and packed weight {tuple(wq.shape)} "
+                         "are not the quantize pass's and pack_weight's")
+    Fo = wq.shape[0]
+    if bias is not None:
+        if tuple(bias.shape) != (Fo,):
+            raise ValueError(f"ring_conv_s8: bias shape {tuple(bias.shape)} is not ({Fo},)")
+        bias = bias.to(torch.float32).contiguous()
+    if xq.device.type == "cpu":
+        return ring_conv_s8_plain(xq, amax, packed, bias, out_dtype)
+    if out_dtype not in _DTYPE_CODE:
+        raise TypeError(f"ring_conv_s8: no output in {out_dtype}")
+    for t in (xq, wq, ks) + ((bias,) if bias is not None else ()):
+        if t.device != xq.device or not t.is_contiguous():
+            raise ValueError(f"ring_conv_s8: operands on {t.device} and {xq.device}, or not contiguous")
+    _check_amax(amax, xq, "ring_conv_s8")
+    B, H, Wp, cp = xq.shape
+    lib = _lib()
+    y = torch.empty((B, H, Wp - 2, Fo), dtype=out_dtype, device=xq.device)
+    rc = lib.w8a8_ringconv_launch(
+        xq.data_ptr(), amax.data_ptr(), wq.data_ptr(), ks.data_ptr(),
+        bias.data_ptr() if bias is not None else None, y.data_ptr(), _DTYPE_CODE[out_dtype],
+        B, H, Wp - 2, cp, Fo, build.stream_ptr(xq.device),
+    )
+    build.check(lib, rc, "ring_conv_s8")
+    ring_conv_w8a8.launches += 1
+    return y
+
+
 def _launch(x, kernel, packed, bias, out_dtype, amax=None) -> torch.Tensor:
+    """The CUDA route: absmax (unless given) -> quantize -> s8 conv."""
     _check(x, "ring_conv_w8a8")
     if x.dim() != 4:
         raise ValueError(f"ring_conv_w8a8: expected NHWC x, got shape {tuple(x.shape)}")
-    B, H, W, C = x.shape
+    C = x.shape[3]
     if kernel.dim() != 4 or tuple(kernel.shape[:3]) != (3, 3, C):
         raise ValueError(f"ring_conv_w8a8: kernel shape {tuple(kernel.shape)} is not (3, 3, {C}, F)")
     wq, ks = packed if packed is not None else pack_weight(kernel)
-    Fo, taps, cp = wq.shape
-    if (Fo, taps, cp) != (kernel.shape[3], 9, -(-C // K_CHUNK) * K_CHUNK) or tuple(ks.shape) != (Fo,):
+    if tuple(wq.shape) != (kernel.shape[3], 9, padded_channels(C)) or tuple(ks.shape) != (kernel.shape[3],):
         raise ValueError(f"ring_conv_w8a8: packed weight {tuple(wq.shape)} is not the kernel's")
-    if bias is not None:
-        if tuple(bias.shape) != (Fo,):
-            raise ValueError(f"ring_conv_w8a8: bias shape {tuple(bias.shape)} is not ({Fo},)")
-        bias = bias.to(torch.float32).contiguous()
+    if bias is not None and tuple(bias.shape) != (kernel.shape[3],):
+        raise ValueError(f"ring_conv_w8a8: bias shape {tuple(bias.shape)} is not ({kernel.shape[3]},)")
+    # every refusal before the first launch
     for t in (wq, ks) + ((bias,) if bias is not None else ()):
         if t.device != x.device:
             raise ValueError(f"ring_conv_w8a8: operands on {t.device} and {x.device}")
-    lib = _lib()
     if amax is None:
         amax = act_absmax(x)
-    elif amax.dtype != torch.float32 or amax.numel() != 1 or amax.device != x.device:
-        raise ValueError("ring_conv_w8a8: amax must be one fp32 value on x's device")
-    y = torch.empty((B, H, W, Fo), dtype=out_dtype, device=x.device)
-    rc = lib.w8a8_ringconv_launch(
-        x.data_ptr(), _DTYPE_CODE[x.dtype], amax.data_ptr(), wq.data_ptr(), ks.data_ptr(),
-        bias.data_ptr() if bias is not None else None, y.data_ptr(), _DTYPE_CODE[out_dtype],
-        B, H, W, C, cp, Fo, build.stream_ptr(x.device),
-    )
-    build.check(lib, rc, "ring_conv_w8a8")
-    ring_conv_w8a8.launches += 1
-    return y
+    else:
+        _check_amax(amax, x, "ring_conv_w8a8")
+    return ring_conv_s8(act_quantize(x, amax), amax, (wq, ks), bias, out_dtype)
 
 
 def _no_grad(*tensors) -> None:
@@ -186,10 +286,11 @@ def ring_conv_w8a8(x, kernel, bias, out_dtype: Optional[torch.dtype] = None, pac
                    amax: Optional[torch.Tensor] = None) -> torch.Tensor:
     """3x3 ring conv in W8A8, NHWC: x (B, H, W, C) fp32 or bf16, kernel (3,
     3, C, F) HWIO (the fp32 master), bias (F,) or None; the output in
-    ``out_dtype`` (x's dtype when None). On the CUDA route, ``packed`` is
-    ``pack_weight(kernel)`` kept by the caller (packed here otherwise) and
-    ``amax`` x's ``act_absmax`` when the caller has it (launched here
-    otherwise); the plain version takes both from x and kernel."""
+    ``out_dtype`` (x's dtype when None). On the CUDA route (absmax ->
+    quantize -> s8 conv), ``packed`` is ``pack_weight(kernel)`` kept by the
+    caller (packed here otherwise) and ``amax`` x's ``act_absmax`` when the
+    caller has it (launched here otherwise); the plain version takes both
+    from x and kernel."""
     _no_grad(x, kernel, bias)
     out_dtype = out_dtype or x.dtype
     if x.device.type == "cpu":
@@ -199,8 +300,8 @@ def ring_conv_w8a8(x, kernel, bias, out_dtype: Optional[torch.dtype] = None, pac
 
 def w8a8_accumulators(x, kernel, packed=None) -> torch.Tensor:
     """The s32 sums conv(ring_pad(xq), kq) alone, int32 (B, H, W, F): the
-    kernel without its epilogue on a CUDA tensor (a launch of the same
-    kernel, counted), ``conv_s8`` on a CPU one."""
+    three kernels, the conv without its epilogue, on a CUDA tensor (each
+    launch counted), ``conv_s8`` on a CPU one."""
     _no_grad(x, kernel)
     if x.device.type == "cpu":
         return conv_s8(act_qparams(x)[0], weight_qparams(kernel)[0])
@@ -209,3 +310,4 @@ def w8a8_accumulators(x, kernel, packed=None) -> torch.Tensor:
 
 ring_conv_w8a8.launches = 0
 act_absmax.launches = 0
+act_quantize.launches = 0

@@ -135,6 +135,78 @@ def test_accumulators_are_the_integer_ring_conv():
     np.testing.assert_array_equal(gemm.numpy(), want)
 
 
+@pytest.mark.parametrize("C", [34, 8, 17, 64, 130])
+@pytest.mark.parametrize("x_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("ties", [False, True])
+def test_quantize_pass_layout_equals_jax_qparams(C, x_dtype, ties):
+    """The quantize pass's plain version (the CPU route of ``act_quantize``):
+    s8 (B, H, W + 2, Cp) holding JAX's act_qparams values in columns 1..W,
+    x's column W - 1 in column 0 and its column 0 in column W + 1 (the
+    ring), zeros in channels C..Cp; ties round half to even."""
+    rng = np.random.default_rng(C)
+    x = _with_ties(rng, (2, 3, 7, C), 20.0) if ties else rng.standard_normal((2, 3, 7, C)).astype(np.float32)
+    jx = jnp.asarray(x, jnp.bfloat16 if x_dtype == torch.bfloat16 else jnp.float32)
+    want = np.asarray(jax_quant.act_qparams(jx)[0])
+    px = t(x).to(x_dtype)
+    xq = quant.act_quantize(px, quant.act_absmax(px))
+    cp = quant.padded_channels(C)
+    assert xq.dtype == torch.int8 and tuple(xq.shape) == (2, 3, 9, cp) and cp % quant.K_CHUNK == 0 and cp >= C
+    np.testing.assert_array_equal(xq[:, :, 1:8, :C].numpy(), want)
+    np.testing.assert_array_equal(xq[:, :, 0, :C].numpy(), want[:, :, -1])
+    np.testing.assert_array_equal(xq[:, :, 8, :C].numpy(), want[:, :, 0])
+    assert not xq[..., C:].any()
+    if ties:
+        assert set(np.unique(want[(np.abs(x) % 1) == 0.5] % 2)) == {0}
+
+
+@pytest.mark.parametrize("B,H,W,C,F", [(2, 5, 12, 34, 2), (1, 4, 9, 8, 10), (2, 6, 16, 64, 64), (1, 1, 5, 130, 3)])
+def test_conv_of_the_padded_operands_equals_conv_s8(B, H, W, C, F):
+    """The s8 conv's plain version on its own operands (the quantize pass's
+    xq and the packed weight) gives conv_s8's sums and JAX's int8 conv of
+    the materialized ring pad, and its epilogue the whole lane's output bit
+    for bit in fp32 and bf16."""
+    rng = np.random.default_rng(B * 100 + C)
+    x = rng.standard_normal((B, H, W, C)).astype(np.float32)
+    k = rng.standard_normal((3, 3, C, F)).astype(np.float32) * 0.2
+    b = rng.standard_normal(F).astype(np.float32)
+    amax = quant.act_absmax(t(x))
+    xq, packed = quant.act_quantize(t(x), amax), quant.pack_weight(t(k))
+    got = quant.conv_s8_padded(xq, packed[0])
+    assert got.dtype == torch.int32
+    assert torch.equal(got, quant.conv_s8(quant.act_qparams(t(x))[0], quant.weight_qparams(t(k))[0]))
+    jxq, _ = jax_quant.act_qparams(jnp.asarray(x))
+    jkq, _ = jax_quant.weight_qparams(jnp.asarray(k))
+    want = np.asarray(jax.lax.conv_general_dilated(
+        jnp.pad(jxq, ((0, 0), (0, 0), (1, 1), (0, 0)), mode="wrap"), jkq, (1, 1), ((1, 1), (0, 0)),
+        dimension_numbers=("NHWC", "HWIO", "NHWC"), preferred_element_type=jnp.int32))
+    np.testing.assert_array_equal(got.numpy(), want)
+    assert torch.equal(quant.ring_conv_s8(xq, amax, packed, None, torch.int32), got)
+    for od in (torch.float32, torch.bfloat16):
+        y = quant.ring_conv_s8(xq, amax, packed, t(b), od)
+        assert y.dtype == od and torch.equal(y, quant.ring_conv_w8a8_plain(t(x), t(k), t(b), od))
+
+
+@pytest.mark.parametrize("x_dtype", [torch.float32, torch.bfloat16])
+def test_a_nan_in_x_makes_every_output_nan(x_dtype):
+    """The reference side of the card's NaN check: one NaN in x makes the
+    scale NaN, and the JAX function and the port's plain route both return
+    an all-NaN output (the absmax kernel keeps the NaN to match)."""
+    rng = np.random.default_rng(11)
+    x = rng.standard_normal((1, 4, 8, 16)).astype(np.float32)
+    x[0, 2, 5, 7] = np.nan
+    k = rng.standard_normal((3, 3, 16, 4)).astype(np.float32) * 0.2
+    b = rng.standard_normal(4).astype(np.float32)
+    jx = jnp.asarray(x, jnp.bfloat16 if x_dtype == torch.bfloat16 else jnp.float32)
+    want = np.asarray(jax_quant.ring_conv_w8a8(jx, jnp.asarray(k), jnp.asarray(b)).astype(jnp.float32))
+    assert np.isnan(want).all()
+    px = t(x).to(x_dtype)
+    assert torch.isnan(quant.act_absmax(px)).item()
+    assert bool(torch.isnan(quant.ring_conv_w8a8(px, t(k), t(b))).all())
+    amax = quant.act_absmax(px)
+    assert bool(torch.isnan(quant.ring_conv_s8(quant.act_quantize(px, amax), amax, quant.pack_weight(t(k)), t(b),
+                                               torch.float32)).all())
+
+
 @pytest.fixture(scope="module")
 def tiny_pair():
     """(flax module, variables, port module) with the same random weights,

@@ -159,7 +159,8 @@ def test_config_h_train_step_matches_plain_path(dev, plain_path):
     ops.reset_launch_counts()
     got, state = one_step(ddpm.model)
     assert {fn.__name__: fn.launches for fn in ops.KERNEL_WRAPPERS} == {
-        "fused_group_norm_silu": 50, "fused_act_ringconv": 96, "ring_conv_w8a8": 0, "act_absmax": 0}
+        "fused_group_norm_silu": 50, "fused_act_ringconv": 96, "ring_conv_w8a8": 0, "act_absmax": 0,
+        "act_quantize": 0}
     plain_path()
     ref, plain_state = one_step(plain_model)
     assert abs(got["loss"].item() - ref["loss"].item()) <= 2e-2 * abs(ref["loss"].item())
