@@ -13,28 +13,41 @@ Phases (any failure makes the exit code non-zero and suppresses the result):
      and its SiLU over z in [-10, 10] to one bf16 step;
   3. kernel 2 (act_ringconv.cu) against its plain version at every
      (C_in, F, H, W) of the config-H ResidualBlocks, with and without its
-     SiLU prologue (the main path runs it without);
+     SiLU prologue (the main path runs it without); then the down convs
+     composed with their FIR filter (ops/fused_resample.py: cuDNN, one
+     sample a call; the JAX package's default down path) against the
+     two-op form at every config-H down shape, bf16 and fp32, and the
+     composed up path at the up shapes,
+     each form timed; and the W2C record: a cuDNN 3x2 conv on the
+     width-merged level-1 tensor against the port's ring-conv kernel on the
+     NHWC one, at b1 and b8;
   4. the main path at full width: random config-H weights saved as a
      reference-layout .pth, loaded by setup_model in bf16 on the card, a
      16-step DDIM and a 4-step DDPM chain at batch 8 with per-sample seeds,
      then LiDARUtility denormalize -> revert_depth -> to_xyz. The launch
-     counters are zeroed just before and read just after; one network
+     counters are zeroed just before and read just after (and the composed
+     down convs counted: 3 a forward); one network
      forward is compared between the kernel path and the plain path at
      every batch at which this script runs the network (2, 4, 8, 32);
   5. every other serving path at full width from that checkpoint, each with
      its seconds and exact launch counts: dpmpp_2m, flow euler and
      midpoint, discrete ddpm and ddim, return_all, RePaint at b4 over the
      four masks of completion_demo.py (known pixels kept to 1e-2),
-     ``python -m r2dm_tpu_torch.generate`` (b2, 4 DDIM steps) and
-     ``r2dm_tpu_torch.bench`` (b8, 4 steps, 1 trial); then the peak memory
-     per image of one sampling step and one RePaint step against
-     DDPM.MAX_BATCH_PIXELS;
+     ``python -m r2dm_tpu_torch.generate`` (b2, 4 DDIM steps), again with
+     ``--latency_layout`` (the same PNGs byte for byte), and
+     ``r2dm_tpu_torch.bench`` (b8, 4 steps, 1 trial, its flow euler-1 line
+     finite); the .pth exporter's round trip (msgpack -> ``python -m
+     r2dm_tpu_torch.export_torch_ckpt`` -> setup_model, the same forward);
+     then the peak memory per image of one sampling step and one RePaint
+     step against DDPM.MAX_BATCH_PIXELS;
   6. time each kernel, its plain version and the one PyTorch call that
      computes the same function (library_ms, a yardstick the port never
      calls), beside the least time the card could take (bound_ms);
   7. one batch-8 network forward: its time as the host drives it, its
      device time and each part's (CUDA graphs), the host's time to enqueue
-     it, and the operations that block the host (sync debug mode);
+     it, and the operations that block the host (sync debug mode); the
+     three down paths composed against two ops on their real inputs, and
+     the forward's device time both ways (relative L2 <= 2e-2);
   8. training: each kernel's backward against autograd of its plain version
      at every config-H shape (GN: dx, d_gain, d_shift with (C,) and (B, C)
      gains; the conv: dx through the kernel, dW, d_bias); one config-H b8
@@ -42,7 +55,7 @@ Phases (any failure makes the exit code non-zero and suppresses the result):
      L2 of the loss and of the flattened gradient); ``python -m
      r2dm_tpu_torch.train`` on the synthetic set at config H, b8, for 10
      steps and resumed for 2 more, with exact launch counts (50 GN + 96 conv
-     a step), a finite loss, and the step and AdamW state continuing; then
+     a step; 3 composed down convs a step, under autograd), a finite loss, and the step and AdamW state continuing; then
      the median train-step time (CUDA events), its peak memory and the
      host's enqueue time against the device time, and the GN backward, the
      conv's dx (the kernel at the transposed shapes) and dW at every
@@ -174,6 +187,11 @@ CONV_SHAPES = {
     (512, 256, 8, 128): 1,       # u_block4 block 0 conv1
     (256, 256, 8, 128): 5,       # u_block4
 }
+# config H, batch 8: (C_in, F, H, W) of each down conv's input (d_block2-4;
+# conv∘FIR composed on the main path) and of each up conv's FIR input
+# (u_block4-2; composed only under FUSED_RESAMPLE "up"/"both")
+DOWN_SHAPES = [(64, 128, 64, 1024), (128, 256, 32, 512), (256, 512, 16, 256)]
+UP_SHAPES = [(256, 256, 8, 128), (128, 128, 16, 256), (64, 64, 32, 512)]
 SOURCES = {
     "fused_group_norm_silu": ("r2dm_tpu_torch/csrc/gn_silu.cu", "r2dm_tpu/ops/pallas_gn.py:107"),
     "fused_act_ringconv": ("r2dm_tpu_torch/csrc/act_ringconv.cu", "r2dm_tpu/ops/pallas_resconv.py:174"),
@@ -390,11 +408,118 @@ def phase_conv(torch):
     return worst
 
 
+def _two_op_down(torch, x, k, bias, fir):
+    """The two-op down path the network runs with FUSED_RESAMPLE off: the
+    ring conv (cuDNN) in x's dtype, then the FIR downsample (``fir``, the
+    filter on the card)."""
+    import torch.nn.functional as F
+
+    from r2dm_tpu_torch.ops.pad import ring_pad
+    from r2dm_tpu_torch.ops.resample import downsample2x
+
+    y = F.conv2d(ring_pad(x, 1).permute(0, 3, 1, 2), k.permute(3, 2, 0, 1), bias.to(x.dtype))
+    return downsample2x(y.permute(0, 2, 3, 1).contiguous(), fir)
+
+
+def _two_op_up(torch, h, k, bias, fir):
+    import torch.nn.functional as F
+
+    from r2dm_tpu_torch.ops.pad import ring_pad
+    from r2dm_tpu_torch.ops.resample import upsample2x
+
+    u = upsample2x(h, fir)
+    y = F.conv2d(ring_pad(u, 1).permute(0, 3, 1, 2), k.permute(3, 2, 0, 1), bias.to(h.dtype))
+    return y.permute(0, 2, 3, 1).contiguous()
+
+
+def _w2c_kernel(torch, k):
+    """(3, 3, C, F) HWIO -> the (3, 2, 2C, 2F) block kernel of a 3x3 ring
+    conv on width-pair-merged input (r2dm_tpu/ops/w2c.py:126-157)."""
+    z = torch.zeros_like(k[:, 0])
+    tap0 = torch.cat([torch.cat([k[:, 0], z], -1), torch.cat([k[:, 1], k[:, 0]], -1)], -2)
+    tap1 = torch.cat([torch.cat([k[:, 2], k[:, 1]], -1), torch.cat([z, k[:, 2]], -1)], -2)
+    return torch.stack([tap0, tap1], dim=1)
+
+
+def phase_resample(torch):
+    """conv∘FIR at config H, b8: at each down shape the composed conv
+    (ops/fused_resample.py, the main path's) against the two-op form in bf16
+    (relative L2 <= 2e-2) and fp32 (max|err| <= 1e-4 max|ref|, TF32 off),
+    and each form's device time; the composed up path the same way at the
+    up shapes. Then the W2C record: a cuDNN 3x2 conv on the width-merged
+    (B, 64, 512, 128) level-1 tensor against the port's ring-conv kernel on
+    the NHWC (B, 64, 1024, 64) one, at b1 and b8, after checking that the
+    two compute the same function."""
+    import torch.nn.functional as F
+
+    from r2dm_tpu_torch.ops import act_ringconv
+    from r2dm_tpu_torch.ops import fused_resample as fr
+    from r2dm_tpu_torch.ops.pad import ring_pad
+    from r2dm_tpu_torch.ops.resample import fir_kernel
+
+    torch.backends.cudnn.allow_tf32 = False
+    out = {"down": [], "up": []}
+    for kind, shapes, composed, two_op, up in (("down", DOWN_SHAPES, fr.conv_then_downsample, _two_op_down, 1),
+                                                ("up", UP_SHAPES, fr.upsample_then_conv, _two_op_up, 2)):
+        firs = {dt: fir_kernel(up=up).to("cuda", dt) for dt in (torch.bfloat16, torch.float32)}
+        for (C, Fo, H, W) in shapes:
+            rec = {"cin": C, "f": Fo, "h": H, "w": W}
+            for dtype, name in ((torch.bfloat16, "bf16"), (torch.float32, "fp32")):
+                x = randn(torch, (B, H, W, C), 30, dtype)
+                k = randn(torch, (3, 3, C, Fo), 31, scale=(9 * C) ** -0.5).to(dtype)
+                bias = randn(torch, (Fo,), 32, scale=0.1)
+                fir = firs[dtype]
+                with torch.inference_mode():
+                    y, ref = composed(x, k, bias).float(), two_op(torch, x, k, bias, fir).float()
+                    rec[f"{name}_rel_l2"] = ((y - ref).norm() / ref.norm()).item()
+                    rec[f"{name}_max_err_over_max_ref"] = ((y - ref).abs().max() / ref.abs().max()).item()
+                    if dtype == torch.bfloat16:
+                        rec["composed_ms"] = graph_ms(torch, lambda: composed(x, k, bias))
+                        rec["two_op_ms"] = graph_ms(torch, lambda: two_op(torch, x, k, bias, fir))
+                        flops = 2 * 9 * C * Fo * B * H * W * (4 if kind == "up" else 1)
+                        rec["composed_tflops"] = flops / rec["composed_ms"] / 1e9
+            print(f"conv∘FIR {kind} b{B} {json.dumps(rec)}", flush=True)
+            if not (rec["bf16_rel_l2"] <= 2e-2 and rec["fp32_max_err_over_max_ref"] <= 1e-4):
+                raise AssertionError(f"conv∘FIR {kind} at {(C, Fo, H, W)}: {rec}")
+            out[kind].append(rec)
+    total = {kind: {f: sum(r[f] for r in recs) for f in ("composed_ms", "two_op_ms")} for kind, recs in out.items()}
+    print(f"conv∘FIR b{B}, the three of each kind: {json.dumps(total)}")
+
+    # the W2C record: level 1 (64 -> 64 at 64x1024), merged against NHWC
+    w2c = {}
+    for b in (1, B):
+        x = randn(torch, (b, 64, 1024, 64), 33, torch.bfloat16)
+        k = randn(torch, (3, 3, 64, 64), 34, scale=(9 * 64) ** -0.5)
+        bias = randn(torch, (64,), 35, scale=0.1)
+        km = _w2c_kernel(torch, k.to(torch.bfloat16)).permute(3, 2, 0, 1).contiguous(
+            memory_format=torch.channels_last)
+        bm = torch.cat([bias, bias]).to(torch.bfloat16)
+        xm = x.reshape(b, 64, 512, 128)  # the aligned merge is this reshape
+
+        def merged():  # aligned in, offset out: ring pad one merged column on the left
+            return F.conv2d(ring_pad(xm, (1, 0, 1, 1)).permute(0, 3, 1, 2), km, bm)
+
+        def nhwc():
+            return act_ringconv.fused_act_ringconv(x, None, None, k, bias, apply_act=False)
+
+        with torch.inference_mode():
+            y = nhwc().float()
+            ym = merged().permute(0, 2, 3, 1).reshape(b, 64, 1024, 64).float()
+            rel = ((ym - torch.roll(y, 1, dims=2)).norm() / y.norm()).item()
+            w2c[b] = {"merged_cudnn_3x2_ms": graph_ms(torch, merged), "nhwc_kernel_ms": graph_ms(torch, nhwc),
+                      "rel_l2": rel}
+        print(f"w2c record b{b}: {json.dumps(w2c[b])}", flush=True)
+        if not rel <= 2e-2:
+            raise AssertionError(f"the merged 3x2 conv computes another function: relative L2 {rel}")
+    return {"resample": out, "totals": total, "w2c": w2c}
+
+
 def phase_main(torch, tmp):
     from r2dm_tpu_torch import config as config_lib
     from r2dm_tpu_torch import ops, setup_model
     from r2dm_tpu_torch.inference import build_model, model_coords
     from r2dm_tpu_torch.models import layers
+    from r2dm_tpu_torch.ops import fused_resample
 
     cfg = config_lib.Config()  # config H
     net = build_model(cfg, device="cpu")
@@ -422,6 +547,7 @@ def phase_main(torch, tmp):
     ddpm.sample(batch_size=B, num_steps=1, mode="ddim", seeds=range(B))  # warm-up
     torch.cuda.synchronize()
     ops.reset_launch_counts()
+    fused_resample.conv_then_downsample.calls = fused_resample.upsample_then_conv.calls = 0
     t0 = time.time()
     x = ddpm.sample(batch_size=B, num_steps=16, mode="ddim", seeds=range(B))
     torch.cuda.synchronize()
@@ -431,11 +557,19 @@ def phase_main(torch, tmp):
     launches = {fn.__name__: fn.launches for fn in ops.KERNEL_WRAPPERS}
     forwards = 16 + 4
     # per forward: 48 ResidualBlock norms and 2 attention norms through the
-    # whole function, 48 convs without their prologue
+    # whole function, 48 convs without their prologue; the three down convs
+    # composed with their FIR filter (layers.FUSED_RESAMPLE "down"), the up
+    # path in two ops
     expected = launches_of(50 * forwards, 48 * forwards)
-    print(f"main path launches {json.dumps(launches)} (expected {json.dumps(expected)})")
+    composed = {"conv_then_downsample": fused_resample.conv_then_downsample.calls,
+                "upsample_then_conv": fused_resample.upsample_then_conv.calls}
+    print(f"main path launches {json.dumps(launches)} (expected {json.dumps(expected)}); composed resample "
+          f"calls {json.dumps(composed)} (expected {3 * forwards} down, 0 up; FUSED_RESAMPLE = "
+          f"{layers.FUSED_RESAMPLE!r})")
     if launches != expected:
         raise AssertionError(f"launch counts {launches} != {expected}")
+    if composed != {"conv_then_downsample": 3 * forwards, "upsample_then_conv": 0}:
+        raise AssertionError(f"the down path did not run composed: {composed}")
     ddim_runs = [ddim_s]  # two more timed runs (host clock); the median is reported
     for _ in range(2):
         t0 = time.time()
@@ -506,7 +640,7 @@ def phase_serving(torch, main_out, tmp):
 
     import numpy as np
 
-    from r2dm_tpu_torch import bench, ops
+    from r2dm_tpu_torch import bench, ops, setup_model
     from r2dm_tpu_torch.inference import DDPM, build_diffusion
 
     ddpm = main_out["ddpm"]
@@ -583,12 +717,51 @@ def phase_serving(torch, main_out, tmp):
     print(f"generate wrote {json.dumps(sizes)}")
     if sizes != {"samples_img.png": (2 * 2 * H, W), "samples_bev.png": (800, 2 * 800)}:
         raise AssertionError(f"generate: PNG sizes {sizes}")
+    # the W2C latency layout: the same network on the same kernels, so the
+    # same PNGs byte for byte
+    w2c_dir = os.path.join(tmp, "generate_w2c")
+    argv_w2c = argv[:-1] + [w2c_dir, "--latency_layout"]
+    run("python -m r2dm_tpu_torch.generate --latency_layout b2 ddim 4", 4,
+        lambda: _run_cli("r2dm_tpu_torch.generate", argv_w2c))
+    same = {n: open(os.path.join(out_dir, n), "rb").read() == open(os.path.join(w2c_dir, n), "rb").read()
+            for n in sizes}
+    print(f"generate --latency_layout against without: PNGs byte for byte equal {json.dumps(same)}")
+    if not all(same.values()):
+        raise AssertionError(f"generate --latency_layout changed its output: {same}")
 
-    # r2dm_tpu_torch.bench at b8: 2 warm-up steps, 4 DDPM steps, 2 x 4 DDIM steps
-    result = run("r2dm_tpu_torch.bench b8 4 steps 1 trial", 2 + 4 + 2 * 4,
+    # r2dm_tpu_torch.bench at b8: 2 warm-up steps, 4 DDPM steps, the flow
+    # euler-1 line (1 + 2 x FLOW_REPS one-step chains), 2 x 4 DDIM steps
+    result = run("r2dm_tpu_torch.bench b8 4 steps 1 trial", 2 + 4 + bench.FLOW_NET_CALLS + 2 * 4,
                  lambda: bench.main(batch=B, steps=4, trials=1, ddim_steps=4))
-    if not (result["trials"] == 1 and result["value"] > 0 and "ddim4_img_per_s" in result):
+    flow_keys = {k: result.get(k) for k in ("flow_euler1_img_per_s", "flow_euler1_seconds_median",
+                                            "flow_euler1_trials")}
+    print(f"bench b8 flow euler-1: {json.dumps(flow_keys)}")
+    if not (result["trials"] == 1 and result["value"] > 0 and "ddim4_img_per_s" in result
+            and flow_keys["flow_euler1_trials"] == 2
+            and all(isinstance(v, (int, float)) and math.isfinite(v) and v > 0 for v in flow_keys.values())):
         raise AssertionError(f"bench: {result}")
+
+    # the .pth exporter's round trip: the checkpoint as a msgpack (both
+    # lanes), python -m r2dm_tpu_torch.export_torch_ckpt, setup_model on the
+    # .pth: the same forward as the network it came from
+    from r2dm_tpu_torch.checkpoint import write_checkpoint
+    from r2dm_tpu_torch.config import asdict
+    from r2dm_tpu_torch.utils.weights import to_jax
+
+    tree = to_jax(ddpm.model.state_dict())
+    pack = write_checkpoint(os.path.join(tmp, "exported.msgpack"), asdict(ddpm.cfg), tree, ema_weights=tree, step=1)
+    pth = os.path.join(tmp, "exported.pth")
+    _run_cli("r2dm_tpu_torch.export_torch_ckpt", [pack, pth])
+    exported, _, _ = setup_model(pth, dtype=torch.bfloat16, device="cuda")
+    xin = randn(torch, (2, H, W, 2), 11)
+    cond = torch.tensor([0.3, -2.0], device="cuda")
+    with torch.inference_mode():
+        y_ref, y_exp = ddpm.model(xin, cond), exported.model(xin, cond)
+    gap = (y_ref - y_exp).abs().max().item()
+    print(f"export_torch_ckpt round trip: max|forward - exported forward| {gap:.3e} (limit 0)")
+    if gap != 0.0:
+        raise AssertionError(f"the exported .pth gives another forward: {gap}")
+    del exported
 
     # peak memory per image of one DDIM step and of one RePaint step (T=1:
     # one forward, the known pixels blended in), from b8 and b32, against
@@ -927,15 +1100,20 @@ def phase_eval_measure(torch, eval_out, card):
 def phase_breakdown(torch, ddpm):
     """Where one batch-B network forward spends its time: the forward as
     the host drives it, its device time, and each part's device time on the
-    inputs it receives in a real forward (captured with forward hooks)."""
+    inputs it receives in a real forward (captured with forward hooks). The
+    down path (conv∘FIR, composed under the default FUSED_RESAMPLE) is also
+    timed in two ops, and the whole forward with it in two ops, against the
+    composed one (relative L2 <= 2e-2)."""
+    from r2dm_tpu_torch.models import layers
     from r2dm_tpu_torch.models.layers import ResidualBlock
 
     net = ddpm.model
     parts = {"in_conv": net.in_conv, "out_conv": net.out_conv, "time_embedding": net.time_embedding}
+    down_blocks = {}
     for name in ("d_block1", "d_block2", "d_block3", "d_block4", "u_block4", "u_block3", "u_block2", "u_block1"):
         blk = getattr(net, name)
         if blk.downsample is not None:
-            parts[f"{name}.down_conv"], parts[f"{name}.fir_down"] = blk.downsample[0], blk.downsample[1]
+            down_blocks[f"{name}.down"] = blk  # its input is the block's
         if blk.upsample is not None:
             parts[f"{name}.fir_up"], parts[f"{name}.up_conv"] = blk.upsample[0], blk.upsample[1]
         if blk.self_attn_block is not None:
@@ -949,7 +1127,7 @@ def phase_breakdown(torch, ddpm):
             captured.setdefault(name, args)
         return hook
 
-    hooks = [m.register_forward_hook(keep_inputs(n)) for n, m in parts.items()]
+    hooks = [m.register_forward_hook(keep_inputs(n)) for n, m in {**parts, **down_blocks}.items()]
     xin = randn(torch, (B, 64, 1024, 2), 10)
     cond = torch.linspace(-5.0, 5.0, B, device="cuda")
     try:
@@ -978,16 +1156,36 @@ def phase_breakdown(torch, ddpm):
         # device time alone (CUDA graphs): of the forward, and of each part
         device_ms = graph_ms(torch, lambda: net(xin, cond), iters=3)
         times = {n: graph_ms(torch, lambda m=parts[n], a=captured[n]: m(*a), iters=3) for n in parts}
+        down = {n: graph_ms(torch, lambda b=blk, h=captured[n][0]: b.down(h), iters=3)
+                for n, blk in down_blocks.items()}
+        y_composed = net(xin, cond)
+        saved = layers.FUSED_RESAMPLE
+        layers.FUSED_RESAMPLE = False  # read while the graphs are captured
+        try:
+            down_two_op = {n: graph_ms(torch, lambda b=blk, h=captured[n][0]: b.down(h), iters=3)
+                           for n, blk in down_blocks.items()}
+            device_two_op_ms = graph_ms(torch, lambda: net(xin, cond), iters=3)
+            y_two_op = net(xin, cond)
+        finally:
+            layers.FUSED_RESAMPLE = saved
+    rel = ((y_composed - y_two_op).norm() / y_two_op.norm()).item()
     groups = {"residual blocks": [n for n, m in parts.items() if isinstance(m, ResidualBlock)]}
-    for key in ("fir_down", "fir_up", "down_conv", "up_conv", "attention"):
+    for key in ("fir_up", "up_conv", "attention"):
         groups[key] = [n for n in parts if n.endswith(key)]
     groups["in/out conv, time embedding"] = ["in_conv", "out_conv", "time_embedding"]
     summary = {g: sum(times[n] for n in names) for g, names in groups.items()}
+    summary["down conv∘FIR, composed"] = sum(down.values())
     summary["rest (concat, casts, encoding)"] = device_ms - sum(summary.values())
     print(f"forward breakdown b{B}: " + json.dumps({
         "forward_ms": forward_ms, "device_ms": device_ms, "device_idle_share": 1.0 - device_ms / forward_ms,
         "host_enqueue_ms": enqueue_ms, "host_syncs": syncs, "device_ms_by_part": summary,
-    }))
+    }, ensure_ascii=False))
+    print(f"down path b{B}, composed against two ops (device ms, real inputs): " + json.dumps({
+        "composed": down, "two_op": down_two_op, "composed_total": sum(down.values()),
+        "two_op_total": sum(down_two_op.values()), "forward_device_ms_composed": device_ms,
+        "forward_device_ms_two_op": device_two_op_ms, "forward_rel_l2": rel}))
+    if not (math.isfinite(rel) and rel <= 2e-2):
+        raise AssertionError(f"forward with the composed down path against two ops: relative L2 {rel}")
 
 
 def phase_time(torch, launches, train_launches, errs):
@@ -1153,6 +1351,7 @@ def phase_train_step(torch):
     from r2dm_tpu_torch import ops
     from r2dm_tpu_torch.bench import random_ddpm
     from r2dm_tpu_torch.models import layers
+    from r2dm_tpu_torch.ops import fused_resample
 
     ddpm = random_ddpm(seed=1)
     model, diffusion = ddpm.model.train(), ddpm.diffusion
@@ -1168,9 +1367,11 @@ def phase_train_step(torch):
         return loss.detach(), torch.cat([p.grad.flatten() for p in model.parameters()])
 
     ops.reset_launch_counts()
+    fused_resample.conv_then_downsample.calls = 0
     loss_k, grad_k = loss_and_grad()
     torch.cuda.synchronize()
     launches = {fn.__name__: fn.launches for fn in ops.KERNEL_WRAPPERS}
+    composed = fused_resample.conv_then_downsample.calls
     saved = {n: getattr(layers, n) for n in ("fused_group_norm_silu", "fused_act_ringconv")}
     try:
         layers.fused_group_norm_silu = ops.gn_silu.fused_group_norm_silu_plain
@@ -1183,9 +1384,12 @@ def phase_train_step(torch):
     rel_grad = ((grad_k - grad_p).norm() / grad_p.norm()).item()
     print(f"train step b{B}, kernel path vs plain path: loss {loss_k.item():.6f} vs {loss_p.item():.6f}, "
           f"relative L2 of the loss {rel_loss:.3e}, of the flattened gradient ({grad_k.numel()} values) "
-          f"{rel_grad:.3e} (limit {TRAIN_REL_L2}); launches {json.dumps(launches)}")
+          f"{rel_grad:.3e} (limit {TRAIN_REL_L2}); launches {json.dumps(launches)}; composed down convs "
+          f"{composed} (expected 3)")
     if launches != launches_of(50, 96):
         raise AssertionError(f"one loss + backward launched {launches}, expected 50 GN and 96 conv")
+    if composed != 3:
+        raise AssertionError(f"the train step ran {composed} composed down convs, expected 3")
     if not (math.isfinite(rel_grad) and rel_loss <= TRAIN_REL_L2 and rel_grad <= TRAIN_REL_L2):
         raise AssertionError(f"kernel path vs plain path: loss {rel_loss}, gradient {rel_grad}")
     del grad_k, grad_p
@@ -1211,6 +1415,7 @@ def phase_train_cli(torch, tmp):
     import numpy as np
 
     from r2dm_tpu_torch.checkpoint import load_checkpoint
+    from r2dm_tpu_torch.ops import fused_resample
 
     out = os.path.join(tmp, "train")
     argv = ["--data.dataset", "synthetic", "--training.output_dir", out, "--training.seed", "0",
@@ -1218,7 +1423,9 @@ def phase_train_cli(torch, tmp):
     saved_env = os.environ.get("R2DM_SYNTH_SCANS")
     os.environ["R2DM_SYNTH_SCANS"] = str(B)
     try:
+        fused_resample.conv_then_downsample.calls = 0
         runs = [_train_cli(torch, argv + ["--training.num_steps", str(TRAIN_STEPS)])]
+        composed = fused_resample.conv_then_downsample.calls
         first = load_checkpoint(os.path.join(out, "checkpoint.msgpack"))
         runs.append(_train_cli(torch, argv + ["--training.num_steps", str(TRAIN_STEPS + RESUMED_STEPS),
                                               "--training.resume", os.path.join(out, "checkpoint.msgpack")]))
@@ -1234,6 +1441,10 @@ def phase_train_cli(torch, tmp):
               f"checkpoint), launches {json.dumps(launches)} (expected {json.dumps(expected)})")
         if launches != expected:
             raise AssertionError(f"train launches {launches} != {expected}")
+    # each step's forward runs the three down convs composed, under autograd
+    print(f"train: {composed} composed down convs in {TRAIN_STEPS} steps (expected {3 * TRAIN_STEPS})")
+    if composed != 3 * TRAIN_STEPS:
+        raise AssertionError(f"train ran {composed} composed down convs, expected {3 * TRAIN_STEPS}")
     with open(os.path.join(out, "metrics.jsonl")) as f:
         logged = [json.loads(line) for line in f]
     print(f"train metrics at step 1: {json.dumps(logged[0])}")
@@ -1296,6 +1507,47 @@ def phase_train_time(torch, ddpm):
     if not math.isfinite(loss):
         raise AssertionError(f"train step loss {loss}")
     out["profile"] = _profile_train_step(torch, step, state, x_0, g)
+    out["down_path"] = _train_step_down_paths(torch, step, state, x_0, g)
+    return out
+
+
+def _train_step_down_paths(torch, step, state, x_0, g, pairs: int = 8) -> dict:
+    """The same train step with the composed down path (FUSED_RESAMPLE
+    "down", the composed kernel built in the graph every step) and with the
+    two-op form (False), steps alternating so the host's drift falls on
+    both alike: the median device ms (CUDA events) and host enqueue ms of
+    each. The weights are put back afterwards, so the phases after this
+    one see those of the steps before it."""
+    import copy
+
+    from r2dm_tpu_torch.models import layers
+
+    saved, weights = layers.FUSED_RESAMPLE, copy.deepcopy(state.model.state_dict())
+    times = {"down": ([], []), "two_op": ([], [])}
+    try:
+        for i in range(2 * pairs + 2):  # the first pair warms the two-op form up
+            name = ("two_op", "down")[i % 2]
+            layers.FUSED_RESAMPLE = "down" if name == "down" else False
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            start.record()
+            loss = step(state, x_0, g)["loss"]
+            end.record()
+            enqueue = (time.perf_counter() - t0) * 1e3
+            torch.cuda.synchronize()
+            if i >= 2:
+                times[name][0].append(start.elapsed_time(end))
+                times[name][1].append(enqueue)
+            if not math.isfinite(loss.item()):
+                raise AssertionError(f"train step with the {name} down path: loss {loss.item()}")
+    finally:
+        layers.FUSED_RESAMPLE = saved
+        state.model.load_state_dict(weights)
+    out = {name: {"median_step_ms": sorted(d)[pairs // 2], "median_enqueue_ms": sorted(e)[pairs // 2], "step_ms": d}
+           for name, (d, e) in times.items()}
+    print(f"train step b{B}, the down path composed against two ops ({pairs} steps each, alternating): "
+          + json.dumps(out))
     return out
 
 
@@ -2224,6 +2476,7 @@ def main() -> int:
         return 1
     gn_err = phases.run("kernel 1 against its plain version", phase_gn, torch)
     conv_err = phases.run("kernel 2 against its plain version", phase_conv, torch)
+    phases.run("conv∘FIR composed against two ops; the W2C record", phase_resample, torch)
     eval_out = accum = two_ranks = reflowed = int8 = None
     with tempfile.TemporaryDirectory() as tmp:
         main_out = phases.run("main path", phase_main, torch, tmp)

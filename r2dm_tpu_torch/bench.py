@@ -12,9 +12,13 @@ on them), through ``DDPM.sample``. One warm-up step at the batch, then
 timed chains (CUDA events, a fresh generator each) while the wall-clock
 budget ``$R2DM_BENCH_BUDGET_S`` (default 900 s) covers another, at most
 ``--trials``; the value is their median, and the line keeps every trial's
-seconds. A second measurement, ``ddim32_*``,
-times 32-step DDIM chains if the budget allows. The first chain's samples
-must be finite and not constant.
+seconds. Two secondary measurements follow, as in the repo's
+``bench.py:364-420``, each if the budget allows (else ``*_skipped`` with the
+reason): ``flow_euler1_*``, one-step rectified-flow (euler) chains on the
+same network under a ``timestep_type = "flow"`` diffusion (2 trials of
+``FLOW_REPS`` chains, after one untimed call whose samples must be finite
+and not constant), then ``ddim32_*``, 32-step DDIM chains. The first
+chain's samples must be finite and not constant.
 
 Under ``torchrun`` every rank runs the protocol on its own card, and rank 0
 prints one line with the aggregate img/s (the ranks' sum) beside each
@@ -59,6 +63,8 @@ BATCH = 256
 STEPS = 256
 MAX_TRIALS = 4
 DDIM_STEPS = 32
+FLOW_REPS = 8  # one-step flow chains a timed trial
+FLOW_NET_CALLS = 1 + 2 * FLOW_REPS  # the untimed call, then 2 trials
 FIR_TAPS = 16  # the 4x4 FIR filter of the 2x resampling, one channel at a time
 
 
@@ -150,10 +156,10 @@ def _timed(ddpm: DDPM, batch: int, steps: int, mode: str, seed: int):
 
 
 def aggregate(results: list[dict]) -> dict:
-    """One line from every rank's result: rank 0's, with ``value`` and
-    ``ddim*_img_per_s`` the ranks' sums, MFU against the ranks' summed peak,
-    and each rank's img/s beside them. One rank's result is returned as it
-    is."""
+    """One line from every rank's result: rank 0's, with ``value``,
+    ``flow_euler1_img_per_s`` and ``ddim*_img_per_s`` the ranks' sums, MFU
+    against the ranks' summed peak, and each rank's img/s beside them. One
+    rank's result is returned as it is."""
     if len(results) == 1:
         return results[0]
     out = dict(results[0])
@@ -162,7 +168,7 @@ def aggregate(results: list[dict]) -> dict:
     out["value"] = sum(out["per_rank_img_per_s"])
     for key in ("mfu", "mfu_all"):
         out[key] = sum(r[key] for r in results) / len(results)
-    for key in [k for k in out if k.startswith("ddim") and k.endswith("_img_per_s")]:
+    for key in [k for k in out if k.startswith(("ddim", "flow")) and k.endswith("_img_per_s")]:
         per_rank = [r.get(key) for r in results]
         out[f"per_rank_{key}"] = per_rank
         out[key] = sum(per_rank) if None not in per_rank else None
@@ -237,6 +243,12 @@ def _protocol(batch: int, steps: int, trials: int, ddim_steps: int) -> dict:
         "device": torch.cuda.get_device_name(0),
         "card": card(),
     }
+    flow_cost = est_trial / steps  # one network call at the batch
+    remaining = budget_s - (time.time() - t_start)
+    if remaining <= flow_cost * FLOW_NET_CALLS:
+        result["flow_euler1_skipped"] = f"budget ({remaining:.0f} s left)"
+    else:
+        result.update(_flow_euler1(ddpm, batch))
     ddim_cost = est_trial * ddim_steps / steps
     remaining = budget_s - (time.time() - t_start)
     if remaining < 2.5 * ddim_cost:
@@ -247,6 +259,26 @@ def _protocol(batch: int, steps: int, trials: int, ddim_steps: int) -> dict:
         result[f"ddim{ddim_steps}_seconds_median"] = statistics.median(dts)
         result[f"ddim{ddim_steps}_trials"] = len(dts)
     return result
+
+
+def _flow_euler1(ddpm: DDPM, batch: int) -> dict:
+    """The one-step rectified-flow secondary headline: ``ddpm``'s network
+    under a flow diffusion built from a default Config, one untimed chain
+    (its first two samples finite with std > 0.1), then 2 trials of
+    ``FLOW_REPS`` chains each (CUDA events); img/s from the median trial."""
+    cfg = config_lib.Config()
+    cfg.diffusion.timestep_type = "flow"
+    flow = DDPM(build_diffusion(cfg, ddpm.model), cfg)
+    x = _timed(flow, batch, 1, "euler", 70)[1][:2].float()
+    if not (bool(torch.isfinite(x).all()) and x.std().item() > 0.1):
+        raise AssertionError("flow euler-1: non-finite or constant samples")
+    del x
+    trials = []
+    for trial in range(2):
+        seconds = [_timed(flow, batch, 1, "euler", 71 + trial * FLOW_REPS + r)[0] for r in range(FLOW_REPS)]
+        trials.append(sum(seconds) / FLOW_REPS)
+    dt = statistics.median(trials)
+    return {"flow_euler1_img_per_s": batch / dt, "flow_euler1_seconds_median": dt, "flow_euler1_trials": len(trials)}
 
 
 if __name__ == "__main__":

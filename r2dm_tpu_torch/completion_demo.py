@@ -17,14 +17,15 @@ order), and top to bottom the input's depth and reflectance (turbo), its
 bird's-eye view, the completion's depth and reflectance, its labels
 (SemanticKITTI colours, with ``--rangenet_tar``) and its bird's-eye view
 (viridis by height, or the label colours). ``--few_step`` is the 8 x 4 x 1
-grid in bf16. On CUDA the network computes in bfloat16, the kernels' type.
+grid in bf16 with the W2C latency layout. On CUDA the network computes in
+bfloat16, the kernels' type. ``--latency_layout`` builds the network with
+``width_merge_l1=True`` (``EfficientUNet``: the same math on the NHWC
+kernels).
 
 Under ``torchrun`` the four mask rows are split over the ranks (each row
 has its own seed, so a row does not depend on its rank) and gathered to
 rank 0, which labels them and writes the figure. ``--mesh`` ('N' or 'Nx1')
 must equal the world size and divide the four rows; a width axis exits.
-Not ported: ``--latency_layout`` (the W2C layout is a TPU-only re-lowering
-of the same network, ROADMAP.md North star), which exits with a message.
 """
 
 from __future__ import annotations
@@ -49,14 +50,15 @@ BEV_SIZE = 800  # render.render_point_clouds' default
 
 
 def apply_few_step_preset(args: argparse.Namespace) -> argparse.Namespace:
-    """--few_step: the 8 x 4 x 1 RePaint grid in bf16, filling only the
-    values left at their defaults (the JAX package's preset also sets its
-    TPU-only W2C layout)."""
+    """--few_step: the 8 x 4 x 1 RePaint grid in bf16 with the W2C latency
+    layout, filling only the values left at their defaults (JAX
+    completion_demo.py:25-36)."""
     if args.num_steps == 32:
         args.num_steps = 8
     if args.num_resample_steps == 16:
         args.num_resample_steps = 4
     args.bf16 = True
+    args.latency_layout = True
     return args
 
 
@@ -113,10 +115,6 @@ def figure(lidar: LiDARUtility, x_in: torch.Tensor, x_out: torch.Tensor, labels)
 
 
 def main(args: argparse.Namespace) -> int:
-    if args.latency_layout:
-        print("--latency_layout: the width-pair-merged (W2C) layout is a TPU-only re-lowering of the same "
-              "network and is not ported (ROADMAP.md, North star)", file=sys.stderr)
-        return 2
     world = parallel.init(args.device)
     try:
         return _run(args, world)
@@ -130,7 +128,8 @@ def _run(args: argparse.Namespace, world: parallel.World) -> int:
         apply_few_step_preset(args)
     device = world.device
     bf16 = args.bf16 or device.type == "cuda"
-    ddpm, lidar, cfg = setup_model(args.ckpt, dtype=torch.bfloat16 if bf16 else None, device=device)
+    ddpm, lidar, cfg = setup_model(args.ckpt, dtype=torch.bfloat16 if bf16 else None, device=device,
+                                   width_merge_l1=args.latency_layout)
     lidar.data_format = "NHWC"
     H, W = cfg.data.resolution
 
@@ -183,9 +182,9 @@ def parse_args(argv=None) -> argparse.Namespace:
     parser.add_argument("--num_steps", type=int, default=32, help="RePaint outer steps")
     parser.add_argument("--num_resample_steps", type=int, default=16)
     parser.add_argument("--jump_length", type=int, default=1)
-    parser.add_argument("--few_step", action="store_true", help="the 8 x 4 x 1 grid in bf16")
+    parser.add_argument("--few_step", action="store_true", help="the 8 x 4 x 1 grid in bf16, W2C layout")
     parser.add_argument("--bf16", action="store_true", help="bf16 network compute (implied on CUDA)")
-    parser.add_argument("--latency_layout", action="store_true", help="W2C layout (TPU-only, not ported)")
+    parser.add_argument("--latency_layout", action="store_true", help="W2C width-pair-merged level-1 layout")
     parser.add_argument("--seed", type=int, default=0)
     parser.add_argument("--sample_id", type=int, default=-1)
     parser.add_argument("--rangenet_tar", type=str, default=None)

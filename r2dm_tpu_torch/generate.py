@@ -11,7 +11,9 @@ a PNG frame sequence under ``samples_frames/``. On CUDA the network computes
 in bfloat16 (the kernels' type), so ``--bf16`` is implied there. ``--int8``
 runs the ring convs on the W8A8 serving lane (``models/layers.py::
 set_quant_conv``; on the card the s8 ring-conv kernel), as the JAX
-``generate.py --int8`` does.
+``generate.py --int8`` does. ``--latency_layout`` builds the network with
+``width_merge_l1=True``, the JAX package's W2C layout (``EfficientUNet``:
+the same math on the NHWC kernels, so the samples do not change).
 """
 
 from __future__ import annotations
@@ -52,13 +54,10 @@ def render_panels(x: torch.Tensor, lidar_utils: LiDARUtility) -> tuple[np.ndarra
 
 
 def main(args: argparse.Namespace) -> int:
-    if args.latency_layout:
-        print("--latency_layout: the width-pair-merged (W2C) layout is a TPU-only re-lowering of the same "
-              "network and is not ported (ROADMAP.md, North star)", file=sys.stderr)
-        return 2
     device = torch.device(args.device)
     bf16 = args.bf16 or device.type == "cuda"
-    ddpm, lidar_utils, _ = setup_model(args.ckpt, dtype=torch.bfloat16 if bf16 else None, device=device)
+    ddpm, lidar_utils, _ = setup_model(args.ckpt, dtype=torch.bfloat16 if bf16 else None, device=device,
+                                       width_merge_l1=args.latency_layout)
     if args.int8:
         set_quant_conv(ddpm.model, "w8a8")
         print("--int8: ring convs on the W8A8 lane", file=sys.stderr)
@@ -106,7 +105,7 @@ def parse_args(argv=None) -> argparse.Namespace:
     parser.add_argument("--video", action="store_true")
     parser.add_argument("--bf16", action="store_true", help="bf16 network compute (implied on CUDA)")
     parser.add_argument("--int8", action="store_true", help="W8A8 int8 ring convs (the serving lane)")
-    parser.add_argument("--latency_layout", action="store_true", help="width-pair-merged level 1 (TPU-only)")
+    parser.add_argument("--latency_layout", action="store_true", help="width-pair-merged level 1 (W2C layout)")
     parser.add_argument("--device", type=str, default="cuda", help="cuda (default) or cpu")
     parser.add_argument("--out_dir", type=str, default=".", help="where the PNGs go")
     return parser.parse_args(argv)

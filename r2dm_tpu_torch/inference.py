@@ -53,13 +53,18 @@ def _check_dtype(device, dtype) -> None:
         raise ValueError("the CUDA kernels compute in bfloat16: pass dtype=torch.bfloat16 for a CUDA model")
 
 
-def build_model(cfg: config_lib.Config, dtype: Optional[torch.dtype] = None, device="cuda"):
+def build_model(
+    cfg: config_lib.Config, dtype: Optional[torch.dtype] = None, device="cuda", width_merge_l1: bool = False,
+):
     """The denoiser from a Config (reference utils/inference.py:38-58):
     ``cfg.model.architecture`` "efficient_unet" or "refinenet" (JAX
-    inference.py:71-81)."""
+    inference.py:71-81). ``width_merge_l1``: the JAX package's W2C
+    latency layout, an EfficientUNet field (see ``EfficientUNet``)."""
     _check_dtype(device, dtype)
     in_channels = int(cfg.data.train_depth) + int(cfg.data.train_reflectance)
     if cfg.model.architecture == "refinenet":
+        if width_merge_l1:
+            raise ValueError("width_merge_l1 is an EfficientUNet-only layout")
         model = LiDARGenRefineNet(
             in_channels=in_channels,
             resolution=tuple(cfg.data.resolution),
@@ -83,6 +88,7 @@ def build_model(cfg: config_lib.Config, dtype: Optional[torch.dtype] = None, dev
         coords_encoding=cfg.model.coords_encoding,
         dtype=dtype,
         dropout=cfg.model.dropout,
+        width_merge_l1=width_merge_l1,
     )
     return model.to(device).eval()
 
@@ -195,11 +201,24 @@ class DDPM:
     def sampling_shape(self):
         return self.diffusion.sampling_shape
 
+    @property
+    def coords(self) -> torch.Tensor:
+        """The network's (H, W, 2) coordinate buffer, in the JAX package's
+        layout (r2dm_tpu/inference.py:186-190)."""
+        return self.model.coords[0].permute(1, 2, 0)
+
     def _generators(self, seeds: Optional[Sequence[int]]) -> Generators:
         if seeds is not None:
             return setup_rng(seeds, self.device)
         # no explicit randomness: advance an internal stream so repeated
-        # calls give fresh batches
+        # calls give fresh batches. Every rank of a group would start that
+        # stream alike and return the same batch (JAX inference.py:202-211)
+        if torch.distributed.is_available() and torch.distributed.is_initialized() \
+                and torch.distributed.get_world_size() > 1:
+            raise ValueError(
+                "multi-host sampling needs an explicit key= or seeds= "
+                "(the implicit per-process rng stream would desynchronize)"
+            )
         self._auto_calls += 1
         return torch.Generator(self.device).manual_seed(self._auto_calls)
 
@@ -373,6 +392,19 @@ class DDPM:
         x = torch.cat(outs)
         return x.permute(0, 3, 1, 2).contiguous() if data_format == "NCHW" else x
 
+    def loss(self, x_0: torch.Tensor, generator: Generators = None, data_format: str = "NHWC") -> torch.Tensor:
+        """The training loss of the diffusion on ``x_0`` (JAX
+        inference.py:743-746): timesteps and noise from ``generator``
+        (default: the internal stream of ``sample``), NHWC or NCHW input."""
+        if data_format not in ("NCHW", "NHWC"):
+            raise ValueError(f"data_format must be NCHW or NHWC, got {data_format!r}")
+        x_0 = torch.as_tensor(x_0).to(self.device)
+        if data_format == "NCHW":
+            x_0 = x_0.permute(0, 2, 3, 1)
+        if generator is None:
+            generator = self._generators(None)
+        return self.diffusion.loss(self.model, x_0, generator)
+
 
 def _load(path: str) -> dict:
     if path.endswith((".pth", ".pt", ".ckpt")):
@@ -391,12 +423,13 @@ def load_config(ckpt) -> config_lib.Config:
 
 
 def setup_model(
-    ckpt, ema: bool = True, dtype: Optional[torch.dtype] = None, device="cuda",
+    ckpt, ema: bool = True, dtype: Optional[torch.dtype] = None, device="cuda", width_merge_l1: bool = False,
 ) -> tuple[DDPM, LiDARUtility, config_lib.Config]:
     """Rebuild (ddpm, lidar_utils, cfg) from a checkpoint: a reference-layout
     ``.pth``/``.pt``/``.ckpt``, any other path as the JAX package's msgpack
     checkpoint (``checkpoint.py``), or an already-loaded dict {cfg, weights,
-    ema_weights, ...} of either kind (reference utils/inference.py:16-114)."""
+    ema_weights, ...} of either kind (reference utils/inference.py:16-114).
+    ``width_merge_l1``: the small-batch latency layout (``build_model``)."""
     if isinstance(ckpt, (str, os.PathLike)):
         ckpt = _load(str(ckpt))
     _check_dtype(device, dtype)
@@ -406,7 +439,7 @@ def setup_model(
         sd = from_jax(weights, cfg.model.architecture)
     else:
         sd = reference_state_dict(weights)
-    model = build_model(cfg, dtype=dtype, device="cpu")
+    model = build_model(cfg, dtype=dtype, device="cpu", width_merge_l1=width_merge_l1)
     if "coords" not in sd:
         # the EfficientUNet's grid is the sensor's ray angles; a RefineNet
         # keeps its own [0, 1] grid, as the flax module's buffer does
@@ -433,22 +466,57 @@ def pretrained_r2dm(
     ema: bool = True,
     dtype: Optional[torch.dtype] = None,
     device="cuda",
+    width_merge_l1: bool = False,
 ) -> tuple[DDPM, LiDARUtility, config_lib.Config]:
     """The hub entry point (reference hubconf.py:21-37): ``ckpt_path``, else
-    ``$R2DM_CKPT_DIR/<config>.pth``, else
-    ``$R2DM_CACHE_DIR/checkpoints/<config>.pth`` (where the JAX package
-    downloads to). Nothing is downloaded."""
+    ``config`` resolved by :func:`resolve_pretrained_ckpt`."""
     if ckpt_path is None:
-        candidates = [
-            os.path.join(os.environ[var], *sub, f"{config}.pth")
-            for var, sub in (("R2DM_CKPT_DIR", ()), ("R2DM_CACHE_DIR", ("checkpoints",)))
-            if os.environ.get(var)
-        ]
-        found = [c for c in candidates if os.path.exists(c)]
-        if not found:
-            raise FileNotFoundError(
-                f"checkpoint for {config!r} not found: pass ckpt_path=, or put "
-                f"{config}.pth in $R2DM_CKPT_DIR or $R2DM_CACHE_DIR/checkpoints"
-            )
-        ckpt_path = found[0]
-    return setup_model(ckpt_path, ema=ema, dtype=dtype, device=device)
+        ckpt_path = resolve_pretrained_ckpt(config)
+    return setup_model(ckpt_path, ema=ema, dtype=dtype, device=device, width_merge_l1=width_merge_l1)
+
+
+# the release URL scheme (reference hubconf.py:17-18); $R2DM_WEIGHTS_URL_BASE
+# overrides the base (file:// URLs work)
+WEIGHTS_URL_BASE = "https://github.com/kazuto1011/r2dm/releases/download/weights"
+
+
+def resolve_pretrained_ckpt(config: str, progress: bool = True) -> str:
+    """A config name -> a local ``.pth`` path, as the JAX package resolves
+    it (r2dm_tpu/inference.py:860-906): ``$R2DM_CKPT_DIR/<config>.pth``,
+    else ``<cache>/checkpoints/<config>.pth`` with the cache
+    ``$R2DM_CACHE_DIR`` (default ``~/.cache/r2dm_tpu``, where the JAX package
+    downloads to), else a fetch of ``<base>/<config>.pth`` into
+    ``<cache file>.tmp``, renamed into place. A failed fetch removes the
+    ``.tmp`` file and raises FileNotFoundError naming both remedies."""
+    ckpt_dir = os.environ.get("R2DM_CKPT_DIR", "")
+    if ckpt_dir:
+        candidate = os.path.join(ckpt_dir, f"{config}.pth")
+        if os.path.exists(candidate):
+            return candidate
+    cache_dir = os.environ.get("R2DM_CACHE_DIR", os.path.expanduser("~/.cache/r2dm_tpu"))
+    cached = os.path.join(cache_dir, "checkpoints", f"{config}.pth")
+    if os.path.exists(cached):
+        return cached
+    url = f"{os.environ.get('R2DM_WEIGHTS_URL_BASE', WEIGHTS_URL_BASE)}/{config}.pth"
+    import urllib.error
+    import urllib.request
+
+    os.makedirs(os.path.dirname(cached), exist_ok=True)
+    tmp = cached + ".tmp"
+    try:
+        if progress:
+            print(f"downloading {url} -> {cached}")
+        urllib.request.urlretrieve(url, tmp)
+        os.replace(tmp, cached)  # atomic: an interrupted fetch leaves no torn file
+        return cached
+    except (urllib.error.URLError, OSError, ValueError) as e:
+        try:
+            os.remove(tmp)
+        except OSError:
+            pass
+        raise FileNotFoundError(
+            f"checkpoint for '{config}' not found locally and the download "
+            f"from {url} failed ({e}); download it manually from "
+            "https://github.com/kazuto1011/r2dm/releases and pass "
+            "ckpt_path= or set $R2DM_CKPT_DIR"
+        ) from e

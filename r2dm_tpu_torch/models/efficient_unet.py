@@ -6,9 +6,11 @@ conditioning, self-attention only at the bottleneck, concat skips, zero-init
 output conv, 1/sqrt(2) residual scaling, and a coordinate encoding
 concatenated to the input. Module names follow the reference, so its
 ``state_dict`` loads as it is. The down path is conv then FIR downsample,
-the up path FIR upsample then conv. The output is always fp32.
-``dropout`` acts in the ResidualBlocks in training mode only, its masks
-drawn from the ``generator`` given to forward.
+the up path FIR upsample then conv; as in the JAX package, each side listed
+in ``models.layers.FUSED_RESAMPLE`` (default "down") runs as one composed
+conv (``ops/fused_resample.py``), with the same parameters. The output is
+always fp32. ``dropout`` acts in the ResidualBlocks in training mode only,
+its masks drawn from the ``generator`` given to forward.
 """
 
 from __future__ import annotations
@@ -21,6 +23,7 @@ import torch.nn as nn
 
 from ..ops import encoding as enc
 from ..ops.resample import downsample2x, fir_kernel, upsample2x
+from . import layers
 from .layers import Dense, ResidualBlock, RingConv, SelfAttentionBlock
 
 
@@ -96,20 +99,44 @@ class UNetBlock(nn.Module):
                 Resample(up=True), RingConv(out_channels, out_channels, dtype=dtype)
             )
 
+    def down(self, h: torch.Tensor) -> torch.Tensor:
+        """The down conv and the FIR downsample: one composed conv when
+        ``layers.FUSED_RESAMPLE`` lists "down" (JAX efficient_unet.py:108-120)."""
+        if layers.FUSED_RESAMPLE in layers.FUSED_DOWN:
+            return self.downsample[0].conv_then_downsample(h)
+        return self.downsample(h)
+
+    def up(self, h: torch.Tensor) -> torch.Tensor:
+        """The FIR upsample and the up conv, composed when
+        ``layers.FUSED_RESAMPLE`` lists "up" (JAX efficient_unet.py:147-158)."""
+        if layers.FUSED_RESAMPLE in layers.FUSED_UP:
+            return self.upsample[1].upsample_then_conv(h)
+        return self.upsample(h)
+
     def forward(self, h: torch.Tensor, temb: torch.Tensor, generator: Optional[torch.Generator] = None) -> torch.Tensor:
         if self.downsample is not None:
-            h = self.downsample(h)
+            h = self.down(h)
         for block in self.residual_blocks:
             h = block(h, temb, generator)
         if self.self_attn_block is not None:
             h = self.self_attn_block(h)
         if self.upsample is not None:
-            h = self.upsample(h)
+            h = self.up(h)
         return h
 
 
 class EfficientUNet(nn.Module):
-    """forward(images NHWC (B, H, W, in_channels), timesteps (B,)) -> NHWC fp32."""
+    """forward(images NHWC (B, H, W, in_channels), timesteps (B,)) -> NHWC fp32.
+
+    ``width_merge_l1`` is the JAX package's W2C latency layout
+    (``r2dm_tpu/ops/w2c.py``): level 1 on width-pair-merged (B, H, W/2, 2C)
+    tensors, with the same parameters and the same math. The aligned merge
+    is a reshape of contiguous NHWC memory, so on this card the merged
+    tensor is the same bytes as the NHWC one; with the flag on the port
+    runs level 1 on the NHWC kernels, the same hand-written GroupNorm and
+    ring-conv kernels as with it off, and the flag changes no output. It is
+    kept as ``self.width_merge_l1``, as JAX keeps its module field, so a
+    caller can see which layout was asked for; no computation reads it."""
 
     architecture = "efficient_unet"
 
@@ -128,8 +155,10 @@ class EfficientUNet(nn.Module):
         coords_encoding: Optional[str] = "fourier_features",
         dtype: Optional[torch.dtype] = None,
         dropout: float = 0.0,
+        width_merge_l1: bool = False,
     ):
         super().__init__()
+        self.width_merge_l1 = width_merge_l1
         if coords_encoding not in (None, "spherical_harmonics", "polar_coordinates", "fourier_features"):
             raise ValueError(f"unknown coords_encoding: {coords_encoding}")
         self.in_channels = in_channels

@@ -20,6 +20,14 @@ a setting of each model, ``set_quant_conv(model, "w8a8")``: every 3x3
 package composes with their FIR filter and keeps in bf16) then runs
 ``ops/quant.py::ring_conv_w8a8`` on the activation as it arrives, in the
 JAX package's dtype at each site, with the output in the compute dtype.
+
+``FUSED_RESAMPLE`` is the JAX package's switch of the same name
+(``r2dm_tpu/models/layers.py:470-475``), read by ``UNetBlock`` at each
+call: True or "both", "down" (the default, as in JAX), "up", or False. A
+level-boundary conv on a listed side runs composed with its FIR resample
+(``RingConv.conv_then_downsample`` / ``upsample_then_conv``,
+``ops/fused_resample.py``), in the compute dtype and never quantized, as
+the JAX package's composed convs return before its int8 branch.
 """
 
 from __future__ import annotations
@@ -31,12 +39,18 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from ..ops import fused_resample
 from ..ops.act_ringconv import fused_act_ringconv
 from ..ops.gn_silu import fused_group_norm_silu
 from ..ops.pad import ring_pad
 from ..ops.quant import pack_weight, ring_conv_w8a8
 
 QUANT_MODES = (None, "w8a8")
+# the down path composes its conv with the FIR filter; True/"both", "down",
+# "up" or False (JAX models/layers.py:475)
+FUSED_RESAMPLE = "down"
+FUSED_DOWN = (True, "both", "down")
+FUSED_UP = (True, "both", "up")
 RESIDUAL_SCALE = float(1 / math.sqrt(2))
 
 
@@ -81,6 +95,7 @@ class RingConv(nn.Module):
         self.quantizable = quantizable and kernel_size == 3
         self.quant: Optional[str] = None
         self._packed = None  # (key, pack_weight(...)) of the int8 lane on the card
+        self._composed = None  # (key, the composed down weight) when no gradient is taken
 
     def hwio(self) -> torch.Tensor:
         """The weight in the (kh, kw, C_in, F) layout of the JAX kernels."""
@@ -94,6 +109,34 @@ class RingConv(nn.Module):
         if self._packed is None or self._packed[0] != key:
             self._packed = (key, pack_weight(self.hwio()))
         return self._packed[1]
+
+    def _resample_operands(self, x: torch.Tensor):
+        """x and the HWIO weight in the JAX package's composed-conv dtypes:
+        x in the compute dtype (as it arrives without one), the kernel in
+        x's (JAX layers.py:81-82)."""
+        x = x.to(self.compute_dtype) if self.compute_dtype is not None else x
+        return x, self.hwio().to(x.dtype)
+
+    def conv_then_downsample(self, x: torch.Tensor) -> torch.Tensor:
+        """== downsample2x(self(x)) as one stride-2 6x6 conv. Under autograd
+        with a weight that takes a gradient the composed kernel is built in
+        the graph, so dW flows to the 3x3 weight; otherwise it is kept and
+        built again only when the weight changes (its version counter,
+        device, storage) or the dtype does."""
+        x, k = self._resample_operands(x)
+        w = self.weight
+        if torch.is_grad_enabled() and w.requires_grad:
+            return fused_resample.conv_then_downsample(x, k, self.bias)
+        key = (w._version, w.device, w.data_ptr(), k.dtype, torch.is_inference_mode_enabled())
+        if self._composed is None or self._composed[0] != key:
+            with torch.no_grad():
+                self._composed = (key, fused_resample.down_weight(k))
+        return fused_resample.conv_then_downsample(x, k, self.bias, weight=self._composed[1])
+
+    def upsample_then_conv(self, x: torch.Tensor) -> torch.Tensor:
+        """== self(upsample2x(x)), composed (``FUSED_RESAMPLE`` "up"/"both")."""
+        x, k = self._resample_operands(x)
+        return fused_resample.upsample_then_conv(x, k, self.bias)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if self.quant == "w8a8":

@@ -42,8 +42,9 @@ global draws, so the masks are not a single process's.
 Options of the JAX trainer that this one leaves out or ignores:
 - ``max_host_rss_gb``: ignored; the JAX trainer restarts itself to escape a
   TPU runtime's host-memory retention, which has no counterpart here;
-- ``width_merge_l1``: ignored; a TPU-only layout, an exact re-lowering of
-  the same network;
+- ``width_merge_l1``: passed to ``build_model`` for an EfficientUNet, as
+  the JAX trainer does; the network then runs level 1 on the NHWC kernels
+  (``EfficientUNet``), with the same parameters, math and checkpoints;
 - ``mesh_shape`` with a width axis over one: raises (ROADMAP.md queue 1,
   parallelism (width axis)); a data axis must equal the world size;
 - ``gn_bf16``: the JAX package computes the GroupNorm FMA + SiLU pass in
@@ -164,7 +165,8 @@ def _train(cfg: config_lib.Config, world: parallel.World):
     dtype = torch.bfloat16 if tcfg.mixed_precision == "bf16" else None
     with torch.random.fork_rng(devices=[]):
         torch.manual_seed(tcfg.seed)  # the initial weights from the seed
-        model = build_model(cfg, dtype=dtype, device="cpu")
+        model = build_model(cfg, dtype=dtype, device="cpu", width_merge_l1=(
+            tcfg.width_merge_l1 and cfg.model.architecture == "efficient_unet"))
     coords = model_coords(cfg)
     model.coords.copy_(torch.from_numpy(np.ascontiguousarray(coords.transpose(2, 0, 1)[None])))
     model = model.to(device)

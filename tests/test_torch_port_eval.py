@@ -490,13 +490,27 @@ def test_completion_demo_writes_its_figure(tiny_msgpack, tmp_path, monkeypatch):
     masks = completion_demo.make_masks(np.random.default_rng(0), 16, 128)
     assert masks[0].all() and masks[1, ::4].all() and not masks[1, 1::4].any()
     preset = completion_demo.apply_few_step_preset(completion_demo.parse_args(["--ckpt", "x", "--few_step"]))
-    assert (preset.num_steps, preset.num_resample_steps, preset.bf16, preset.latency_layout) == (8, 4, True, False)
+    # JAX's preset (completion_demo.py:25-36), the W2C layout included
+    assert (preset.num_steps, preset.num_resample_steps, preset.bf16, preset.latency_layout) == (8, 4, True, True)
 
 
 @pytest.mark.parametrize("module,argv", [
     ("completion_demo", ["--latency_layout"]),
 ])
-def test_unported_flags_exit_with_their_roadmap_item(tiny_msgpack, module, argv, capsys):
+def test_unported_flags_exit_with_their_roadmap_item(tiny_msgpack, module, argv, tmp_path, monkeypatch):
+    """The flags that exited before their ROADMAP item was ported now run:
+    ``completion_demo --latency_layout`` builds its network with
+    ``width_merge_l1=True`` and writes its figure."""
     mod = {"completion_demo": completion_demo}[module]
-    assert mod.main(mod.parse_args(["--ckpt", tiny_msgpack, *argv])) == 2
-    assert "ROADMAP.md" in capsys.readouterr().err
+    monkeypatch.chdir(tmp_path)
+    monkeypatch.setenv("R2DM_SYNTH_SCANS", "3")
+    seen, real = [], mod.setup_model
+
+    def recording(*a, **kw):
+        seen.append(kw.get("width_merge_l1"))
+        return real(*a, **kw)
+
+    monkeypatch.setattr(mod, "setup_model", recording)
+    run = ["--num_steps", "2", "--num_resample_steps", "1", "--device", "cpu"]
+    assert mod.main(mod.parse_args(["--ckpt", tiny_msgpack, *run, *argv])) == 0
+    assert seen == [True] and (tmp_path / "completion_T-0002_r-0001_j-0001.png").exists()

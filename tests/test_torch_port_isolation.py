@@ -31,7 +31,8 @@ def test_import_leaves_jax_and_the_jax_package_out():
         "bad = sorted(n for n in sys.modules if n.split('.')[0] in %r)\n"
         "print(len(list(pkgutil.walk_packages(r2dm_tpu_torch.__path__))), bad)\n"
         "assert not bad, bad\n"
-        "assert {'r2dm_tpu_torch.ops.quant', 'r2dm_tpu_torch.models.refinenet'} <= set(sys.modules)\n"
+        "assert {'r2dm_tpu_torch.ops.quant', 'r2dm_tpu_torch.models.refinenet', 'r2dm_tpu_torch.ops.fused_resample',"
+        " 'r2dm_tpu_torch.hub', 'r2dm_tpu_torch.export_torch_ckpt'} <= set(sys.modules)\n"
         "from r2dm_tpu_torch.ops import build\n"
         "assert not build._libs and not build.build_logs  # nothing built\n" % (FORBIDDEN,)
     )
@@ -53,9 +54,11 @@ def _imports(path: Path):
 
 
 def test_static_scan_finds_no_forbidden_import():
-    files = sorted(PKG.rglob("*.py")) + [REPO / "chip_smoke.py", REPO / "w8a8_variants.py"]
+    files = sorted(PKG.rglob("*.py")) + [REPO / "chip_smoke.py", REPO / "w8a8_variants.py",
+                                          REPO / "fused_resample_variants.py"]
     assert len(files) > 10
-    assert {PKG / "ops" / "quant.py", PKG / "models" / "refinenet.py"} <= set(files)
+    assert {PKG / "ops" / "quant.py", PKG / "models" / "refinenet.py", PKG / "ops" / "fused_resample.py",
+            PKG / "hub.py", PKG / "export_torch_ckpt.py"} <= set(files)
     for path in files:
         for name in _imports(path):
             assert name.split(".")[0] not in FORBIDDEN, f"{path.relative_to(REPO)} imports {name}"

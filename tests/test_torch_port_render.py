@@ -141,17 +141,22 @@ def test_generate_cli_writes_previews(tiny_msgpack, tmp_path, capsys, video):
     assert "sampling 3/3 steps" in capsys.readouterr().err
 
 
-def test_generate_cli_refuses_unported_lanes(tiny_msgpack):
-    """--latency_layout (the TPU-only W2C layout) exits naming its ROADMAP
-    entry, in process and as ``python -m``; --int8 runs its lane
-    (tests/test_torch_port_quant.py)."""
-    args = port_generate.parse_args(["--ckpt", tiny_msgpack, "--latency_layout", "--device", "cpu"])
-    assert port_generate.main(args) == 2
+def test_generate_cli_refuses_unported_lanes(tiny_msgpack, tmp_path):
+    """No lane is refused any more: --latency_layout (the W2C layout, the
+    same math on the NHWC kernels) runs, in process and as ``python -m``,
+    and writes the PNGs of the run without it byte for byte; --int8 runs
+    its lane (tests/test_torch_port_quant.py)."""
+    run = ["--ckpt", tiny_msgpack, "--batch_size", "2", "--sampling_steps", "2", "--device", "cpu"]
+    for name, extra in (("plain", []), ("w2c", ["--latency_layout"])):
+        assert port_generate.main(port_generate.parse_args(run + extra + ["--out_dir", str(tmp_path / name)])) == 0
     proc = subprocess.run(
-        [sys.executable, "-m", "r2dm_tpu_torch.generate", "--ckpt", tiny_msgpack, "--latency_layout"],
+        [sys.executable, "-m", "r2dm_tpu_torch.generate", *run, "--latency_layout", "--out_dir", str(tmp_path / "cli")],
         cwd=REPO, capture_output=True, text=True, timeout=300, env={**os.environ, "OMP_NUM_THREADS": "1"},
     )
-    assert proc.returncode == 2 and "ROADMAP.md" in proc.stderr
+    assert proc.returncode == 0, proc.stderr
+    for png in ("samples_img.png", "samples_bev.png"):
+        plain = (tmp_path / "plain" / png).read_bytes()
+        assert (tmp_path / "w2c" / png).read_bytes() == plain and (tmp_path / "cli" / png).read_bytes() == plain
 
 
 def test_bench_flop_count_of_config_h():

@@ -130,6 +130,9 @@ def test_seeded_samples_do_not_depend_on_chunking(both):
 
 def test_checkpoint_files_and_pretrained_lookup(ckpt, tmp_path, monkeypatch):
     monkeypatch.delenv("R2DM_CKPT_DIR", raising=False)
+    # an empty cache, and a fetch that fails with no network traffic
+    monkeypatch.setenv("R2DM_CACHE_DIR", str(tmp_path / "cache"))
+    monkeypatch.setenv("R2DM_WEIGHTS_URL_BASE", (tmp_path / "no-release").as_uri())
     with pytest.raises(FileNotFoundError):
         pretrained_r2dm("r2dm-h-kitti360-300k", device="cpu")
     ema = {f"ema_model.{k}": torch.from_numpy(v) for k, v in ckpt["weights"].items()}

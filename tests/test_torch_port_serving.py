@@ -462,9 +462,11 @@ def test_batch_auto_chunking(families, monkeypatch):
 def test_pretrained_lookup_in_the_cache_dir(variables, tmp_path, monkeypatch):
     monkeypatch.delenv("R2DM_CKPT_DIR", raising=False)
     monkeypatch.setenv("R2DM_CACHE_DIR", str(tmp_path))
-    with pytest.raises(FileNotFoundError, match="R2DM_CACHE_DIR"):
+    # a fetch that fails with no network traffic
+    monkeypatch.setenv("R2DM_WEIGHTS_URL_BASE", (tmp_path / "no-release").as_uri())
+    with pytest.raises(FileNotFoundError, match="R2DM_CKPT_DIR"):
         pretrained_r2dm("r2dm-h-kittiraw-300k", device="cpu")
-    (tmp_path / "checkpoints").mkdir()
+    (tmp_path / "checkpoints").mkdir(exist_ok=True)  # the failed fetch made it
     ckpt = {"cfg": asdict(tiny_cfg()), "weights": {k: torch.from_numpy(np.array(v))
                                                    for k, v in export_unet_state_dict(variables).items()}}
     torch.save(ckpt, tmp_path / "checkpoints" / "r2dm-h-kittiraw-300k.pth")

@@ -443,7 +443,8 @@ def test_grad_bf16_steps_match_jax(bf16_nets, monkeypatch):
     norm does to 4.2e-2 (limit 6e-2): the same bf16 network with fp32
     cotangents differs as much between the frameworks (the bias gradients,
     sums over every pixel), while the port's bf16 and fp32 cotangents agree
-    to 2e-4 (limit 1e-3). Each parameter to 4 lr (Adam moves a parameter
+    to 5.2e-4 (limit 1e-3; 2.1e-4 with the two-op down path, whose rounding
+    differs). Each parameter to 4 lr (Adam moves a parameter
     by up to lr a step either way, so a gradient entry within rounding of
     0 may move it 2 lr the other way; measured 3.6 lr), the update direction
     to a cosine of 0.99 (0.9985). The gradients the port hands the clip are
