@@ -116,6 +116,22 @@ Phases (any failure makes the exit code non-zero and suppresses the result):
      with its conv FLOPs, DDIM-16 b8, ``generate`` b2, ``train`` for 4 + 2
      resumed steps at b8 on the synthetic set, the train step's ms and peak
      memory; no hand-written kernel runs there (every counter 0).
+Then (phase 16, and its kernel checks right after phase 3) the width axis,
+``--mesh 1x2``: two gloo ranks on this one card (a correctness check, no
+scaling number), each holding 512 of the 1024 columns. The ring conv's halo'd
+form at every ResidualBlock shape with W halved (max|err| <= 1e-2 max|ref|)
+and the GroupNorm stats + apply pair at every GN shape (the fp32 sums to
+1e-5, the output rtol = atol = 2e-2), each timed beside its bound, plain
+version and the one-launch form; then in the ranks one b8 forward against
+one rank (relative L2 <= 1e-2, 48 halo'd convs and 50 + 50 GN stats/apply
+launches a rank, no ring-form conv and no one-launch GN), the width
+collectives' host time (gloo on one card: no scaling figure), each step of a
+DDIM-4 chain fed one rank's x_t (the forward <= 1e-2), the DDIM-4 chain
+through ``DDPM.sample(world=)`` (its launches the width axis's main path)
+and ``sample_and_save --mesh 1x2`` on phase 9's seeds against one rank
+within WIDTH_SPREAD times one rank's kernel-vs-plain distance on the same
+chain, and ``bench --mesh 1x2`` (b8, 2 steps; its line's unit "img/s
+aggregate (2 dev)").
 The line before the last is the kernels JSON; the last line is
 {"ok": true, "device": {...}}. Exits non-zero, printing no result, without a
 CUDA device or without the port's package.
@@ -149,6 +165,20 @@ RANK_TIMEOUT_S = 240  # phase 12: the deadline of each group of rank processes
 # per-seed generators). NVIDIA H100 80GB HBM3, 700 W.
 TWO_RANK_LOSS_REL, TWO_RANK_UPDATE_REL, TWO_RANK_SAMPLE_ATOL = 1e-5, 2e-2, 1e-5
 REFLOW_ARGS = {"num_pairs": 16, "teacher_steps": 4, "batch_size": B, "train_steps": 4}
+# phase 16, the width axis: two gloo ranks on this card, --mesh 1x2, each
+# holding half of every image's 1024 columns. One network forward and each
+# step of a DDIM-4 chain fed one rank's x_t: relative L2 against one rank
+# (the forward's limit). A free-running bf16 chain is chaotic at its first
+# step (t = 1: x_0 = (x - sigma eps) / alpha, 1/alpha = 1800, then clipped,
+# so a rounding of eps flips a pixel between -1 and 1): any other rounding
+# moves the samples, the port's kernels against their plain versions too.
+# So the sharded DDIM-4 chain and sample_and_save's files are held against
+# one rank within WIDTH_SPREAD times the distance of one rank's kernel path
+# from its plain path on the same chain, measured in the same run.
+WIDTH_MESH = "1x2"
+WIDTH_FORWARD_REL_L2 = 1e-2
+WIDTH_DDIM_STEPS = 4
+WIDTH_SPREAD = 1.5
 # every batch at which this script runs the network: generate b2, RePaint
 # b4, the other paths b8, the memory probe b32; one forward at each is held
 # against the plain path
@@ -200,6 +230,11 @@ SOURCES = {
     "ring_conv_w8a8": ("r2dm_tpu_torch/csrc/w8a8_ringconv.cu", "r2dm_tpu/ops/quant.py:78"),
     "act_absmax": ("r2dm_tpu_torch/csrc/w8a8_ringconv.cu", "r2dm_tpu/ops/quant.py:59"),
     "act_quantize": ("r2dm_tpu_torch/csrc/w8a8_ringconv.cu", "r2dm_tpu/ops/quant.py:63"),
+    # the width axis's cross-rank forms of the two TPU kernels (GSPMD shards
+    # the same Pallas calls there)
+    "act_ringconv_halo": ("r2dm_tpu_torch/csrc/act_ringconv.cu", "r2dm_tpu/ops/pallas_resconv.py:174"),
+    "gn_stats": ("r2dm_tpu_torch/csrc/gn_silu.cu", "r2dm_tpu/ops/pallas_gn.py:107"),
+    "gn_apply": ("r2dm_tpu_torch/csrc/gn_silu.cu", "r2dm_tpu/ops/pallas_gn.py:107"),
 }
 
 
@@ -595,22 +630,14 @@ def phase_main(torch, tmp):
 
     # one network forward, kernel path against plain path, at each of
     # FORWARD_BATCHES: both kernels at every shape a path gives them
-    patched = {"fused_group_norm_silu": ops.gn_silu.fused_group_norm_silu_plain,
-               "fused_act_ringconv": ops.act_ringconv.act_ringconv_plain}
     rels = {}
     for b in FORWARD_BATCHES:
         xin = randn(torch, (b, 64, 1024, 2), 9)
         cond = torch.linspace(-5.0, 5.0, b, device="cuda")
         with torch.inference_mode():
             y_kernel = ddpm.model(xin, cond)
-            saved = {n: getattr(layers, n) for n in patched}
-            try:
-                for n, fn in patched.items():
-                    setattr(layers, n, fn)
+            with _plain_layers():
                 y_plain = ddpm.model(xin, cond)
-            finally:
-                for n, fn in saved.items():
-                    setattr(layers, n, fn)
         rels[b] = ((y_kernel - y_plain).norm() / y_plain.norm()).item()
         del y_kernel, y_plain
     print(f"network forward, kernel path vs plain path: relative L2 by batch {json.dumps(rels)} (limit 2e-2)")
@@ -843,12 +870,13 @@ def _launches(ops) -> dict:
     return {fn.__name__: fn.launches for fn in ops.KERNEL_WRAPPERS}
 
 
-def launches_of(gn: int, conv: int, s8: int = 0) -> dict:
-    """The launch counts a run must read: GroupNorm, the bf16 ring conv, and
-    the int8 lane's absmax reduction, quantize pass and s8 ring conv (one
-    each a quantized conv)."""
+def launches_of(gn: int, conv: int, s8: int = 0, halo: int = 0, gn_pair: int = 0) -> dict:
+    """The launch counts a run must read: GroupNorm, the bf16 ring conv, the
+    int8 lane's absmax reduction, quantize pass and s8 ring conv (one each a
+    quantized conv), and under a width axis the ring conv's halo'd form and
+    GroupNorm's stats and apply launches (one each a norm)."""
     return {"fused_group_norm_silu": gn, "fused_act_ringconv": conv, "ring_conv_w8a8": s8, "act_absmax": s8,
-            "act_quantize": s8}
+            "act_quantize": s8, "act_ringconv_halo": halo, "gn_stats": gn_pair, "gn_apply": gn_pair}
 
 
 def phase_eval(torch, main_out, tmp, card):
@@ -1731,10 +1759,13 @@ torch.distributed.init_process_group("gloo", init_method="file://" + rendezvous,
 import chip_smoke  # on PYTHONPATH, the checkout's root
 
 results = []
-for job in jobs:  # each module's main in turn, in its working directory, under the one group
+for job in jobs:  # each module's main (or a function of this script) in turn, in its working directory
     os.chdir(job["cwd"])
     os.environ.update(job["env"])
-    results.append(chip_smoke.counted_main(torch, job["module"], job["argv"]))
+    if "call" in job:
+        results.append(getattr(chip_smoke, job["call"])(torch, **job["kwargs"]))
+    else:
+        results.append(chip_smoke.counted_main(torch, job["module"], job["argv"]))
 torch.distributed.destroy_process_group()
 print("RANK_RESULT " + json.dumps(results), flush=True)
 """
@@ -1954,6 +1985,323 @@ def phase_two_ranks(torch, tmp, eval_out, card):
         raise AssertionError(f"NCCL one-rank train: {out['nccl']}, expected {expected} and the one-rank losses")
     out["two_rank_seconds"] = seconds
     return out
+
+
+def _rel(a, b) -> float:
+    """Relative L2 of a against b, in float64."""
+    a, b = a.double(), b.double()
+    return ((a - b).norm() / b.norm()).item()
+
+
+def _plain_layers():
+    """A context in which the network runs the plain versions of both
+    kernels (the patch phase_main applies for its kernel-vs-plain check)."""
+    import contextlib
+
+    from r2dm_tpu_torch import ops
+    from r2dm_tpu_torch.models import layers
+
+    @contextlib.contextmanager
+    def patched():
+        saved = (layers.fused_group_norm_silu, layers.fused_act_ringconv)
+        layers.fused_group_norm_silu = ops.gn_silu.fused_group_norm_silu_plain
+        layers.fused_act_ringconv = ops.act_ringconv.act_ringconv_plain
+        try:
+            yield
+        finally:
+            layers.fused_group_norm_silu, layers.fused_act_ringconv = saved
+
+    return patched()
+
+
+def width_rank_job(torch, ckpt: str, chain_out: str) -> dict:
+    """One rank of the width phase (``--mesh 1x2``): one b8 network forward
+    sharded against this rank's unsharded forward, with its launches and
+    the width collectives' host time; one rank's DDIM-4 chain and each of
+    its steps again sharded from the same x_t (forward and step output);
+    then the sharded DDIM-4 chain through ``DDPM.sample(world=)`` with its
+    launches (the width axis's main path), written to ``chain_out`` by
+    width rank 0."""
+    import numpy as np
+
+    from r2dm_tpu_torch import ops, parallel, setup_model
+    from r2dm_tpu_torch.models import layers
+
+    world = parallel.init("cuda", mesh=WIDTH_MESH)
+    out = {"rank": world.rank, "width_rank": world.width_rank, "width_size": world.width_size}
+    try:
+        ddpm, _, _ = setup_model(ckpt, dtype=torch.bfloat16, device=world.device)
+        model, diff = ddpm.model, ddpm.diffusion
+        x = randn(torch, (B, 64, 1024, 2), 40)
+        cond = torch.linspace(-5.0, 5.0, B, device="cuda")
+        with torch.inference_mode():
+            ref = model(x, cond)
+            xs = parallel.shard_columns(x, world)
+            with layers.width_sharded(model, world):
+                model(xs, cond)  # warm-up
+                torch.cuda.synchronize()
+                ops.reset_launch_counts()
+                world.collective_calls, world.collective_seconds = 0, 0.0
+                t0 = time.time()
+                y = model(xs, cond)
+                torch.cuda.synchronize()
+                out["forward_host_s"] = time.time() - t0
+                out["forward_launches"] = _launches(ops)
+                out["collective_calls"], out["collective_host_s"] = world.collective_calls, world.collective_seconds
+                start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+                start.record()
+                model(xs, cond)
+                end.record()
+                torch.cuda.synchronize()
+                out["forward_event_ms"] = start.elapsed_time(end)
+            out["forward_rel_l2"] = _rel(parallel.gather_columns(y, world), ref)
+
+            steps, seeds = WIDTH_DDIM_STEPS, list(range(B))
+            one = ddpm.sample(B, steps, mode="ddim", seeds=seeds, data_format="NHWC", return_all=True)
+            ts = torch.linspace(1.0, 0.0, steps + 1, dtype=torch.float32, device="cuda")
+            out["teacher_forced_forward_rel_l2"], out["teacher_forced_step_rel_l2"] = [], []
+            for i in range(steps):
+                x_t = one[i]
+                logsnr = diff._steps(ts[i], B, x_t.device)
+                ref = model(x_t, logsnr)
+                with layers.width_sharded(model, world):
+                    y = parallel.gather_columns(model(parallel.shard_columns(x_t, world), logsnr), world)
+                    x_s = parallel.gather_columns(diff.p_step(parallel.shard_columns(x_t, world), ts[i], ts[i + 1],
+                                                              mode="ddim"), world)
+                out["teacher_forced_forward_rel_l2"].append(_rel(y, ref))
+                out["teacher_forced_step_rel_l2"].append(_rel(x_s, one[i + 1]))
+
+            torch.cuda.synchronize()
+            ops.reset_launch_counts()
+            two = ddpm.sample(B, steps, mode="ddim", seeds=seeds, data_format="NHWC", world=world)
+            torch.cuda.synchronize()
+            out["ddim_launches"] = _launches(ops)
+            out["ddim_rel_l2_vs_this_rank"] = _rel(two, one[-1])
+            if world.width_rank == 0:
+                np.save(chain_out, two.float().cpu().numpy())
+    finally:
+        world.close()
+    return out
+
+
+def width_bench_job(torch) -> dict:
+    """``r2dm_tpu_torch.bench --mesh 1x2 --batch 8 --steps 2`` on this rank
+    (its line printed by rank 0); the aggregated result."""
+    from r2dm_tpu_torch import bench
+
+    return bench.main(batch=B, steps=2, trials=1, ddim_steps=2, mesh=WIDTH_MESH)
+
+
+def phase_width(torch, main_out, eval_out, tmp, card):
+    """The width axis: two gloo ranks sharing this card with ``--mesh 1x2``
+    (a correctness check, no scaling number), each holding 512 of the 1024
+    columns: a forward and a DDIM-4 chain against one rank, exact launches
+    (48 halo'd convs, 50 + 50 GN stats/apply a forward and a rank, no
+    ring-form conv or one-launch GN), ``sample_and_save`` on phase 9's
+    seeds against phase 9's files, and ``bench --mesh 1x2``."""
+    import numpy as np
+
+    from r2dm_tpu_torch import setup_model
+    from r2dm_tpu_torch.sample_and_save import postprocess
+
+    work = os.path.join(tmp, "width_axis")
+    os.makedirs(work)
+    chain_out = os.path.join(work, "ddim_two_ranks.npy")
+    samples = os.path.join(work, "samples")
+    jobs = [
+        {"call": "width_rank_job", "kwargs": {"ckpt": main_out["ckpt"], "chain_out": chain_out}, "env": {}},
+        {"module": "r2dm_tpu_torch.sample_and_save", "env": {},
+         "argv": ["--ckpt", eval_out["ckpt"], "--output_dir", samples, "--batch_size", str(B), "--num_samples",
+                  str(2 * B), "--num_steps", "4", "--mode", "ddim", "--mesh", WIDTH_MESH]},
+        {"call": "width_bench_job", "kwargs": {}, "env": {"R2DM_BENCH_BUDGET_S": "300"}},
+    ]
+    t0 = time.time()
+    ranks = _two_ranks(work, [[{**job, "cwd": work} for job in jobs] for _ in range(2)])
+    seconds = time.time() - t0
+    (job0, job1), (sas0, sas1), (bench0, _) = ([rank[i] for rank in ranks] for i in range(3))
+    out = {"card": card, "seconds": seconds}
+
+    # ---- one forward, and the chain's steps fed one rank's x_t
+    per_forward = launches_of(0, 0, halo=48, gn_pair=50)
+    fwd = {k: job0[k] for k in ("forward_rel_l2", "forward_host_s", "forward_event_ms", "collective_calls",
+                                "collective_host_s", "teacher_forced_forward_rel_l2", "teacher_forced_step_rel_l2",
+                                "ddim_rel_l2_vs_this_rank")}
+    fwd["launches_per_rank"] = [job0["forward_launches"], job1["forward_launches"]]
+    out["forward"] = fwd
+    print(f"width axis {WIDTH_MESH}, two gloo ranks on one card ({card}; a correctness check, no scaling number): "
+          f"b{B} forward and DDIM-{WIDTH_DDIM_STEPS} steps fed one rank's x_t: {json.dumps(fwd)}")
+    rels = [job0["forward_rel_l2"]] + job0["teacher_forced_forward_rel_l2"]
+    if not all(math.isfinite(r) and r <= WIDTH_FORWARD_REL_L2 for r in rels):
+        raise AssertionError(f"sharded forward against one rank: relative L2 {rels} (limit {WIDTH_FORWARD_REL_L2})")
+    if fwd["launches_per_rank"] != [per_forward] * 2:
+        raise AssertionError(f"sharded forward launches {fwd['launches_per_rank']}, each {per_forward}")
+
+    # ---- the free-running chain, against one rank and against the spread
+    # of one rank's kernel path from its plain path
+    ddpm = main_out["ddpm"]
+    seeds = list(range(B))
+    with torch.inference_mode():
+        one = ddpm.sample(B, WIDTH_DDIM_STEPS, mode="ddim", seeds=seeds, data_format="NHWC")
+        with _plain_layers():
+            plain = ddpm.sample(B, WIDTH_DDIM_STEPS, mode="ddim", seeds=seeds, data_format="NHWC")
+    two = torch.from_numpy(np.load(chain_out)).to("cuda")
+    expected = launches_of(0, 0, halo=48 * WIDTH_DDIM_STEPS, gn_pair=50 * WIDTH_DDIM_STEPS)
+    chain = {"rel_l2_vs_one_rank": _rel(two, one), "kernel_vs_plain_rel_l2": _rel(one, plain),
+             "pixels_off_by_0.1_vs_one_rank": ((two - one).abs() > 0.1).double().mean().item(),
+             "pixels_off_by_0.1_kernel_vs_plain": ((one - plain).abs() > 0.1).double().mean().item(),
+             "launches_per_rank": [job0["ddim_launches"], job1["ddim_launches"]]}
+    out["ddim"] = chain
+    print(f"width axis, DDIM-{WIDTH_DDIM_STEPS} b{B} through DDPM.sample(world=) ({card}): {json.dumps(chain)}")
+    if chain["launches_per_rank"] != [expected] * 2 or not math.isfinite(chain["rel_l2_vs_one_rank"]) \
+            or chain["rel_l2_vs_one_rank"] > WIDTH_SPREAD * chain["kernel_vs_plain_rel_l2"]:
+        raise AssertionError(f"sharded DDIM-{WIDTH_DDIM_STEPS}: {chain} (launches {expected} each; limit "
+                             f"{WIDTH_SPREAD} x the kernel-vs-plain distance)")
+
+    # ---- sample_and_save on phase 9's seeds, against phase 9's files
+    files = sorted(os.listdir(samples))
+    two_s = np.stack([np.load(os.path.join(samples, f))["sample"] for f in files])
+    one_s = np.stack([np.load(os.path.join(eval_out["samples"], f))["sample"] for f in files])
+    eval_ddpm, lidar, _ = setup_model(eval_out["ckpt"], dtype=torch.bfloat16, device="cuda")
+    plain_s = []
+    with torch.inference_mode(), _plain_layers():
+        for lo in range(0, 2 * B, B):
+            x = eval_ddpm.sample(B, 4, mode="ddim", seeds=list(range(lo, lo + B)))
+            plain_s.append(postprocess(x, lidar).cpu().numpy())
+    del eval_ddpm
+    plain_s = np.concatenate(plain_s)
+    t_two, t_one, t_plain = (torch.from_numpy(a) for a in (two_s, one_s, plain_s))
+    diff = np.abs(two_s - one_s)
+    expected = launches_of(0, 0, halo=48 * 8, gn_pair=50 * 8)  # every rank: 2 batches x 4 steps
+    sas = {"files": len(files), "rel_l2_vs_one_rank": _rel(t_two, t_one),
+           "kernel_vs_plain_rel_l2": _rel(t_plain, t_one), "max_abs_diff_m": float(diff.max()),
+           "share_within_1e-3_m": float((diff <= 1e-3).mean()),
+           "launches_per_rank": [sas0["launches"], sas1["launches"]], "seconds": sas0["seconds"]}
+    out["sample_and_save"] = sas
+    print(f"width axis, sample_and_save --mesh {WIDTH_MESH} {2 * B} samples b{B} 4 DDIM steps against phase 9's "
+          f"files ({card}): {json.dumps(sas)}")
+    if files != sorted(os.listdir(eval_out["samples"])) or sas["launches_per_rank"] != [expected] * 2 \
+            or not np.isfinite(two_s).all() or sas["rel_l2_vs_one_rank"] > WIDTH_SPREAD * sas["kernel_vs_plain_rel_l2"]:
+        raise AssertionError(f"sample_and_save --mesh {WIDTH_MESH}: {sas} (launches {expected} each; limit "
+                             f"{WIDTH_SPREAD} x the kernel-vs-plain distance)")
+
+    # ---- bench --mesh 1x2
+    out["bench"] = {k: bench0.get(k) for k in ("value", "unit", "ranks", "per_rank_img_per_s", "mfu", "batch",
+                                              "steps", "flow_euler1_img_per_s", "ddim2_img_per_s")}
+    print(f"width axis, bench --mesh {WIDTH_MESH} b{B} 2 steps ({card}; ranks share the card): "
+          f"{json.dumps(out['bench'])}")
+    if not (math.isfinite(bench0["value"]) and bench0["value"] > 0 and bench0["unit"] == "img/s aggregate (2 dev)"):
+        raise AssertionError(f"bench --mesh {WIDTH_MESH}: {out['bench']}")
+    out["launches"] = job0["ddim_launches"]
+    return out
+
+
+def phase_width_kernels(torch, card):
+    """The width axis's forms of both kernels at the shapes a rank gives
+    them under --mesh 1x2 (W halved), against their plain versions (the
+    gates of the one-rank forms), each timed beside its bound and plain
+    version: the halo'd ring conv at every ResidualBlock shape, the
+    GroupNorm stats + apply pair at every GN shape."""
+    import torch.nn.functional as F
+
+    from r2dm_tpu_torch.ops import act_ringconv, gn_silu
+
+    torch.backends.cudnn.allow_tf32 = False
+    G, eps = 8, 1e-6
+    conv_rows, gn_rows, worst = [], [], {"act_ringconv_halo": 0.0, "gn_stats": 0.0, "gn_apply": 0.0}
+    for (C, Fo, H, W), count in CONV_SHAPES.items():
+        Wl = W // 2
+        x = randn(torch, (B, H, Wl, C), 41, torch.bfloat16)
+        left, right = randn(torch, (B, H, 1, C), 42, torch.bfloat16), randn(torch, (B, H, 1, C), 43, torch.bfloat16)
+        k = randn(torch, (3, 3, C, Fo), 44, scale=(9 * C) ** -0.5)
+        bias = randn(torch, (Fo,), 45, scale=0.1)
+        halo = (left, right)
+        y = act_ringconv.fused_act_ringconv(x, None, None, k, bias, apply_act=False, halo=halo)
+        ref = act_ringconv.act_ringconv_plain(x, None, None, k, bias, apply_act=False, halo=halo)
+        err, scale = (y.float() - ref.float()).abs().max().item(), ref.float().abs().max().item()
+        if not err <= 1e-2 * scale:
+            raise AssertionError(f"act_ringconv_halo {(C, Fo, H, Wl)}: max|err| {err:.3e} vs max|ref| {scale:.3e}")
+        worst["act_ringconv_halo"] = max(worst["act_ringconv_halo"], err)
+        xp = torch.cat([left, x, right], dim=2)
+        xp = F.pad(xp, (0, 0, 0, 0, 1, 1)).permute(0, 3, 1, 2)
+        wt = k.to(torch.bfloat16).permute(3, 2, 0, 1).contiguous(memory_format=torch.channels_last)
+        bb = bias.to(torch.bfloat16)
+        flops = 2 * 9 * C * Fo * B * H * Wl
+        nbytes = B * H * (Wl + 2) * C * 2 + B * H * Wl * Fo * 2 + 9 * C * Fo * 2 + Fo * 4
+        t_bytes, t_ops = nbytes / PEAK_BYTES * 1e3, flops / PEAK_BF16_FLOPS * 1e3
+        conv_rows.append({
+            "cin": C, "f": Fo, "h": H, "w": Wl, "per_forward": count, "max_abs_err": err,
+            "ms": graph_ms(torch, lambda: act_ringconv.fused_act_ringconv(x, None, None, k, bias, apply_act=False,
+                                                                          halo=halo)),
+            "plain_ms": graph_ms(torch, lambda: act_ringconv.act_ringconv_plain(x, None, None, k, bias,
+                                                                                apply_act=False, halo=halo)),
+            "library_ms": graph_ms(torch, lambda: F.conv2d(xp, wt, bb)), "bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations"})
+    for C, H, W in GN_SHAPES:
+        Wl = W // 2
+        x = randn(torch, (B, H, Wl, C), 46, torch.bfloat16, offset=0.1)
+        for per_batch in (False, True):
+            aff = (B, C) if per_batch else (C,)
+            gain, shift = randn(torch, aff, 47, scale=0.5, offset=1.0), randn(torch, aff, 48, scale=0.5)
+            count = H * W * (C // G)  # the whole image's: this rank's columns and the other's
+            sums = gn_silu.gn_stats(x)
+            ref_sums = gn_silu.gn_stats_plain(x)
+            s_err = ((sums - ref_sums).abs() / ref_sums.abs().clamp_min(1.0)).max().item()
+            if not s_err <= 1e-5:
+                raise AssertionError(f"gn_stats {(C, H, Wl)}: relative error {s_err:.3e} (fp32 sums, limit 1e-5)")
+            worst["gn_stats"] = max(worst["gn_stats"], (sums - ref_sums).abs().max().item())
+            both = sums * 2  # as if the other rank's columns summed the same
+            for silu in (True, False):
+                y = gn_silu.gn_apply(x, both, count, gain, shift, G, eps, silu)
+                ref = gn_silu.gn_apply_plain(x, both, count, gain, shift, G, eps, silu)
+                err = (y.float() - ref.float()).abs()
+                # bf16 output: rtol = atol = 2e-2, the one-launch form's gate
+                if not bool((err <= 2e-2 + 2e-2 * ref.float().abs()).all()):
+                    raise AssertionError(f"gn_apply {(C, H, Wl)} silu={silu}: max|err| {err.max().item():.3e}")
+                worst["gn_apply"] = max(worst["gn_apply"], err.max().item())
+        gain, shift = randn(torch, (C,), 47), randn(torch, (C,), 48)
+        n = x.numel()
+        st_bytes, st_ops = (n * 2 + 2 * B * C * 4) / PEAK_BYTES * 1e3, 3 * n / PEAK_FP32_FLOPS * 1e3
+        ap_bytes, ap_ops = (2 * n * 2 + 2 * B * C * 4) / PEAK_BYTES * 1e3, 10 * n / PEAK_FP32_FLOPS * 1e3
+        both = gn_silu.gn_stats(x) * 2
+        gn_rows.append({
+            "c": C, "h": H, "w": Wl,
+            "stats_ms": graph_ms(torch, lambda: gn_silu.gn_stats(x)),
+            "stats_plain_ms": graph_ms(torch, lambda: gn_silu.gn_stats_plain(x)),
+            "stats_bound_ms": max(st_bytes, st_ops), "stats_bound_by": "bytes" if st_bytes >= st_ops else "operations",
+            "apply_ms": graph_ms(torch, lambda: gn_silu.gn_apply(x, both, H * W * (C // G), gain, shift, G, eps)),
+            "apply_plain_ms": graph_ms(torch, lambda: gn_silu.gn_apply_plain(x, both, H * W * (C // G), gain, shift,
+                                                                             G, eps)),
+            "apply_bound_ms": max(ap_bytes, ap_ops), "apply_bound_by": "bytes" if ap_bytes >= ap_ops else "operations",
+            "one_launch_ms": graph_ms(torch, lambda: gn_silu.fused_group_norm_silu(x, gain, shift, G, eps))})
+    conv_total = {k: sum(r[k] * r["per_forward"] for r in conv_rows) for k in ("ms", "plain_ms", "library_ms",
+                                                                             "bound_ms")}
+    print(f"width axis, the halo'd ring conv at every ResidualBlock shape, W halved, b{B} ({card}): "
+          + json.dumps({"shapes": conv_rows, "per_forward_total": conv_total}))
+    print(f"width axis, GroupNorm stats + apply at every GN shape, W halved, b{B} ({card}): " + json.dumps(gn_rows))
+    return {"conv": conv_rows, "gn": gn_rows, "worst": worst, "conv_total": conv_total}
+
+
+def width_rows(width, kern) -> list:
+    """The kernels line's rows of the width axis's three forms: launches from
+    its main path (a rank's DDIM-4 chain through ``DDPM.sample(world=)``),
+    times at the level-1 conv shape (64 -> 64 at 64x512, b8) and the GN row's
+    shape of the one-rank line (512 channels at 8x64, b8)."""
+    conv = next(r for r in kern["conv"] if (r["cin"], r["f"], r["h"]) == (64, 64, 64))
+    gn = next(r for r in kern["gn"] if (r["c"], r["h"]) == (512, 8))
+    rows = [{"name": "act_ringconv_halo", "ms": conv["ms"], "plain_ms": conv["plain_ms"], "bound_ms": conv["bound_ms"],
+             "bound_by": conv["bound_by"], "library_ms": conv["library_ms"],
+             "shape": [B, conv["h"], conv["w"], conv["cin"], conv["f"]]}]
+    for name in ("gn_stats", "gn_apply"):
+        key = name[3:]
+        # no one PyTorch call computes the split form's sums or its apply
+        rows.append({"name": name, "ms": gn[f"{key}_ms"], "plain_ms": gn[f"{key}_plain_ms"],
+                     "bound_ms": gn[f"{key}_bound_ms"], "bound_by": gn[f"{key}_bound_by"], "library_ms": None,
+                     "shape": [B, gn["h"], gn["w"], gn["c"]]})
+    for row in rows:
+        src, replaces = SOURCES[row["name"]]
+        row.update({"route": "cuda", "source": src, "replaces": replaces, "launches": width["launches"][row["name"]],
+                    "max_abs_err": kern["worst"][row["name"]]})
+    return rows
 
 
 def phase_reflow(torch, main_out, tmp, card):
@@ -2476,8 +2824,10 @@ def main() -> int:
         return 1
     gn_err = phases.run("kernel 1 against its plain version", phase_gn, torch)
     conv_err = phases.run("kernel 2 against its plain version", phase_conv, torch)
+    width_kern = phases.run("width axis: the halo'd conv and the GN pair against their plain versions",
+                            phase_width_kernels, torch, card)
     phases.run("conv∘FIR composed against two ops; the W2C record", phase_resample, torch)
-    eval_out = accum = two_ranks = reflowed = int8 = None
+    eval_out = accum = two_ranks = reflowed = int8 = width = None
     with tempfile.TemporaryDirectory() as tmp:
         main_out = phases.run("main path", phase_main, torch, tmp)
         if main_out is not None:
@@ -2497,6 +2847,8 @@ def main() -> int:
                            card)
                 two_ranks = phases.run("data axis: two ranks on one card, one rank under NCCL", phase_two_ranks,
                                        torch, tmp, eval_out, card)
+                width = phases.run(f"width axis: two ranks on one card, --mesh {WIDTH_MESH}", phase_width, torch,
+                                   main_out, eval_out, tmp, card)
             reflowed = phases.run("reflow", phase_reflow, torch, main_out, tmp, card)
     step_out = phases.run("training: kernel path against plain path", phase_train_step, torch)
     train_time = bf16 = None
@@ -2511,6 +2863,8 @@ def main() -> int:
         phases.run("breakdown", phase_breakdown, torch, main_out["ddpm"])
         if rows is not None and int8 is not None:
             rows += int8_rows(int8, main_out["launches"], train_cli["launches"])
+        if rows is not None and width is not None and width_kern is not None:
+            rows += width_rows(width, width_kern)
     else:
         rows = None
     if phases.failed:
@@ -2528,6 +2882,7 @@ def main() -> int:
         row["reflow_finetune_launches"] = reflowed["launches"]["finetune"][name]
         row["int8_ddim16_launches"] = int8["launches"][name]
         row["refinenet_phase_launches"] = refinenet["launches"][name]
+        row["width_ddim4_launches_per_rank"] = width["launches"][name]
     print(f"ddim16_b{B}_img_per_s {main_out['ddim16_img_s']:.4f}")
     print(f"int8_ddim16_b{B}_img_per_s {int8['ddim16']['img_per_s']:.4f}; int8 forward device ms "
           f"{json.dumps(int8['forward_times'])}")

@@ -3,13 +3,14 @@
 
     python -m r2dm_tpu_torch.bench [--batch 256] [--steps 256] [--trials 4]
     torchrun --nproc_per_node N -m r2dm_tpu_torch.bench [--mesh N] ...   # on N cards
+    torchrun --nproc_per_node D*W -m r2dm_tpu_torch.bench --mesh DxW ...   # width axis
 
 Prints one JSON line with img/s and MFU. The protocol of the repo's
 ``bench.py``: batch 256, 256 DDPM steps, the continuous-time cosine schedule,
 config-H EfficientUNet (2x64x1024), a bf16 network with fp32 diffusion
 maths, random weights (N(0, 0.05^2) from seed 0; throughput does not depend
 on them), through ``DDPM.sample``. One warm-up step at the batch, then
-timed chains (CUDA events, a fresh generator each) while the wall-clock
+timed chains (CUDA events, a generator an image from the chain's seeds) while the wall-clock
 budget ``$R2DM_BENCH_BUDGET_S`` (default 900 s) covers another, at most
 ``--trials``; the value is their median, and the line keeps every trial's
 seconds. Two secondary measurements follow, as in the repo's
@@ -20,11 +21,15 @@ same network under a ``timestep_type = "flow"`` diffusion (2 trials of
 and not constant), then ``ddim32_*``, 32-step DDIM chains. The first
 chain's samples must be finite and not constant.
 
-Under ``torchrun`` every rank runs the protocol on its own card, and rank 0
-prints one line with the aggregate img/s (the ranks' sum) beside each
-rank's: the counterpart of the JAX ``bench.py --mesh N``, which shards the
-batch over N devices and reports aggregate img/s. ``--mesh`` ('N' or
-'Nx1') must equal the world size; a width axis exits.
+Under ``torchrun`` every data group runs the protocol on its own cards, and
+rank 0 prints one line with the aggregate img/s (the data groups' sum)
+beside each rank's: the counterpart of the JAX ``bench.py --mesh``, which
+shards the batch over the data axis and reports aggregate img/s
+(bench.py:191-207). ``--mesh`` ('N' or 'DxW') must multiply to the world
+size; with W > 1 the W ranks of a group run the same chains, each on its
+columns of the images (``DDPM.sample(world=)``), the latency lane, and the
+line's unit is then "img/s aggregate (N dev)", as the JAX line names it
+(bench.py:304). MFU counts each card's share of the FLOPs.
 
 ``$R2DM_TPU_INT8`` (any non-empty value) runs the network on the int8
 serving lane (``models/layers.py::set_quant_conv``, the s8 ring-conv
@@ -144,34 +149,45 @@ def card() -> str:
         return "unknown"
 
 
-def _timed(ddpm: DDPM, batch: int, steps: int, mode: str, seed: int):
-    """One chain through DDPM.sample, device time from CUDA events."""
+def chain(ddpm: DDPM, batch: int, steps: int, mode: str, seed: int, world=None) -> torch.Tensor:
+    """One chain of the protocol through DDPM.sample, NHWC: image i of it
+    drawn from seed ``seed * batch + i``, so that every rank of a group can
+    run it (a process group refuses DDPM's internal stream) and the width
+    ranks of a data group draw alike."""
+    return ddpm.sample(batch, steps, mode=mode, data_format="NHWC", world=world,
+                       seeds=list(range(seed * batch, (seed + 1) * batch)))
+
+
+def _timed(ddpm: DDPM, batch: int, steps: int, mode: str, seed: int, world=None):
+    """One ``chain``, device time from CUDA events."""
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     start.record()
-    x = ddpm.sample(batch, steps, mode=mode, data_format="NHWC", x_T=torch.randn(
-        (batch, *ddpm.sampling_shape), generator=torch.Generator("cuda").manual_seed(seed), device="cuda"))
+    x = chain(ddpm, batch, steps, mode, seed, world)
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / 1e3, x
 
 
-def aggregate(results: list[dict]) -> dict:
-    """One line from every rank's result: rank 0's, with ``value``,
-    ``flow_euler1_img_per_s`` and ``ddim*_img_per_s`` the ranks' sums, MFU
-    against the ranks' summed peak, and each rank's img/s beside them. One
-    rank's result is returned as it is."""
+def aggregate(results: list[dict], width_size: int = 1) -> dict:
+    """One line from every rank's result (rank order, ``width_size`` ranks a
+    data group): rank 0's, with ``value``, ``flow_euler1_img_per_s`` and
+    ``ddim*_img_per_s`` the data groups' sums (each group's images counted
+    once, from its width rank 0), MFU against the ranks' summed peak, and
+    each rank's img/s beside them. One rank's result is returned as it
+    is."""
     if len(results) == 1:
         return results[0]
+    groups = results[::width_size]
     out = dict(results[0])
     out["ranks"] = len(results)
     out["per_rank_img_per_s"] = [r["value"] for r in results]
-    out["value"] = sum(out["per_rank_img_per_s"])
+    out["value"] = sum(r["value"] for r in groups)
     for key in ("mfu", "mfu_all"):
         out[key] = sum(r[key] for r in results) / len(results)
     for key in [k for k in out if k.startswith(("ddim", "flow")) and k.endswith("_img_per_s")]:
         per_rank = [r.get(key) for r in results]
         out[f"per_rank_{key}"] = per_rank
-        out[key] = sum(per_rank) if None not in per_rank else None
+        out[key] = sum(per_rank[::width_size]) if None not in per_rank else None
     return out
 
 
@@ -179,10 +195,12 @@ def main(batch: int = BATCH, steps: int = STEPS, trials: int = MAX_TRIALS, ddim_
          mesh: str = "") -> dict:
     if not torch.cuda.is_available():
         raise SystemExit("r2dm_tpu_torch.bench: no CUDA device; the benchmark runs on an NVIDIA card")
-    world = parallel.init("cuda")
+    world = parallel.init("cuda", mesh=mesh)
     try:
-        parallel.parse_mesh(mesh, world.size)
-        result = aggregate(parallel.all_gather_objects(world, _protocol(batch, steps, trials, ddim_steps)))
+        result = aggregate(parallel.all_gather_objects(world, _protocol(batch, steps, trials, ddim_steps, world)),
+                           world.width_size)
+        if mesh:
+            result["unit"] = f"img/s aggregate ({world.size} dev)"
     finally:
         world.close()
     if world.is_main:
@@ -190,7 +208,7 @@ def main(batch: int = BATCH, steps: int = STEPS, trials: int = MAX_TRIALS, ddim_
     return result
 
 
-def _protocol(batch: int, steps: int, trials: int, ddim_steps: int) -> dict:
+def _protocol(batch: int, steps: int, trials: int, ddim_steps: int, world=None) -> dict:
     budget_s = float(os.environ.get("R2DM_BENCH_BUDGET_S", "900"))
     t_start = time.time()
     build.build_all()
@@ -201,15 +219,15 @@ def _protocol(batch: int, steps: int, trials: int, ddim_steps: int) -> dict:
     h, w = ddpm.sampling_shape[:2]
 
     torch.cuda.reset_peak_memory_stats()
-    _timed(ddpm, batch, 1, "ddpm", 0)  # warm-up: one step at the batch
-    warm_s, _ = _timed(ddpm, batch, 1, "ddpm", 0)
+    _timed(ddpm, batch, 1, "ddpm", 0, world)  # warm-up: one step at the batch
+    warm_s, _ = _timed(ddpm, batch, 1, "ddpm", 0, world)
     est_trial = warm_s * steps
     times = []
     for trial in range(trials):
         remaining = budget_s - (time.time() - t_start)
         if times and remaining < est_trial * 1.15:
             break
-        dt, x = _timed(ddpm, batch, steps, "ddpm", trial + 1)
+        dt, x = _timed(ddpm, batch, steps, "ddpm", trial + 1, world)
         if not times:
             xs = x[:2].float()
             if not (bool(torch.isfinite(xs).all()) and xs.std().item() > 0.1):
@@ -220,13 +238,14 @@ def _protocol(batch: int, steps: int, trials: int, ddim_steps: int) -> dict:
 
     dt = statistics.median(times)
     img_per_s = batch / dt
-    per_image = steps * protocol_flops(flops)
+    cards = world.width_size if world is not None else 1  # the cards that share each image
+    per_image = steps * protocol_flops(flops) / cards
     result = {
         "metric": f"sampling_throughput_{steps}step_{h}x{w}",
         "value": img_per_s,
         "unit": "img/s",
         "mfu": img_per_s * per_image / PEAK_BF16_FLOPS,
-        "mfu_all": img_per_s * steps * sum(flops.values()) / PEAK_BF16_FLOPS,
+        "mfu_all": img_per_s * steps * sum(flops.values()) / cards / PEAK_BF16_FLOPS,
         "gflop_per_forward": protocol_flops(flops) / 1e9,
         "gflop_per_forward_all": sum(flops.values()) / 1e9,
         "batch": batch,
@@ -248,20 +267,20 @@ def _protocol(batch: int, steps: int, trials: int, ddim_steps: int) -> dict:
     if remaining <= flow_cost * FLOW_NET_CALLS:
         result["flow_euler1_skipped"] = f"budget ({remaining:.0f} s left)"
     else:
-        result.update(_flow_euler1(ddpm, batch))
+        result.update(_flow_euler1(ddpm, batch, world))
     ddim_cost = est_trial * ddim_steps / steps
     remaining = budget_s - (time.time() - t_start)
     if remaining < 2.5 * ddim_cost:
         result[f"ddim{ddim_steps}_skipped"] = f"budget ({remaining:.0f} s left)"
     else:
-        dts = [_timed(ddpm, batch, ddim_steps, "ddim", 90 + i)[0] for i in range(2)]
+        dts = [_timed(ddpm, batch, ddim_steps, "ddim", 90 + i, world)[0] for i in range(2)]
         result[f"ddim{ddim_steps}_img_per_s"] = batch / statistics.median(dts)
         result[f"ddim{ddim_steps}_seconds_median"] = statistics.median(dts)
         result[f"ddim{ddim_steps}_trials"] = len(dts)
     return result
 
 
-def _flow_euler1(ddpm: DDPM, batch: int) -> dict:
+def _flow_euler1(ddpm: DDPM, batch: int, world=None) -> dict:
     """The one-step rectified-flow secondary headline: ``ddpm``'s network
     under a flow diffusion built from a default Config, one untimed chain
     (its first two samples finite with std > 0.1), then 2 trials of
@@ -269,13 +288,13 @@ def _flow_euler1(ddpm: DDPM, batch: int) -> dict:
     cfg = config_lib.Config()
     cfg.diffusion.timestep_type = "flow"
     flow = DDPM(build_diffusion(cfg, ddpm.model), cfg)
-    x = _timed(flow, batch, 1, "euler", 70)[1][:2].float()
+    x = _timed(flow, batch, 1, "euler", 70, world)[1][:2].float()
     if not (bool(torch.isfinite(x).all()) and x.std().item() > 0.1):
         raise AssertionError("flow euler-1: non-finite or constant samples")
     del x
     trials = []
     for trial in range(2):
-        seconds = [_timed(flow, batch, 1, "euler", 71 + trial * FLOW_REPS + r)[0] for r in range(FLOW_REPS)]
+        seconds = [_timed(flow, batch, 1, "euler", 71 + trial * FLOW_REPS + r, world)[0] for r in range(FLOW_REPS)]
         trials.append(sum(seconds) / FLOW_REPS)
     dt = statistics.median(trials)
     return {"flow_euler1_img_per_s": batch / dt, "flow_euler1_seconds_median": dt, "flow_euler1_trials": len(trials)}
@@ -287,6 +306,6 @@ if __name__ == "__main__":
     parser.add_argument("--steps", type=int, default=STEPS, help="DDPM steps (protocol: 256)")
     parser.add_argument("--trials", type=int, default=MAX_TRIALS, help="most timed chains")
     parser.add_argument("--ddim_steps", type=int, default=DDIM_STEPS, help="steps of the DDIM measurement")
-    parser.add_argument("--mesh", type=str, default="", help="'N' data axis: must equal the torchrun world size")
+    parser.add_argument("--mesh", type=str, default="", help="'N' or 'DxW': must multiply to the torchrun world size")
     a = parser.parse_args()
     main(a.batch, a.steps, a.trials, a.ddim_steps, a.mesh)

@@ -22,10 +22,13 @@ bfloat16, the kernels' type. ``--latency_layout`` builds the network with
 ``width_merge_l1=True`` (``EfficientUNet``: the same math on the NHWC
 kernels).
 
-Under ``torchrun`` the four mask rows are split over the ranks (each row
-has its own seed, so a row does not depend on its rank) and gathered to
-rank 0, which labels them and writes the figure. ``--mesh`` ('N' or 'Nx1')
-must equal the world size and divide the four rows; a width axis exits.
+Under ``torchrun`` the four mask rows are split over the data axis (each
+row has its own seed, so a row does not depend on its rank) and gathered to
+rank 0, which labels them and writes the figure. ``--mesh`` ('N' or 'DxW')
+must multiply to the world size, and D divide the four rows; with W > 1 the
+W ranks of a data group complete the same rows, each its columns
+(``DDPM.repaint(world=)``), the interactive latency lane of the JAX package
+(completion_demo.py:79-92).
 """
 
 from __future__ import annotations
@@ -115,7 +118,7 @@ def figure(lidar: LiDARUtility, x_in: torch.Tensor, x_out: torch.Tensor, labels)
 
 
 def main(args: argparse.Namespace) -> int:
-    world = parallel.init(args.device)
+    world = parallel.init(args.device, mesh=args.mesh, batch_size=BATCH)
     try:
         return _run(args, world)
     finally:
@@ -123,7 +126,6 @@ def main(args: argparse.Namespace) -> int:
 
 
 def _run(args: argparse.Namespace, world: parallel.World) -> int:
-    parallel.parse_mesh(args.mesh, world.size, batch_size=BATCH)
     if args.few_step:
         apply_few_step_preset(args)
     device = world.device
@@ -148,14 +150,15 @@ def _run(args: argparse.Namespace, world: parallel.World) -> int:
     # --------------------------------------------------- corrupt, complete
     mask = torch.from_numpy(make_masks(rng, H, W)).to(device)
     x_in = mask * x_orig + (1 - mask) * -1.0
-    rows = np.array_split(np.arange(BATCH), world.size)[world.rank].tolist()
+    rows = np.array_split(np.arange(BATCH), world.data_size)[world.data_index].tolist()
     x_rows = ddpm.repaint(known=x_in[rows], mask=mask[rows], num_steps=args.num_steps,
                           num_resample_steps=args.num_resample_steps, jump_length=args.jump_length,
-                          seeds=rows, data_format="NHWC", progress=world.is_main)
+                          seeds=rows, data_format="NHWC", progress=world.is_main, world=world)
     parts = parallel.gather_objects(world, x_rows.cpu())
     if not world.is_main:
         return 0
-    x_out = torch.clamp(torch.cat(parts).to(device), -1, 1)
+    # one part a data group: its width rank 0's (every width rank holds the whole rows)
+    x_out = torch.clamp(torch.cat(parts[::world.width_size]).to(device), -1, 1)
 
     # ------------------------------------------- semantic labels (optional)
     labels = None
@@ -188,7 +191,7 @@ def parse_args(argv=None) -> argparse.Namespace:
     parser.add_argument("--seed", type=int, default=0)
     parser.add_argument("--sample_id", type=int, default=-1)
     parser.add_argument("--rangenet_tar", type=str, default=None)
-    parser.add_argument("--mesh", type=str, default="", help="'N' data axis: must equal the torchrun world size")
+    parser.add_argument("--mesh", type=str, default="", help="'N' or 'DxW': must multiply to the torchrun world size")
     parser.add_argument("--device", type=str, default="cuda", help="cuda (default) or cpu")
     return parser.parse_args(argv)
 

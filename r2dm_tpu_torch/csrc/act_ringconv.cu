@@ -55,6 +55,16 @@
 // activated x once), pack the weight once instead of per call, then TMA,
 // a producer warp with setmaxnreg, and a persistent grid.
 //
+// The halo'd form (kHalo, act_ringconv_halo_launch): under a width axis a
+// rank holds Wl of the image's columns, x (B, H, Wl, C_in), and the two
+// one-column strips its neighbours' columns give the ring (left, right:
+// (B, H, 1, C_in) each, from parallel/width.py::halo_exchange). The copies
+// read pixel -1 from the left strip and pixel Wl from the right strip (and
+// any pixel past Wl, which only masked outputs read, from the right strip
+// too) and write Wl output columns; no padded copy of x is made. Everything
+// else (the stages, the prologue, wgmma, the tiling) is v3's, and the ring
+// form compiles as before.
+//
 // Requirements (checked by the Python wrapper): C_in % 8 == 0, F % 8 == 0,
 // contiguous NHWC x and a, b on 16-byte boundaries, weight packed as
 // (F, 9*C_in) bf16 with column (kh*3 + kw)*C_in + c (ops/act_ringconv.py::
@@ -163,8 +173,10 @@ __device__ __forceinline__ void wgmma_m64n64k16(float (&d)[32], uint64_t da, uin
       : "l"(da), "l"(db), "r"(1));
 }
 
+template <bool kHalo>
 __global__ void __launch_bounds__(kThreads, 2) act_ringconv_kernel(
-    const __nv_bfloat16* __restrict__ x, const float* __restrict__ pa,
+    const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* __restrict__ left,
+    const __nv_bfloat16* __restrict__ right, const float* __restrict__ pa,
     const float* __restrict__ pb, const __nv_bfloat16* __restrict__ w,
     const float* __restrict__ bias, __nv_bfloat16* __restrict__ y, int H,
     int W, int Cin, int F, int apply_act) {
@@ -186,12 +198,21 @@ __global__ void __launch_bounds__(kThreads, 2) act_ringconv_kernel(
   const int n_slices = (kh_hi - kh_lo + 1) * n_c;
 
   // halo vector i = tid + k*kThreads is pixel i / CH, chunk ch; its W index
-  // wraps (the ring)
+  // wraps (the ring), or, in the halo'd form, pixel -1 comes from the left
+  // strip and pixels from W on from the right strip (a_src 1 and 2)
   int a_off[kPerA];
+  int a_src[kPerA];
 #pragma unroll
   for (int k = 0; k < kPerA; ++k) {
-    int win = (w0 - 1 + (tid + k * kThreads) / CH) % W;
-    a_off[k] = (win < 0 ? win + W : win) * Cin;
+    int win = w0 - 1 + (tid + k * kThreads) / CH;
+    if constexpr (kHalo) {
+      a_src[k] = win < 0 ? 1 : (win >= W ? 2 : 0);
+      a_off[k] = a_src[k] ? 0 : win * Cin;
+    } else {
+      win %= W;
+      a_src[k] = 0;
+      a_off[k] = (win < 0 ? win + W : win) * Cin;
+    }
   }
 
   auto issue = [&](int s) {
@@ -200,12 +221,19 @@ __global__ void __launch_bounds__(kThreads, 2) act_ringconv_kernel(
       const int c = (s % n_c) * BK + ch * 8;
       const int c_bytes = c < Cin ? 16 : 0;
       const uint32_t st = sbase + (s % S) * STAGE_BYTES;
-      const __nv_bfloat16* xrow = x + ((size_t)b * H + (h + kh - 1)) * W * Cin + (c_bytes ? c : 0);
+      const size_t row = (size_t)b * H + (h + kh - 1);
+      const int cc = c_bytes ? c : 0;
+      const __nv_bfloat16* xrow = x + row * W * Cin + cc;
 #pragma unroll
       for (int k = 0; k < kPerA; ++k) {
         const int i = tid + k * kThreads;
-        if (kVecA % kThreads == 0 || i < kVecA)
-          cp16(st + (ch * A_ROWS + i / CH) * 16, xrow + a_off[k], c_bytes);
+        if (kVecA % kThreads == 0 || i < kVecA) {
+          const __nv_bfloat16* src = xrow + a_off[k];
+          if constexpr (kHalo) {
+            if (a_src[k]) src = (a_src[k] == 1 ? left : right) + row * Cin + cc;
+          }
+          cp16(st + (ch * A_ROWS + i / CH) * 16, src, c_bytes);
+        }
       }
 #pragma unroll
       for (int k = 0; k < kPerB; ++k) {
@@ -299,6 +327,24 @@ __global__ void __launch_bounds__(kThreads, 2) act_ringconv_kernel(
   }
 }
 
+template <bool kHalo>
+int launch(const void* x, const void* left, const void* right, const void* a,
+           const void* b, const void* w, const void* bias, void* y, int B, int H,
+           int W, int Cin, int F, int apply_act, void* stream) {
+  // above 48 KB, dynamic shared memory has to be asked for once
+  static const cudaError_t attr = cudaFuncSetAttribute(
+      act_ringconv_kernel<kHalo>, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_BYTES);
+  if (attr != cudaSuccess) return static_cast<int>(attr);
+  const dim3 grid(H * ((W + BM - 1) / BM), (F + BN - 1) / BN, B);
+  act_ringconv_kernel<kHalo><<<grid, kThreads, SMEM_BYTES, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const __nv_bfloat16*>(x), static_cast<const __nv_bfloat16*>(left),
+      static_cast<const __nv_bfloat16*>(right), static_cast<const float*>(a),
+      static_cast<const float*>(b), static_cast<const __nv_bfloat16*>(w),
+      static_cast<const float*>(bias), static_cast<__nv_bfloat16*>(y), H, W,
+      Cin, F, apply_act);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 extern "C" {
@@ -310,17 +356,16 @@ const char* cuda_error_string(int code) {
 int act_ringconv_launch(const void* x, const void* a, const void* b,
                         const void* w, const void* bias, void* y, int B, int H,
                         int W, int Cin, int F, int apply_act, void* stream) {
-  // above 48 KB, dynamic shared memory has to be asked for once
-  static const cudaError_t attr = cudaFuncSetAttribute(
-      act_ringconv_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_BYTES);
-  if (attr != cudaSuccess) return static_cast<int>(attr);
-  const dim3 grid(H * ((W + BM - 1) / BM), (F + BN - 1) / BN, B);
-  act_ringconv_kernel<<<grid, kThreads, SMEM_BYTES, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const __nv_bfloat16*>(x), static_cast<const float*>(a),
-      static_cast<const float*>(b), static_cast<const __nv_bfloat16*>(w),
-      static_cast<const float*>(bias), static_cast<__nv_bfloat16*>(y), H, W,
-      Cin, F, apply_act);
-  return static_cast<int>(cudaGetLastError());
+  return launch<false>(x, nullptr, nullptr, a, b, w, bias, y, B, H, W, Cin, F, apply_act, stream);
+}
+
+// the halo'd form: x (B, H, W, Cin) holds a rank's W columns, left and right
+// (B, H, 1, Cin) its neighbours' edge columns
+int act_ringconv_halo_launch(const void* x, const void* left, const void* right,
+                             const void* a, const void* b, const void* w,
+                             const void* bias, void* y, int B, int H, int W, int Cin,
+                             int F, int apply_act, void* stream) {
+  return launch<true>(x, left, right, a, b, w, bias, y, B, H, W, Cin, F, apply_act, stream);
 }
 
 }  // extern "C"

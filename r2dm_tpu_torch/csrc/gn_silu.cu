@@ -44,6 +44,18 @@
 // at K = 16 cudaOccupancyMaxActiveClusters reports 7 co-resident clusters
 // on an H100 SXM, and b8 needs 8 (gn_max_active_clusters reports it).
 // A refused cluster launch returns its error; nothing retries.
+//
+// Under a width axis (ops/gn_silu.py, parallel/width.py) a rank holds some of
+// each image's columns, and the statistics are sums over every rank's. The
+// one launch is then split in two, with the sum across ranks between them:
+//   gn_stats_kernel: step 1 on the same clusters, then each CTA folds its
+//     share of the channels across the cluster's K CTAs in rank order and
+//     writes the (B, C) fp32 sums of x and x^2 of this rank's pixels;
+//   (the wrapper all-reduces them over the width group)
+//   gn_apply_kernel: K plain CTAs a sample; each folds every group's summed
+//     channels in channel order (count: the whole image's H*W*C/G), forms
+//     the folded affine and runs step 3's apply loop on its rows.
+// Steps 1 and 3 are the same device functions in both forms.
 
 #include <cooperative_groups.h>
 #include <cuda_bf16.h>
@@ -75,9 +87,10 @@ struct Params {
   int rows;              // pixel rows per CTA
   int tpr;               // threads per pixel row, C / 8
   int rpp;               // pixel rows per pass, kThreads / tpr
-  float count;           // elements per group, H*W*C/G
+  float count;           // elements per group, H*W*C/G (the whole image's)
   float eps;
   int silu;
+  float* sums;           // split form: (2, B, C) fp32, sum x then sum x^2
 };
 
 __device__ __forceinline__ void unpack8(const uint4& u, float* f) {
@@ -133,31 +146,17 @@ __device__ __forceinline__ void block_sum2(float& u1, float& u2, float* ws) {
   __syncthreads();
 }
 
-__global__ void __launch_bounds__(kThreads, 1) gn_kernel(const Params p) {
-  extern __shared__ __align__(16) float smem[];
-  __shared__ float ws[2 * kWarps];
-  const int C = p.C, rpp = p.rpp;
-  // [2][rpp][C]: per-thread-row sums; after the first cluster barrier the
-  // first 2*C floats take every channel's folded (a, b)
-  float* red = smem;
-  float* s1 = smem + 2 * rpp * C;  // [C] this CTA's sums of x
-  float* s2 = s1 + C;              // [C] ... and of x^2
-
-  cg::cluster_group cluster = cg::this_cluster();
-  const int rank = (int)cluster.block_rank();
-  const int K = (int)cluster.num_blocks();
-  const int b = blockIdx.y, t = threadIdx.x;
+// Step 1: this CTA's fp32 sums of x and x^2 over rows [row0, row1) of
+// sample b, per channel, into s1[C] and s2[C] (red: 2*rpp*C floats of
+// scratch). Ends with the CTA's threads synchronised.
+__device__ __forceinline__ void cta_stats(const Params& p, const __nv_bfloat16* xs, int row0,
+                                          int row1, float* red, float* s1, float* s2) {
+  const int C = p.C, rpp = p.rpp, t = threadIdx.x;
   const int v = t % p.tpr, r = t / p.tpr;
-  const bool active = r < rpp;
-  const int row0 = min(rank * p.rows, p.HW);
-  const int row1 = min(row0 + p.rows, p.HW);
-  const __nv_bfloat16* xs = p.x + (size_t)b * p.HW * C + v * kVec;
-
-  // 1. statistics over this CTA's rows
   float a1[kVec], a2[kVec];
 #pragma unroll
   for (int i = 0; i < kVec; ++i) a1[i] = a2[i] = 0.f;
-  if (active) {
+  if (r < rpp) {
     for (int row = row0 + r; row < row1; row += kUnroll * rpp) {
       uint4 u[kUnroll];
 #pragma unroll
@@ -208,6 +207,70 @@ __global__ void __launch_bounds__(kThreads, 1) gn_kernel(const Params p) {
     s1[c] = u1;
     s2[c] = u2;
   }
+}
+
+// Step 3: y = x*a + b [SiLU] over this thread's rows of [row0, row1), its 8
+// channels' (a, b) from ca/cb, walking from the last row (the stats pass
+// read them first to last, so the most recent, still in L2, come first).
+__device__ __forceinline__ void cta_apply(const Params& p, const __nv_bfloat16* xs,
+                                          __nv_bfloat16* ys, int row0, int row1,
+                                          const float* ca, const float* cb) {
+  const int C = p.C, rpp = p.rpp, t = threadIdx.x;
+  const int v = t % p.tpr, r = t / p.tpr;
+  if (r >= rpp) return;
+  float fa[kVec], fb[kVec];
+#pragma unroll
+  for (int i = 0; i < kVec; ++i) {
+    fa[i] = ca[v * kVec + i];
+    fb[i] = cb[v * kVec + i];
+  }
+  const int first = row0 + r;
+  const int n = first < row1 ? (row1 - first + rpp - 1) / rpp : 0;
+  for (int j0 = n - 1; j0 >= 0; j0 -= kUnroll) {
+    uint4 u[kUnroll];
+#pragma unroll
+    for (int k = 0; k < kUnroll; ++k) {
+      const int j = j0 - k;
+      u[k] = j >= 0 ? __ldg(reinterpret_cast<const uint4*>(xs + (size_t)(first + j * rpp) * C))
+                    : make_uint4(0u, 0u, 0u, 0u);
+    }
+#pragma unroll
+    for (int k = 0; k < kUnroll; ++k) {
+      const int j = j0 - k;
+      if (j < 0) break;
+      float f[kVec];
+      unpack8(u[k], f);
+#pragma unroll
+      for (int i = 0; i < kVec; ++i) {
+        const float z = fmaf(f[i], fa[i], fb[i]);
+        f[i] = p.silu ? silu(z) : z;
+      }
+      *reinterpret_cast<uint4*>(ys + (size_t)(first + j * rpp) * C) = pack8(f);
+    }
+  }
+}
+
+__global__ void __launch_bounds__(kThreads, 1) gn_kernel(const Params p) {
+  extern __shared__ __align__(16) float smem[];
+  __shared__ float ws[2 * kWarps];
+  const int C = p.C, rpp = p.rpp;
+  // [2][rpp][C]: per-thread-row sums; after the first cluster barrier the
+  // first 2*C floats take every channel's folded (a, b)
+  float* red = smem;
+  float* s1 = smem + 2 * rpp * C;  // [C] this CTA's sums of x
+  float* s2 = s1 + C;              // [C] ... and of x^2
+
+  cg::cluster_group cluster = cg::this_cluster();
+  const int rank = (int)cluster.block_rank();
+  const int K = (int)cluster.num_blocks();
+  const int b = blockIdx.y, t = threadIdx.x;
+  const int row0 = min(rank * p.rows, p.HW);
+  const int row1 = min(row0 + p.rows, p.HW);
+  const int v = t % p.tpr;
+  const __nv_bfloat16* xs = p.x + (size_t)b * p.HW * C + v * kVec;
+
+  // 1. statistics over this CTA's rows
+  cta_stats(p, xs, row0, row1, red, s1, s2);
   cluster.sync();  // every CTA's s1/s2 complete and visible to the cluster
 
   // 2. fold: this rank owns the groups g = rank, rank + K, ...; the
@@ -241,44 +304,83 @@ __global__ void __launch_bounds__(kThreads, 1) gn_kernel(const Params p) {
   // every remote read and write of the cluster is done: after this barrier
   // a CTA may leave, and ca/cb hold all C channels
   cluster.sync();
-  // 3. apply, walking this thread's rows from the last: the stats pass read
-  // them first to last, so the most recent (still in L2) come first
-  if (!active) return;
-  float fa[kVec], fb[kVec];
-#pragma unroll
-  for (int i = 0; i < kVec; ++i) {
-    fa[i] = ca[v * kVec + i];
-    fb[i] = cb[v * kVec + i];
-  }
-  __nv_bfloat16* ys = p.y + (size_t)b * p.HW * C + v * kVec;
-  const int first = row0 + r;
-  const int n = first < row1 ? (row1 - first + rpp - 1) / rpp : 0;
-  for (int j0 = n - 1; j0 >= 0; j0 -= kUnroll) {
-    uint4 u[kUnroll];
-#pragma unroll
-    for (int k = 0; k < kUnroll; ++k) {
-      const int j = j0 - k;
-      u[k] = j >= 0 ? __ldg(reinterpret_cast<const uint4*>(xs + (size_t)(first + j * rpp) * C))
-                    : make_uint4(0u, 0u, 0u, 0u);
+  // 3. apply
+  cta_apply(p, xs, p.y + (size_t)b * p.HW * C + v * kVec, row0, row1, ca, cb);
+}
+
+// The split form's first launch: step 1 on the same clusters, then CTA k of
+// the cluster writes channels c = k*kThreads + t, k*kThreads + t + K*kThreads,
+// ... of the (B, C) sums, each the K CTAs' partial sums added in rank order.
+__global__ void __launch_bounds__(kThreads, 1) gn_stats_kernel(const Params p) {
+  extern __shared__ __align__(16) float smem[];
+  const int C = p.C, rpp = p.rpp;
+  float* red = smem;
+  float* s1 = smem + 2 * rpp * C;
+  float* s2 = s1 + C;
+  cg::cluster_group cluster = cg::this_cluster();
+  const int rank = (int)cluster.block_rank();
+  const int K = (int)cluster.num_blocks();
+  const int b = blockIdx.y, t = threadIdx.x;
+  const int row0 = min(rank * p.rows, p.HW);
+  const int row1 = min(row0 + p.rows, p.HW);
+  const __nv_bfloat16* xs = p.x + (size_t)b * p.HW * C + (t % p.tpr) * kVec;
+  cta_stats(p, xs, row0, row1, red, s1, s2);
+  cluster.sync();
+  float* out1 = p.sums + (size_t)b * C;
+  float* out2 = p.sums + ((size_t)gridDim.y + b) * C;
+  for (int c = rank * kThreads + t; c < C; c += K * kThreads) {
+    float u1 = 0.f, u2 = 0.f;
+    for (int k = 0; k < K; ++k) {
+      u1 += cluster.map_shared_rank(s1, k)[c];
+      u2 += cluster.map_shared_rank(s2, k)[c];
     }
-#pragma unroll
-    for (int k = 0; k < kUnroll; ++k) {
-      const int j = j0 - k;
-      if (j < 0) break;
-      float f[kVec];
-      unpack8(u[k], f);
-#pragma unroll
-      for (int i = 0; i < kVec; ++i) {
-        const float z = fmaf(f[i], fa[i], fb[i]);
-        f[i] = p.silu ? silu(z) : z;
-      }
-      *reinterpret_cast<uint4*>(ys + (size_t)(first + j * rpp) * C) = pack8(f);
-    }
+    out1[c] = u1;
+    out2[c] = u2;
   }
+  cluster.sync();  // no CTA leaves while another reads its shared memory
+}
+
+// The split form's second launch: K CTAs a sample (no cluster); each folds
+// the summed channels of every group in channel order (thread g < G folds
+// group g), forms (a, b) of every channel in shared memory, and applies.
+__global__ void __launch_bounds__(kThreads, 1) gn_apply_kernel(const Params p) {
+  extern __shared__ __align__(16) float smem[];
+  const int C = p.C, G = p.G, cpg = C / G;
+  float* ca = smem;           // [C]
+  float* cb = smem + C;       // [C]
+  float* gm = smem + 2 * C;   // [G] group means
+  float* gr = gm + G;         // [G] group 1/sqrt(var + eps)
+  const int rank = blockIdx.x;
+  const int b = blockIdx.y, t = threadIdx.x;
+  const float* s1 = p.sums + (size_t)b * C;
+  const float* s2 = p.sums + ((size_t)gridDim.y + b) * C;
+  for (int g = t; g < G; g += kThreads) {
+    float u1 = 0.f, u2 = 0.f;
+    for (int j = 0; j < cpg; ++j) {
+      u1 += s1[g * cpg + j];
+      u2 += s2[g * cpg + j];
+    }
+    const float mean = u1 / p.count;
+    gm[g] = mean;
+    gr[g] = rsqrtf(fmaxf(u2 / p.count - mean * mean, 0.f) + p.eps);
+  }
+  __syncthreads();
+  for (int c = t; c < C; c += kThreads) {
+    const float mean = gm[c / cpg], rstd = gr[c / cpg];
+    const float gn = p.gain[(size_t)b * p.gstride + c];
+    const float sh = p.shift[(size_t)b * p.gstride + c];
+    ca[c] = rstd * gn;
+    cb[c] = (-mean * rstd) * gn + sh;
+  }
+  __syncthreads();
+  const int row0 = min(rank * p.rows, p.HW);
+  const int row1 = min(row0 + p.rows, p.HW);
+  const size_t off = (size_t)b * p.HW * C + (t % p.tpr) * kVec;
+  cta_apply(p, p.x + off, p.y + off, row0, row1, ca, cb);
 }
 
 // The dynamic shared memory attribute, set once per device at the largest
-// size any call takes (not on every launch)
+// size any call takes (not on every launch), for both cluster kernels
 cudaError_t prepare() {
   static std::atomic<unsigned long long> done{0};
   int dev = 0;
@@ -287,6 +389,8 @@ cudaError_t prepare() {
   const unsigned long long bit = 1ull << (dev & 63);
   if (done.load(std::memory_order_acquire) & bit) return cudaSuccess;
   e = cudaFuncSetAttribute(gn_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kMaxSmem);
+  if (e == cudaSuccess)
+    e = cudaFuncSetAttribute(gn_stats_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kMaxSmem);
   if (e == cudaSuccess) done.fetch_or(bit, std::memory_order_acq_rel);
   return e;
 }
@@ -306,6 +410,28 @@ void config(cudaLaunchConfig_t& cfg, cudaLaunchAttribute* attr, int K, int B, in
   cfg.numAttrs = 1;
 }
 
+Params params(const void* x, void* y, const void* gain, const void* shift, int gstride, int HW,
+              int C, int G, int rows, int tpr, int rpp, float count, float eps, int silu,
+              void* sums) {
+  Params p;
+  p.x = static_cast<const __nv_bfloat16*>(x);
+  p.y = static_cast<__nv_bfloat16*>(y);
+  p.gain = static_cast<const float*>(gain);
+  p.shift = static_cast<const float*>(shift);
+  p.gstride = gstride;
+  p.HW = HW;
+  p.C = C;
+  p.G = G;
+  p.rows = rows;
+  p.tpr = tpr;
+  p.rpp = rpp;
+  p.count = count;
+  p.eps = eps;
+  p.silu = silu;
+  p.sums = static_cast<float*>(sums);
+  return p;
+}
+
 }  // namespace
 
 extern "C" {
@@ -322,26 +448,43 @@ int gn_launch(const void* x, void* y, const void* gain, const void* shift, int g
   if (smem > kMaxSmem) return static_cast<int>(cudaErrorInvalidValue);
   cudaError_t e = prepare();
   if (e != cudaSuccess) return static_cast<int>(e);
-  Params p;
-  p.x = static_cast<const __nv_bfloat16*>(x);
-  p.y = static_cast<__nv_bfloat16*>(y);
-  p.gain = static_cast<const float*>(gain);
-  p.shift = static_cast<const float*>(shift);
-  p.gstride = gstride;
-  p.HW = HW;
-  p.C = C;
-  p.G = G;
-  p.rows = rows;
-  p.tpr = tpr;
-  p.rpp = rpp;
-  p.count = (float)HW * (float)(C / G);
-  p.eps = eps;
-  p.silu = silu;
+  const Params p = params(x, y, gain, shift, gstride, HW, C, G, rows, tpr, rpp,
+                          (float)HW * (float)(C / G), eps, silu, nullptr);
   cudaLaunchConfig_t cfg;
   cudaLaunchAttribute attr[1];
   config(cfg, attr, K, B, smem, static_cast<cudaStream_t>(stream));
   e = cudaLaunchKernelEx(&cfg, gn_kernel, p);
   if (e != cudaSuccess) return static_cast<int>(e);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The split form's statistics: sums (2, B, C) fp32 <- per-channel sums of x
+// and x^2 over each sample's HW pixels, on clusters of K CTAs
+int gn_stats_launch(const void* x, void* sums, int B, int HW, int C, int K, int rows, int tpr,
+                    int rpp, int smem, void* stream) {
+  if (smem > kMaxSmem) return static_cast<int>(cudaErrorInvalidValue);
+  cudaError_t e = prepare();
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const Params p = params(x, nullptr, nullptr, nullptr, 0, HW, C, 1, rows, tpr, rpp, 0.f, 0.f, 0,
+                          sums);
+  cudaLaunchConfig_t cfg;
+  cudaLaunchAttribute attr[1];
+  config(cfg, attr, K, B, smem, static_cast<cudaStream_t>(stream));
+  e = cudaLaunchKernelEx(&cfg, gn_stats_kernel, p);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The split form's apply: y = [silu](GN(x)*gain + shift) from the summed
+// (2, B, C) statistics and the whole image's count per group, on K CTAs a
+// sample, each over the same rows as a cluster rank
+int gn_apply_launch(const void* x, void* y, const void* sums, const void* gain,
+                    const void* shift, int gstride, int B, int HW, int C, int G, int K, int rows,
+                    int tpr, int rpp, float count, float eps, int silu, void* stream) {
+  const Params p = params(x, y, gain, shift, gstride, HW, C, G, rows, tpr, rpp, count, eps, silu,
+                          const_cast<void*>(sums));
+  const int smem = 4 * (2 * C + 2 * G);
+  gn_apply_kernel<<<dim3(K, B, 1), kThreads, smem, static_cast<cudaStream_t>(stream)>>>(p);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -22,6 +22,14 @@ the network's parameters; the min-SNR weight applies per sample, the JAX
 package's deliberate deviation from the reference.
 
 Layout: NHWC (B, H, W, C) throughout the diffusion core.
+
+Under a width axis (the network's ``width_shard``, ``models/layers.py::
+set_width_shard``) the chains run on this rank's columns of each image. Every
+draw is the whole image's, from the same generators as on one rank, and the
+rank keeps its columns (``normal``/``noise_drawer`` with ``width``), so a
+sharded chain is one rank's chain draw for draw. The full-width inputs
+(``x_T``, ``noise``, RePaint's ``known`` and ``mask``) are cut to the rank's
+columns the same way; the results are the rank's columns.
 """
 
 from __future__ import annotations
@@ -30,15 +38,26 @@ from typing import Callable, Iterable, Optional, Sequence, Union
 
 import torch
 
+from ..parallel.width import shard_columns, sharded
+
 Generators = Union[None, torch.Generator, Sequence[torch.Generator]]
 NoiseSource = Union[None, Callable[[tuple], torch.Tensor], Iterable[torch.Tensor]]
 Draw = Callable[[tuple], torch.Tensor]
 OnSegment = Optional[Callable[[int], None]]
 
 
-def normal(generator: Generators, shape: tuple[int, ...], device) -> torch.Tensor:
+def _full_width(shape: tuple, width) -> tuple:
+    """The whole image's NHWC shape of a rank's ``shape``."""
+    return (*shape[:2], shape[2] * width.width_size, *shape[3:])
+
+
+def normal(generator: Generators, shape: tuple[int, ...], device, width=None) -> torch.Tensor:
     """Standard normal fp32 of ``shape``; with a list of generators, row i
-    is drawn from generator i."""
+    is drawn from generator i. Under a width axis (``width``) ``shape`` is
+    the rank's and the draw the whole image's, of which the rank keeps its
+    columns."""
+    if sharded(width):
+        return shard_columns(normal(generator, _full_width(tuple(shape), width), device), width)
     if generator is None or isinstance(generator, torch.Generator):
         return torch.randn(shape, generator=generator, device=device, dtype=torch.float32)
     if len(generator) != shape[0]:
@@ -49,19 +68,21 @@ def normal(generator: Generators, shape: tuple[int, ...], device) -> torch.Tenso
     ])
 
 
-def noise_drawer(generator: Generators, noise: NoiseSource, device) -> Draw:
+def noise_drawer(generator: Generators, noise: NoiseSource, device, width=None) -> Draw:
     """``shape -> fp32 standard normal on device``: from ``noise`` (a
     callable taking the shape, or an iterator) when it is given, else from
-    the generators."""
+    the generators. Under a width axis the draw is the whole image's and the
+    rank keeps its columns, as in ``normal``."""
     if noise is None:
-        return lambda shape: normal(generator, shape, device)
+        return lambda shape: normal(generator, shape, device, width)
     source = noise if callable(noise) else (lambda shape, it=iter(noise): next(it))
 
     def draw(shape: tuple) -> torch.Tensor:
-        n = source(shape)
-        if tuple(n.shape) != tuple(shape):
-            raise ValueError(f"noise source gave shape {tuple(n.shape)}, the draw needs {tuple(shape)}")
-        return n.to(device=device, dtype=torch.float32)
+        full = _full_width(tuple(shape), width) if sharded(width) else tuple(shape)
+        n = source(full)
+        if tuple(n.shape) != full:
+            raise ValueError(f"noise source gave shape {tuple(n.shape)}, the draw needs {full}")
+        return shard_columns(n.to(device=device, dtype=torch.float32), width)
 
     return draw
 
@@ -148,6 +169,25 @@ class GaussianDiffusion:
     def _device(self, device=None) -> torch.device:
         return torch.device(device) if device is not None else next(self.model.parameters()).device
 
+    def _width(self):
+        """The ``World`` whose width group splits the network's columns, or
+        None."""
+        return getattr(self.model, "width_shard", None)
+
+    def _shard(self, x: Optional[torch.Tensor], dim: int = 2) -> Optional[torch.Tensor]:
+        """A full-width input cut to this rank's columns along ``dim``."""
+        return None if x is None else shard_columns(x, self._width(), dim)
+
+    def _rank_shape(self, batch_size: int) -> tuple:
+        """(B, H, W, C) of this rank's columns of a batch."""
+        H, W, C = self.sampling_shape
+        width = self._width()
+        return (batch_size, H, W // width.width_size if sharded(width) else W, C)
+
+    def _normal(self, generator: Generators, shape: tuple, device) -> torch.Tensor:
+        """``normal`` for a tensor of the rank's ``shape``."""
+        return normal(generator, tuple(shape), device, self._width())
+
     def _clip(self, x_0: torch.Tensor) -> torch.Tensor:
         if self.clip_sample:
             return torch.clamp(x_0, -self.clip_sample_range, self.clip_sample_range)
@@ -179,10 +219,11 @@ class GaussianDiffusion:
 
     # the chain driver of every sampler ---------------------------------------
     def _x_T(self, batch_size, generator: Generators, x_T, device) -> torch.Tensor:
-        """The chain's start: drawn from the generators, or ``x_T`` as fp32."""
+        """The chain's start: drawn from the generators, or ``x_T`` as fp32;
+        under a width axis the rank's columns of either."""
         if x_T is None:
-            return normal(generator, (batch_size, *self.sampling_shape), device)
-        return x_T.to(device=device, dtype=torch.float32)
+            x_T = normal(generator, (batch_size, *self.sampling_shape), device)
+        return self._shard(x_T.to(device=device, dtype=torch.float32))
 
     @staticmethod
     def _run_chain(x, num_steps: int, run, return_all: bool, segment_steps: Optional[int], on_segment: OnSegment):
@@ -274,10 +315,10 @@ class GaussianDiffusion:
         final step; the result does not change."""
         check_repaint_grid(num_steps, num_resample_steps, jump_length)
         device = self._device(device)
-        known = known.to(device=device, dtype=torch.float32)
-        mask = mask.to(device=device, dtype=torch.float32)
-        draw = noise_drawer(generator, noise, device)
-        x_t = draw((known.shape[0], *self.sampling_shape))
+        known = self._shard(known.to(device=device, dtype=torch.float32))
+        mask = self._shard(mask.to(device=device, dtype=torch.float32))
+        draw = noise_drawer(generator, noise, device, self._width())
+        x_t = draw(self._rank_shape(known.shape[0]))
         ts = torch.linspace(1.0, 0.0, num_steps + 1, dtype=torch.float32, device=device)
         ts_pairs = torch.stack([ts[:-2], ts[1:-1]], dim=1)
         seg = segment_steps or max(num_steps - 1, 1)

@@ -20,7 +20,7 @@ from typing import Optional, Sequence
 import torch
 
 from . import schedules
-from .base import Draw, GaussianDiffusion, Generators, OnSegment, _b, normal, stack_steps
+from .base import Draw, GaussianDiffusion, Generators, OnSegment, _b, stack_steps
 
 
 class ContinuousTimeGaussianDiffusion(GaussianDiffusion):
@@ -169,7 +169,7 @@ class ContinuousTimeGaussianDiffusion(GaussianDiffusion):
             if noise is not None:
                 n = noise[i]
             elif stochastic:
-                n = normal(generator, tuple(x.shape), x.device)
+                n = self._normal(generator, x.shape, x.device)
             else:
                 n = None
             x = self.p_step(x, ts_seg[i], ts_seg[i + 1], noise=n, mode=mode, ddim_eta=ddim_eta)
@@ -198,6 +198,7 @@ class ContinuousTimeGaussianDiffusion(GaussianDiffusion):
         :meth:`_run_chain`."""
         device = self._device(device)
         x = self._x_T(batch_size, generator, x_T, device)
+        noise = self._shard(noise, dim=3)
         ts = torch.linspace(1.0, 0.0, num_steps + 1, dtype=torch.float32, device=device)
 
         def run(x, lo, hi):

@@ -16,7 +16,7 @@ from typing import Optional, Union
 import torch
 
 from . import schedules
-from .base import GaussianDiffusion, Generators, OnSegment, _b, normal, stack_steps
+from .base import GaussianDiffusion, Generators, OnSegment, _b, stack_steps
 
 Steps = Union[int, torch.Tensor]
 
@@ -177,7 +177,7 @@ class DiscreteTimeGaussianDiffusion(GaussianDiffusion):
             if noise is not None:
                 n = noise[i]
             elif stochastic:
-                n = normal(generator, tuple(x.shape), x.device)
+                n = self._normal(generator, x.shape, x.device)
             else:
                 n = None
             x = self.p_step(x, int(t), noise=n, mode=mode, eta=eta)
@@ -206,6 +206,7 @@ class DiscreteTimeGaussianDiffusion(GaussianDiffusion):
         num_steps = self.num_training_steps if num_steps is None else num_steps
         device = self._device(device)
         x = self._x_T(batch_size, generator, x_T, device)
+        noise = self._shard(noise, dim=3)
         ts = self.timesteps(num_steps)
 
         def run(x, lo, hi):

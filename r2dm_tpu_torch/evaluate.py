@@ -24,12 +24,14 @@ bonnetal ``darknet53.tar.gz`` (``--rangenet_tar``) and SpareNet's
 runs the pipeline on random weights from fixed seeds (the metrics are then
 not comparable to published numbers).
 
-Under ``torchrun`` each rank extracts every world-th batch of ``--batch_size``
-scans; the features and histograms are gathered to rank 0 over the gloo side
-group in their original order, and rank 0 alone computes the distances,
-writes the JSON and the real-set cache (the counterpart of the JAX
-package's data-parallel extraction, evaluate.py:94-107). ``--mesh`` ('N' or
-'Nx1') must equal the world size; a width axis exits.
+Under ``torchrun`` each data group extracts every D-th batch of
+``--batch_size`` scans; the features and histograms are gathered to rank 0
+over the gloo side group in their original order, and rank 0 alone computes
+the distances, writes the JSON and the real-set cache (the counterpart of
+the JAX package's data-parallel extraction, evaluate.py:94-107, which splits
+the batch over the data axis only). ``--mesh`` ('N' or 'DxW') must multiply
+to the world size; with W > 1 the W ranks of a data group extract the same
+batches, and rank 0 keeps one copy of each.
 """
 
 from __future__ import annotations
@@ -143,21 +145,22 @@ def real_set_cache(args: argparse.Namespace, cfg) -> Path:
 
 
 def _features(extract, batches, world: parallel.World) -> dict:
-    """The features of this rank's share of ``batches`` (a list of
-    callables, each making one batch): every world-th from its rank. On rank
-    0 the whole set in the original order, gathered over the side group;
-    None on the others."""
+    """The features of this data group's share of ``batches`` (a list of
+    callables, each making one batch): every D-th from its data index. On
+    rank 0 the whole set in the original order, gathered over the side
+    group (one copy: width rank 0's of each group); None on the others."""
     keys = ("img_feats", "pts_feats", "bev_hists")
-    mine = [(i, extract(*batches[i]())) for i in range(world.rank, len(batches), world.size)]
+    mine = [(i, extract(*batches[i]())) for i in range(world.data_index, len(batches), world.data_size)]
     parts = parallel.gather_objects(world, mine)
     if parts is None:
         return None
+    parts = parts[::world.width_size]
     ordered = [f for _, f in sorted((p for part in parts for p in part), key=lambda p: p[0])]
     return {k: np.concatenate([f[j] for f in ordered]) for j, k in enumerate(keys)}
 
 
 def main(args: argparse.Namespace) -> int:
-    world = parallel.init(args.device)
+    world = parallel.init(args.device, mesh=args.mesh)
     try:
         return _run(args, world)
     finally:
@@ -165,7 +168,6 @@ def main(args: argparse.Namespace) -> int:
 
 
 def _run(args: argparse.Namespace, world: parallel.World) -> int:
-    parallel.parse_mesh(args.mesh, world.size)
     device = world.device
     cfg = load_config(args.ckpt)
     H, W = cfg.data.resolution
@@ -249,7 +251,7 @@ def parse_args(argv=None) -> argparse.Namespace:
     parser.add_argument("--rangenet_tar", type=str, default=None)
     parser.add_argument("--pointnet_ckpt", type=str, default=None)
     parser.add_argument("--allow_random_extractors", action="store_true")
-    parser.add_argument("--mesh", type=str, default="", help="'N' data axis: must equal the torchrun world size")
+    parser.add_argument("--mesh", type=str, default="", help="'N' or 'DxW': must multiply to the torchrun world size")
     parser.add_argument("--device", type=str, default="cuda", help="cuda (default) or cpu")
     return parser.parse_args(argv)
 

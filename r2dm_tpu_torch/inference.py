@@ -7,6 +7,13 @@ weights, and return a ready-to-sample :class:`DDPM` plus a matching
 :class:`LiDARUtility`. ``DDPM.sample``/``DDPM.repaint`` return NCHW fp32 in
 [-1, 1] like the reference; the network runs NHWC inside.
 
+``DDPM.sample``/``DDPM.repaint`` take ``world=``, a ``parallel.World``: under
+a width axis every width rank of a group runs the chain on its columns of
+the same images (the same seeds), and each returns the whole images,
+gathered over the group (the JAX package's ``mesh=`` on a (data, width)
+mesh, r2dm_tpu/inference.py:281-292,644-653). The data axis is the caller's:
+it hands each data group its own seeds.
+
 Entry points run on ``device="cuda"`` unless the caller asks for the CPU.
 On the card the network runs the hand-written kernels, which compute in
 bfloat16, so a CUDA model is built with ``dtype=torch.bfloat16``.
@@ -29,9 +36,10 @@ from .diffusion import ContinuousTimeGaussianDiffusion, DiscreteTimeGaussianDiff
 from .diffusion.base import Generators, NoiseSource, check_repaint_grid
 from .lidar import LiDARUtility, nearest_exact_resize_hw
 from .models.efficient_unet import EfficientUNet
-from .models.layers import quant_conv_mode
+from .models.layers import check_width_shard, quant_conv_mode, width_sharded
 from .models.refinenet import LiDARGenRefineNet
 from .ops.encoding import get_hdl64e_linear_ray_angles
+from .parallel.width import gather_columns, sharded
 from .utils.weights import from_jax, reference_state_dict
 
 # the JAX package's unfolding angle tables, read in place as data
@@ -222,14 +230,16 @@ class DDPM:
         self._auto_calls += 1
         return torch.Generator(self.device).manual_seed(self._auto_calls)
 
-    def _batch_chunk(self, batch_size: int, batch_chunk: Optional[int], seeds) -> int:
+    def _batch_chunk(self, batch_size: int, batch_chunk: Optional[int], seeds, width_size: int = 1) -> int:
         """Images per chunk: ``batch_chunk``, or the pixel bound's when the
-        batch is over it."""
+        batch is over it. The bound counts a card's pixels: under a width
+        axis of ``width_size`` ranks each card holds that share of an image
+        (JAX inference.py:281-292)."""
         if batch_chunk is not None:
             if batch_chunk < 1:
                 raise ValueError(f"batch_chunk must be >= 1, got {batch_chunk}")
             return batch_chunk
-        hw = int(np.prod(self.sampling_shape[:-1]))
+        hw = int(np.prod(self.sampling_shape[:-1])) // width_size
         bound, chunk = self.MAX_BATCH_PIXELS, self.MAX_BATCH_PIXELS
         if quant_conv_mode(self.model) is not None:
             bound, chunk = self.INT8_MAX_BATCH_PIXELS, self.INT8_BATCH_CHUNK_PIXELS
@@ -273,6 +283,7 @@ class DDPM:
         batch_chunk: Optional[int] = None,
         x_T: Optional[torch.Tensor] = None,
         noise: Optional[torch.Tensor] = None,
+        world=None,
     ) -> torch.Tensor:
         """Generate scans: (B, C, H, W) fp32 (NCHW) or (B, H, W, C) (NHWC);
         with ``return_all`` every step too, (num_steps+1, B, ...).
@@ -284,6 +295,9 @@ class DDPM:
         and ``batch_chunk`` forces a chunk size; with ``seeds`` the result
         does not depend on the chunking. ``x_T`` (B, H, W, C) and ``noise``
         (num_steps, B, H, W, C), NHWC, replace the generators' draws.
+        ``world``: under its width axis this rank runs its columns of the
+        chain (``_width``) and returns the whole scans, gathered over the
+        width group, on every width rank of it.
         """
         self._check_mode(mode)
         if data_format not in ("NCHW", "NHWC"):
@@ -292,23 +306,35 @@ class DDPM:
             raise ValueError(f"{len(seeds)} seeds for a batch of {batch_size}")
         if progress_chunk < 1:
             raise ValueError(f"progress_chunk must be >= 1, got {progress_chunk}")
-        chunk = self._batch_chunk(batch_size, batch_chunk, seeds)
+        width = self._width(world)
+        chunk = self._batch_chunk(batch_size, batch_chunk, seeds, width.width_size if width else 1)
         gens = self._generators(seeds)
         outs = []
-        for lo in range(0, batch_size, chunk):
-            hi = min(lo + chunk, batch_size)
-            outs.append(self._chain(
-                hi - lo, num_steps, mode, ddim_eta,
-                gens if isinstance(gens, torch.Generator) else gens[lo:hi],
-                None if x_T is None else x_T[lo:hi],
-                None if noise is None else noise[:, lo:hi],
-                return_all, progress, progress_chunk,
-            ))
+        with width_sharded(self.model, width):
+            for lo in range(0, batch_size, chunk):
+                hi = min(lo + chunk, batch_size)
+                x = self._chain(
+                    hi - lo, num_steps, mode, ddim_eta,
+                    gens if isinstance(gens, torch.Generator) else gens[lo:hi],
+                    None if x_T is None else x_T[lo:hi],
+                    None if noise is None else noise[:, lo:hi],
+                    return_all, progress, progress_chunk,
+                )
+                outs.append(gather_columns(x, width, dim=3 if return_all else 2))
         x = torch.cat(outs, dim=1 if return_all else 0)
         if data_format == "NCHW":
             x = x.permute(0, 1, 4, 2, 3) if return_all else x.permute(0, 3, 1, 2)
             x = x.contiguous()
         return x
+
+    def _width(self, world):
+        """``world`` when it splits the columns (the model must run under
+        it: ``set_width_shard`` raises for the RefineNet and the int8 lane),
+        else None."""
+        if not sharded(world):
+            return None
+        check_width_shard(self.model, world.width_size)
+        return world
 
     def _chain(self, B, num_steps, mode, ddim_eta, gens, x_T, noise, return_all, show, chunk) -> torch.Tensor:
         """One batch chunk's reverse chain, NHWC: the diffusion's own chain,
@@ -335,6 +361,7 @@ class DDPM:
         progress: bool = False,
         progress_chunk: int = 32,
         noise: NoiseSource = None,
+        world=None,
     ) -> torch.Tensor:
         """RePaint completion; ``known``/``mask`` batched in ``data_format``
         (reference continuous_time.py:260-317, completion_demo.py:92-99).
@@ -344,7 +371,9 @@ class DDPM:
         network calls. ``noise``, a callable ``shape -> tensor`` or an
         iterator, replaces the generators' draws, taken in the order x_T,
         then per reverse sub-step the known noise and (continuous) the
-        p-step noise, then the re-noise draws."""
+        p-step noise, then the re-noise draws (each the whole image's).
+        ``world``: as in :meth:`sample`; ``known`` and ``mask`` are the whole
+        images, cut to the rank's columns."""
         if isinstance(self.diffusion, DiscreteTimeGaussianDiffusion):
             raise ValueError(
                 "repaint requires a continuous-time or flow checkpoint; the "
@@ -375,20 +404,22 @@ class DDPM:
         device = self.device
         known = known.to(device=device, dtype=torch.float32)
         mask = mask.to(device=device, dtype=torch.float32)
-        chunk = self._batch_chunk(bsz, None, seeds)
+        width = self._width(world)
+        chunk = self._batch_chunk(bsz, None, seeds, width.width_size if width else 1)
         gens = self._generators(seeds)
         # with a progress line, segments of about progress_chunk network calls
         segment = max(1, progress_chunk // (num_resample_steps * jump_length)) if progress else None
         outs = []
-        for lo in range(0, bsz, chunk):
-            hi = min(lo + chunk, bsz)
-            bar = _Progress("repaint", num_steps, progress, device)
-            outs.append(self.diffusion.repaint(
-                known[lo:hi], mask[lo:hi] if mask.shape[0] == bsz else mask, num_steps,
-                num_resample_steps, jump_length,
-                generator=gens if isinstance(gens, torch.Generator) else gens[lo:hi],
-                noise=noise, device=device, segment_steps=segment, on_segment=bar.update,
-            ))
+        with width_sharded(self.model, width):
+            for lo in range(0, bsz, chunk):
+                hi = min(lo + chunk, bsz)
+                bar = _Progress("repaint", num_steps, progress, device)
+                outs.append(gather_columns(self.diffusion.repaint(
+                    known[lo:hi], mask[lo:hi] if mask.shape[0] == bsz else mask, num_steps,
+                    num_resample_steps, jump_length,
+                    generator=gens if isinstance(gens, torch.Generator) else gens[lo:hi],
+                    noise=noise, device=device, segment_steps=segment, on_segment=bar.update,
+                ), width))
         x = torch.cat(outs)
         return x.permute(0, 3, 1, 2).contiguous() if data_format == "NCHW" else x
 

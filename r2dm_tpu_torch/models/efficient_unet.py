@@ -11,6 +11,12 @@ in ``models.layers.FUSED_RESAMPLE`` (default "down") runs as one composed
 conv (``ops/fused_resample.py``), with the same parameters. The output is
 always fp32. ``dropout`` acts in the ResidualBlocks in training mode only,
 its masks drawn from the ``generator`` given to forward.
+
+Under a width axis (``layers.set_width_shard``) the network takes and
+returns its rank's columns of each image, and its coordinate encoding is
+those columns of the whole image's (the encoding is per pixel, so slicing
+after encoding is exact). The narrowest level, W/8, must split over the
+width axis with at least 3 columns a rank.
 """
 
 from __future__ import annotations
@@ -23,6 +29,7 @@ import torch.nn as nn
 
 from ..ops import encoding as enc
 from ..ops.resample import downsample2x, fir_kernel, upsample2x
+from ..parallel.width import shard_columns
 from . import layers
 from .layers import Dense, ResidualBlock, RingConv, SelfAttentionBlock
 
@@ -58,9 +65,12 @@ class Resample(nn.Module):
         # kept on the module's device: a filter built per call would be
         # copied from the host, which blocks the host until the card is idle
         self.register_buffer("fir", fir_kernel(up=2 if up else 1), persistent=False)
+        self.width_shard = None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return upsample2x(x, self.fir) if self.up else downsample2x(x, self.fir)
+        if self.up:
+            return upsample2x(x, self.fir, width=self.width_shard)
+        return downsample2x(x, self.fir, width=self.width_shard)
 
 
 class UNetBlock(nn.Module):
@@ -159,6 +169,7 @@ class EfficientUNet(nn.Module):
     ):
         super().__init__()
         self.width_merge_l1 = width_merge_l1
+        self.width_shard = None
         if coords_encoding not in (None, "spherical_harmonics", "polar_coordinates", "fourier_features"):
             raise ValueError(f"unknown coords_encoding: {coords_encoding}")
         self.in_channels = in_channels
@@ -201,15 +212,31 @@ class EfficientUNet(nn.Module):
             return enc.fourier_features_channels(self.resolution)
         return 0
 
+    # columns a rank needs at the narrowest level: the composed down conv
+    # reads x[2o - 2 .. 2o + 3], and the FIR up path's margin is 2
+    MIN_WIDTH_COLUMNS = 3
+
+    def check_width_shard(self, width_size: int) -> None:
+        """Raise unless every level's W splits over ``width_size`` ranks with
+        at least ``MIN_WIDTH_COLUMNS`` columns a rank at the narrowest."""
+        W = self.resolution[1]
+        narrow = W // 8
+        if W % 8 or narrow % width_size or narrow // width_size < self.MIN_WIDTH_COLUMNS:
+            raise ValueError(
+                f"a {width_size}-way width axis does not split level 4 (W = {narrow} at {self.resolution[0]}x{W}): "
+                f"it needs W/8 divisible by the width axis with at least {self.MIN_WIDTH_COLUMNS} columns a rank")
+
     def _coords_encoding(self) -> Optional[torch.Tensor]:
         coords = self.coords[0].permute(1, 2, 0)  # (H, W, 2)
         if self.coords_encoding == "spherical_harmonics":
-            return enc.spherical_harmonics(coords, levels=5)
-        if self.coords_encoding == "polar_coordinates":
-            return coords
-        if self.coords_encoding == "fourier_features":
-            return enc.fourier_features(coords, self.ff_freqs)
-        return None
+            encoded = enc.spherical_harmonics(coords, levels=5)
+        elif self.coords_encoding == "polar_coordinates":
+            encoded = coords
+        elif self.coords_encoding == "fourier_features":
+            encoded = enc.fourier_features(coords, self.ff_freqs)
+        else:
+            return None
+        return encoded if self.width_shard is None else shard_columns(encoded, self.width_shard, dim=1)
 
     def forward(
         self, images: torch.Tensor, timesteps: torch.Tensor, generator: Optional[torch.Generator] = None,

@@ -21,6 +21,17 @@ package composes with their FIR filter and keeps in bf16) then runs
 ``ops/quant.py::ring_conv_w8a8`` on the activation as it arrives, in the
 JAX package's dtype at each site, with the output in the compute dtype.
 
+The width axis is a setting of each model too, ``set_width_shard(model,
+world)``: every module that pads the ring, normalises or attends then takes
+the ``World`` whose width group splits the image's columns
+(``width_shard``), and on its rank's columns computes what one rank computes
+on the whole image: ``RingConv`` and the resamples pad W from the
+neighbours' columns (``ops/pad.py::ring_pad``), ``ResidualBlock`` runs the
+ring conv's halo'd form on the exchanged columns, ``GroupNorm``/``AdaGN``
+take their statistics across the ranks, and ``SelfAttention`` attends over
+the keys and values of the whole image. The int8 lane and the RefineNet do
+not run under it yet, and neither does training (each a ROADMAP item).
+
 ``FUSED_RESAMPLE`` is the JAX package's switch of the same name
 (``r2dm_tpu/models/layers.py:470-475``), read by ``UNetBlock`` at each
 call: True or "both", "down" (the default, as in JAX), "up", or False. A
@@ -32,6 +43,7 @@ the JAX package's composed convs return before its int8 branch.
 
 from __future__ import annotations
 
+import contextlib
 import math
 from typing import Optional
 
@@ -41,9 +53,11 @@ import torch.nn.functional as F
 
 from ..ops import fused_resample
 from ..ops.act_ringconv import fused_act_ringconv
-from ..ops.gn_silu import fused_group_norm_silu
+from ..ops.gn_silu import fused_group_norm_silu, group_norm_silu_sharded
 from ..ops.pad import ring_pad
 from ..ops.quant import pack_weight, ring_conv_w8a8
+from ..parallel.mesh import WIDTH_INT8_ITEM, WIDTH_REFINENET_ITEM
+from ..parallel.width import gather_columns, halo_exchange, sharded
 
 QUANT_MODES = (None, "w8a8")
 # the down path composes its conv with the FIR filter; True/"both", "down",
@@ -94,6 +108,7 @@ class RingConv(nn.Module):
         self.compute_dtype = dtype
         self.quantizable = quantizable and kernel_size == 3
         self.quant: Optional[str] = None
+        self.width_shard = None  # set_width_shard: the World whose width group splits W
         self._packed = None  # (key, pack_weight(...)) of the int8 lane on the card
         self._composed = None  # (key, the composed down weight) when no gradient is taken
 
@@ -126,17 +141,18 @@ class RingConv(nn.Module):
         x, k = self._resample_operands(x)
         w = self.weight
         if torch.is_grad_enabled() and w.requires_grad:
-            return fused_resample.conv_then_downsample(x, k, self.bias)
+            return fused_resample.conv_then_downsample(x, k, self.bias, width=self.width_shard)
         key = (w._version, w.device, w.data_ptr(), k.dtype, torch.is_inference_mode_enabled())
         if self._composed is None or self._composed[0] != key:
             with torch.no_grad():
                 self._composed = (key, fused_resample.down_weight(k))
-        return fused_resample.conv_then_downsample(x, k, self.bias, weight=self._composed[1])
+        return fused_resample.conv_then_downsample(x, k, self.bias, weight=self._composed[1],
+                                                   width=self.width_shard)
 
     def upsample_then_conv(self, x: torch.Tensor) -> torch.Tensor:
         """== self(upsample2x(x)), composed (``FUSED_RESAMPLE`` "up"/"both")."""
         x, k = self._resample_operands(x)
-        return fused_resample.upsample_then_conv(x, k, self.bias)
+        return fused_resample.upsample_then_conv(x, k, self.bias, width=self.width_shard)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if self.quant == "w8a8":
@@ -147,7 +163,7 @@ class RingConv(nn.Module):
         cd = _compute_dtype(self.compute_dtype, x, self.weight)
         x = x.to(cd)
         if self.weight.shape[-1] == 3:
-            x = ring_pad(x, 1)
+            x = ring_pad(x, 1, width=self.width_shard)
         y = F.conv2d(x.permute(0, 3, 1, 2), self.weight.to(cd), self.bias.to(cd))
         return y.permute(0, 2, 3, 1).contiguous()
 
@@ -164,8 +180,12 @@ class GroupNorm(nn.Module):
         self.silu = silu
         self.weight = nn.Parameter(torch.ones(num_channels))
         self.bias = nn.Parameter(torch.zeros(num_channels))
+        self.width_shard = None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.width_shard is not None:
+            return group_norm_silu_sharded(x, self.weight, self.bias, self.num_groups, self.eps, self.silu,
+                                           self.width_shard)
         return fused_group_norm_silu(
             x, self.weight, self.bias, self.num_groups, self.eps, apply_silu=self.silu
         )
@@ -186,10 +206,14 @@ class AdaGN(nn.Module):
         self.eps = eps
         self.silu = silu
         self.proj = nn.Sequential(nn.SiLU(), Dense(emb_channels, 2 * num_channels, dtype=dtype))
+        self.width_shard = None
 
     def forward(self, x: torch.Tensor, emb: torch.Tensor) -> torch.Tensor:
         scale, shift = self.proj(emb).chunk(2, dim=-1)
         gain = 1.0 + scale.to(torch.float32)
+        if self.width_shard is not None:
+            return group_norm_silu_sharded(x, gain, shift.to(torch.float32), self.num_groups, self.eps, self.silu,
+                                           self.width_shard)
         return fused_group_norm_silu(
             x, gain, shift.to(torch.float32), self.num_groups, self.eps, apply_silu=self.silu
         )
@@ -199,7 +223,10 @@ class SelfAttention(nn.Module):
     """Multi-head self-attention over the (H*W) tokens, torch
     nn.MultiheadAttention parameters (packed q, k, v projection). Logits in
     fp32 scaled by 1/sqrt(head_dim), softmax, weights cast to v's dtype
-    (layers.py:616-643); plain matmul + softmax so rounding follows JAX."""
+    (layers.py:616-643); plain matmul + softmax so rounding follows JAX.
+    Under a width axis the queries are this rank's pixels and the keys and
+    values the whole image's, gathered over the width group in column order:
+    each query meets the same keys in the same order as on one rank."""
 
     def __init__(self, channels: int, num_heads: int, dtype: Optional[torch.dtype] = None):
         super().__init__()
@@ -210,6 +237,7 @@ class SelfAttention(nn.Module):
         self.out_proj = Dense(channels, channels, dtype=dtype)
         nn.init.zeros_(self.out_proj.weight)
         nn.init.zeros_(self.out_proj.bias)
+        self.width_shard = None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         B, H, W, C = x.shape
@@ -217,9 +245,11 @@ class SelfAttention(nn.Module):
         qkv = h @ self.in_proj_weight.T.to(h.dtype) + self.in_proj_bias.to(h.dtype)
         q, k, v = qkv.chunk(3, dim=-1)
         hd = C // self.num_heads
+        if self.width_shard is not None:  # the whole image's keys and values
+            k, v = (gather_columns(t.reshape(B, H, W, C), self.width_shard).reshape(B, -1, C) for t in (k, v))
 
         def heads(t):
-            return t.reshape(B, H * W, self.num_heads, hd).transpose(1, 2)
+            return t.reshape(B, -1, self.num_heads, hd).transpose(1, 2)
 
         q, k, v = heads(q), heads(k), heads(v)
         logits = (q.float() @ k.float().transpose(-1, -2)) / math.sqrt(hd)
@@ -277,12 +307,16 @@ class ResidualBlock(nn.Module):
             RingConv(in_channels, out_channels, kernel_size=1, dtype=dtype)
             if in_channels != out_channels else None
         )
+        self.width_shard = None
 
     def _conv(self, conv: RingConv, h: torch.Tensor) -> torch.Tensor:
         if conv.quant is not None:
             return conv(h)
         hc = h.to(self.compute_dtype) if self.compute_dtype is not None else h
-        return fused_act_ringconv(hc, None, None, conv.hwio(), conv.bias, apply_act=False)
+        if self.width_shard is None:
+            return fused_act_ringconv(hc, None, None, conv.hwio(), conv.bias, apply_act=False)
+        return fused_act_ringconv(hc, None, None, conv.hwio(), conv.bias, apply_act=False,
+                                  halo=halo_exchange(hc, 1, 1, self.width_shard))
 
     def forward(self, x: torch.Tensor, emb: torch.Tensor, generator: Optional[torch.Generator] = None) -> torch.Tensor:
         h = self._conv(self.conv1, self.norm1(x))
@@ -301,6 +335,8 @@ def set_quant_conv(model: nn.Module, mode: Optional[str]) -> nn.Module:
     under autograd. Returns the model."""
     if mode not in QUANT_MODES:
         raise ValueError(f"unknown quantization mode {mode!r}; one of {QUANT_MODES}")
+    if mode is not None and width_shard_of(model) is not None:
+        raise ValueError(f"the int8 lane does not run under a width axis yet ({WIDTH_INT8_ITEM})")
     for m in model.modules():
         if isinstance(m, RingConv) and m.quantizable:
             m.quant = mode
@@ -310,3 +346,49 @@ def set_quant_conv(model: nn.Module, mode: Optional[str]) -> nn.Module:
 def quant_conv_mode(model: nn.Module) -> Optional[str]:
     """The lane ``set_quant_conv`` set on ``model`` (None when it is off)."""
     return next((m.quant for m in model.modules() if isinstance(m, RingConv) and m.quant), None)
+
+
+def width_shard_of(model: nn.Module):
+    """The ``World`` ``set_width_shard`` set on ``model`` (None: no width
+    axis)."""
+    return next((m.width_shard for m in model.modules() if getattr(m, "width_shard", None) is not None), None)
+
+
+def check_width_shard(model: nn.Module, width_size: int) -> None:
+    """Raise unless ``model`` runs under a width axis of ``width_size``
+    ranks: its levels must split (its own ``check_width_shard``); a model
+    without that check (the RefineNet) and the int8 lane raise."""
+    if quant_conv_mode(model) is not None:
+        raise ValueError(f"the int8 lane does not run under a width axis yet ({WIDTH_INT8_ITEM})")
+    check = getattr(model, "check_width_shard", None)
+    if check is None:
+        raise ValueError(f"{type(model).__name__} does not run under a width axis yet ({WIDTH_REFINENET_ITEM})")
+    check(width_size)
+
+
+def set_width_shard(model: nn.Module, world) -> nn.Module:
+    """Run ``model`` on the columns its rank holds of a width axis over
+    ``world``'s width group (None, or a world of width 1: the whole image):
+    every module that pads the ring, normalises or attends takes the group.
+    The model checks that its levels split (``check_width_shard``); a model
+    without that check (the RefineNet) and the int8 lane raise. Returns the
+    model."""
+    shard = world if sharded(world) else None
+    if shard is not None:
+        check_width_shard(model, shard.width_size)
+    for m in model.modules():
+        if hasattr(m, "width_shard"):
+            m.width_shard = shard
+    return model
+
+
+@contextlib.contextmanager
+def width_sharded(model: nn.Module, world):
+    """``set_width_shard(model, world)`` for the body, then back to the
+    model's own setting."""
+    before = width_shard_of(model)
+    set_width_shard(model, world)
+    try:
+        yield model
+    finally:
+        set_width_shard(model, before)

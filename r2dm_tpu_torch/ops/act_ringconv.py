@@ -12,6 +12,14 @@ W wraps circularly; H is zero-padded AFTER the activation. A CPU tensor takes
 the plain version; a CUDA tensor launches the kernel or raises.
 ``fused_act_ringconv.launches`` counts kernel launches.
 
+Under a width axis, ``halo=(left, right)`` gives the two (B, H, 1, C)
+columns that close the ring on this rank's W columns (the left neighbour's
+last, the right neighbour's first: ``parallel/width.py::halo_exchange``):
+``act_ringconv_halo``, the kernel's halo'd form, reads them in place of the
+wrap and writes W columns. Its launches count in ``act_ringconv_halo
+.launches``, apart from the ring form's. It has no backward: training under
+a width axis is a later item (``parallel.mesh.WIDTH_TRAINING_ITEM``).
+
 Under autograd the call is the ``ActRingConv`` function (``apply_act=False``
 only, the form every path uses; with the prologue it raises). The adjoint of
 "zero-pad H, wrap W, 3x3 conv" is the same ring conv of dy with the kernel
@@ -29,10 +37,12 @@ import ctypes
 import torch
 import torch.nn.functional as F
 
+from ..parallel.mesh import WIDTH_TRAINING_ITEM
 from . import build
 from .pad import ring_pad
 
 _ARGS = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+_HALO_ARGS = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
 
 
 def _lib():
@@ -40,18 +50,26 @@ def _lib():
     if lib.act_ringconv_launch.argtypes is None:
         lib.act_ringconv_launch.argtypes = _ARGS
         lib.act_ringconv_launch.restype = ctypes.c_int
+        lib.act_ringconv_halo_launch.argtypes = _HALO_ARGS
+        lib.act_ringconv_halo_launch.restype = ctypes.c_int
     return lib
 
 
-def act_ringconv_plain(x, a, b, kernel, bias, apply_act: bool = True):
+def act_ringconv_plain(x, a, b, kernel, bias, apply_act: bool = True, halo=None):
     """silu(x*a + b) in fp32 rounded to x's dtype -> zero pad on H ->
-    circular pad on W -> conv2d + bias, in x's dtype."""
-    if apply_act:
-        s = x.to(torch.float32) * a[:, None, None, :] + b[:, None, None, :]
-        s = (s * torch.sigmoid(s)).to(x.dtype)
+    circular pad on W (or, with ``halo``, the two halo columns activated
+    the same way) -> conv2d + bias, in x's dtype."""
+
+    def act(t):
+        if not apply_act:
+            return t
+        s = t.to(torch.float32) * a[:, None, None, :] + b[:, None, None, :]
+        return (s * torch.sigmoid(s)).to(x.dtype)
+
+    if halo is None:
+        s = ring_pad(act(x), 1)
     else:
-        s = x
-    s = ring_pad(s, 1)
+        s = ring_pad(torch.cat([act(halo[0]), act(x), act(halo[1])], dim=2), (0, 0, 1, 1))
     weight = kernel.to(x.dtype).permute(3, 2, 0, 1)  # HWIO -> OIHW
     y = F.conv2d(s.permute(0, 3, 1, 2), weight, bias.to(x.dtype))
     return y.permute(0, 2, 3, 1).contiguous()
@@ -67,7 +85,7 @@ def pack_weight(kernel, dtype=torch.bfloat16):
     return packed.view(kernel.shape[3], -1)
 
 
-def _check(x, a, b, kernel, bias, apply_act):
+def _check(x, a, b, kernel, bias, apply_act, halo=None):
     if not x.is_cuda:
         raise ValueError(f"act_ringconv: expected a CPU or CUDA tensor, got {x.device}")
     if x.dtype != torch.bfloat16:
@@ -91,13 +109,21 @@ def _check(x, a, b, kernel, bias, apply_act):
     for t in tensors:
         if t.device != x.device:
             raise ValueError(f"act_ringconv: operands on {t.device} and {x.device}")
-    for t in [x] + tensors[2:]:  # 16-byte vector loads of x, a and b
+    strips = []
+    if halo is not None:
+        for name, t in zip(("left", "right"), halo):
+            if (t.dtype != x.dtype or tuple(t.shape) != (B, H, 1, C) or not t.is_contiguous()
+                    or t.device != x.device):
+                raise ValueError(f"act_ringconv: the {name} halo must be a contiguous {x.dtype} "
+                                 f"({B}, {H}, 1, {C}) tensor on {x.device}")
+            strips.append(t)
+    for t in [x] + tensors[2:] + strips:  # 16-byte vector loads of x, a, b and the halo strips
         if t.data_ptr() % 16:
-            raise ValueError("act_ringconv: x, a and b must start on a 16-byte boundary")
+            raise ValueError("act_ringconv: x, a, b and the halo strips must start on a 16-byte boundary")
 
 
-def _launch(x, a, b, kernel, bias, apply_act: bool):
-    _check(x, a, b, kernel, bias, apply_act)
+def _launch(x, a, b, kernel, bias, apply_act: bool, halo=None):
+    _check(x, a, b, kernel, bias, apply_act, halo)
     lib = _lib()
     B, H, W, C = x.shape
     Fo = kernel.shape[3]
@@ -106,12 +132,16 @@ def _launch(x, a, b, kernel, bias, apply_act: bool):
     y = torch.empty((B, H, W, Fo), dtype=torch.bfloat16, device=x.device)
     pa = a.data_ptr() if apply_act else None
     pb = b.data_ptr() if apply_act else None
-    rc = lib.act_ringconv_launch(
-        x.data_ptr(), pa, pb, w.data_ptr(), bias32.data_ptr(), y.data_ptr(),
-        B, H, W, C, Fo, int(apply_act), build.stream_ptr(x.device),
-    )
-    build.check(lib, rc, "fused_act_ringconv")
-    fused_act_ringconv.launches += 1
+    tail = (w.data_ptr(), bias32.data_ptr(), y.data_ptr(), B, H, W, C, Fo, int(apply_act),
+            build.stream_ptr(x.device))
+    if halo is None:
+        rc = lib.act_ringconv_launch(x.data_ptr(), pa, pb, *tail)
+        build.check(lib, rc, "fused_act_ringconv")
+        fused_act_ringconv.launches += 1
+    else:
+        rc = lib.act_ringconv_halo_launch(x.data_ptr(), halo[0].data_ptr(), halo[1].data_ptr(), pa, pb, *tail)
+        build.check(lib, rc, "act_ringconv_halo")
+        act_ringconv_halo.launches += 1
     return y
 
 
@@ -159,8 +189,24 @@ class ActRingConv(torch.autograd.Function):
         return dx, dw, d_bias
 
 
-def fused_act_ringconv(x, a, b, kernel, bias, apply_act: bool = True):
-    """y = ring_conv3x3([silu](x*a + b), kernel) + bias, NHWC, x's dtype."""
+def act_ringconv_halo(x, left, right, a, b, kernel, bias, apply_act: bool = True):
+    """The halo'd form: y = conv3x3([silu](x*a + b)) + bias over this rank's
+    W columns, the ring closed by the (B, H, 1, C) ``left`` and ``right``
+    columns; NHWC, x's dtype. No backward (raises under autograd)."""
+    halo = (left, right)
+    if x.device.type == "cpu":
+        return act_ringconv_plain(x, a, b, kernel, bias, apply_act, halo=halo)
+    if torch.is_grad_enabled() and any(t is not None and t.requires_grad for t in (x, left, right, a, b, kernel, bias)):
+        raise NotImplementedError(
+            f"act_ringconv_halo: no backward; training under a width axis is {WIDTH_TRAINING_ITEM}")
+    return _launch(x, a, b, kernel, bias, apply_act, halo=halo)
+
+
+def fused_act_ringconv(x, a, b, kernel, bias, apply_act: bool = True, halo=None):
+    """y = ring_conv3x3([silu](x*a + b), kernel) + bias, NHWC, x's dtype;
+    with ``halo=(left, right)``, ``act_ringconv_halo``."""
+    if halo is not None:
+        return act_ringconv_halo(x, *halo, a, b, kernel, bias, apply_act)
     if x.device.type == "cpu":
         return act_ringconv_plain(x, a, b, kernel, bias, apply_act)
     if torch.is_grad_enabled() and any(t is not None and t.requires_grad for t in (x, a, b, kernel, bias)):
@@ -174,3 +220,4 @@ def fused_act_ringconv(x, a, b, kernel, bias, apply_act: bool = True):
 
 
 fused_act_ringconv.launches = 0
+act_ringconv_halo.launches = 0

@@ -26,6 +26,12 @@ in x, the kernel and the bias. The composed kernel is built in the kernel's
 dtype in JAX's order (``_composed_kernel``), so in bfloat16 it rounds as
 JAX's does. ``conv_then_downsample.calls`` / ``upsample_then_conv.calls``
 count the calls, so a run can show which form its network took.
+
+Under a width axis (``width``, as in ``ring_pad``) every W margin, of the
+cells, of the edge rows and of the polyphase phases, comes from the
+neighbouring ranks' columns; the compositions are shift-equivariant in W
+(by 2 columns for the down one: a rank's W is even), so each rank's output
+columns are those of the whole image's.
 """
 
 from __future__ import annotations
@@ -35,6 +41,7 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
+from ..parallel.width import sharded
 from .pad import ring_pad
 
 FIR = tuple(v / 8.0 for v in (1.0, 3.0, 3.0, 1.0))  # the normalised window, exact in bf16
@@ -131,15 +138,21 @@ def down_weight(kernel: torch.Tensor) -> torch.Tensor:
     return _s2d_kernel(_ComposedKernel.apply(kernel, 1.0))
 
 
-def _s2d_cells(x: torch.Tensor) -> torch.Tensor:
+def _s2d_cells(x: torch.Tensor, width=None) -> torch.Tensor:
     """x (B, H, W, C), H and W even -> (B, H/2 + 2, W/2 + 2, 4 C): x's 2x2
     cells on the channels (row phase, column phase, channel), one cell of
     padding on each side, a ring in W and zeros in H, in one pass. Output
     cell o reads cells o - 1 .. o + 1, the rows and columns 2o - 2 .. 2o + 3
-    of the composed taps, so a valid 3x3 conv gives exactly H/2 x W/2."""
+    of the composed taps, so a valid 3x3 conv gives exactly H/2 x W/2.
+    Under a width axis the W cells of padding are the neighbours' edge
+    cells."""
     B, H, W, C = x.shape
     Hs, Ws = H // 2, W // 2
     out = x.new_zeros(B, Hs + 2, Ws + 2, 2, 2, C)
+    if sharded(width):
+        xw = ring_pad(x, (2, 2, 0, 0), width=width)  # one cell of each neighbour's
+        out[:, 1:Hs + 1] = xw.reshape(B, Hs, 2, Ws + 2, 2, C).permute(0, 1, 3, 2, 4, 5)
+        return out.reshape(B, Hs + 2, Ws + 2, 4 * C)
     cells = x.reshape(B, Hs, 2, Ws, 2, C).permute(0, 1, 3, 2, 4, 5)
     out[:, 1:Hs + 1, 1:Ws + 1] = cells
     out[:, 1:Hs + 1, 0] = cells[:, :, Ws - 1]  # the ring: x's last cell on the left,
@@ -179,6 +192,7 @@ def _cells_conv(cells: torch.Tensor, weight: torch.Tensor) -> torch.Tensor:
 
 def conv_then_downsample(
     x: torch.Tensor, kernel: torch.Tensor, bias: Optional[torch.Tensor], weight: Optional[torch.Tensor] = None,
+    width=None,
 ) -> torch.Tensor:
     """== downsample2x(ring_conv3x3(x, kernel) + bias), as one conv.
 
@@ -194,27 +208,28 @@ def conv_then_downsample(
     zero margin removes z[-1] and z[H] of z = K*x + b, which the
     composition derives from x[0] and x[H-1] through K's own zero padding:
     subtract f[0] and f[3] times those single-row convs, FIR-downsampled
-    along W (the two rows as the two groups of one conv)."""
+    along W (the two rows as the two groups of one conv). ``width``: as in
+    ``ring_pad`` (a rank's W may then be as small as 2)."""
     B, H, W, Ci = x.shape
-    assert H % 2 == 0 and W % 2 == 0 and W >= 6, (H, W)
+    assert H % 2 == 0 and W % 2 == 0 and (W >= 6 or sharded(width)), (H, W)
     Co = kernel.shape[-1]
     conv_then_downsample.calls += 1
     weight = down_weight(kernel) if weight is None else weight
-    y = _add_bias(_cells_conv(_s2d_cells(x), weight), bias)
+    y = _add_bias(_cells_conv(_s2d_cells(x, width), weight), bias)
     # z_row of x[:, 0] with K's last row and of x[:, H-1] with its first
     rows = torch.cat([x[:, 0:1], x[:, H - 1:H]], dim=-1)  # (B, 1, W, 2 Ci)
     k_rows = torch.cat([kernel[2], kernel[0]], dim=-1).permute(2, 1, 0)[:, :, None]  # (2 Co, Ci, 1, 3)
-    z = F.conv2d(ring_pad(rows, (1, 1, 0, 0)).permute(0, 3, 1, 2), k_rows, groups=2)
+    z = F.conv2d(ring_pad(rows, (1, 1, 0, 0), width=width).permute(0, 3, 1, 2), k_rows, groups=2)
     if bias is not None:
         z = z + torch.cat([bias, bias]).to(z.dtype)[:, None, None]
     # fir_w_down: (B, 2 Co, 1, W) -> (B, 2 Co, 1, W/2), ring
     fir = _fir_window(z.dtype, z.device).reshape(1, 1, 1, 4).expand(2 * Co, 1, 1, 4)
-    z = F.conv2d(ring_pad(z.permute(0, 2, 3, 1), (1, 2, 0, 0)).permute(0, 3, 1, 2), fir, stride=(1, 2),
+    z = F.conv2d(ring_pad(z.permute(0, 2, 3, 1), (1, 2, 0, 0), width=width).permute(0, 3, 1, 2), fir, stride=(1, 2),
                  groups=2 * Co).permute(0, 2, 3, 1)
     return _edge_corrections(y, -FIR[0] * z[..., :Co].float(), -FIR[3] * z[..., Co:].float())
 
 
-def _polyphase_ring_conv(x: torch.Tensor, kernel6: torch.Tensor, h_phases: bool) -> torch.Tensor:
+def _polyphase_ring_conv(x: torch.Tensor, kernel6: torch.Tensor, h_phases: bool, width=None) -> torch.Tensor:
     """The composed up kernel (6 or 1, 6, Ci, Co) on the zero-inserted x,
     as one 3-tap ring conv per output phase: the phases stacked on the
     output channels, then interleaved into (B, 2H or H, 2W, Co). H is
@@ -223,24 +238,24 @@ def _polyphase_ring_conv(x: torch.Tensor, kernel6: torch.Tensor, h_phases: bool)
     Co = kernel6.shape[-1]
     ph = (0, 1) if h_phases else (None,)
     subs = [kernel6[1 - p::2, 1 - q::2] if p is not None else kernel6[:, 1 - q::2] for p in ph for q in (0, 1)]
-    y = _conv(ring_pad(x, (1, 1, 1, 1) if h_phases else (1, 1, 0, 0)), torch.cat(subs, dim=-1))
+    y = _conv(ring_pad(x, (1, 1, 1, 1) if h_phases else (1, 1, 0, 0), width=width), torch.cat(subs, dim=-1))
     P = len(ph)
     # out[P t + p, 2 w + q] = phase (p, q) at (t, w)
     y = y.reshape(B, H, W, P, 2, Co).permute(0, 1, 3, 2, 4, 5)
     return y.reshape(B, P * H, 2 * W, Co)
 
 
-def upsample_then_conv(h: torch.Tensor, kernel: torch.Tensor, bias: Optional[torch.Tensor]) -> torch.Tensor:
+def upsample_then_conv(h: torch.Tensor, kernel: torch.Tensor, bias: Optional[torch.Tensor], width=None) -> torch.Tensor:
     """== ring_conv3x3(upsample2x(h), kernel) + bias, composed and run
     polyphase. The outer conv zero-pads u = upsample2x(h) at rows -1 and
     2H, where the composition computes u[-1] = 2 f[3] Wup(h[0]) and u[2H] =
     2 f[0] Wup(h[H-1]): subtract those single rows through K's edge rows."""
     B, H, W, Ci = h.shape
     upsample_then_conv.calls += 1
-    y = _add_bias(_polyphase_ring_conv(h, _ComposedKernel.apply(kernel, 2.0), h_phases=True), bias)
+    y = _add_bias(_polyphase_ring_conv(h, _ComposedKernel.apply(kernel, 2.0), h_phases=True, width=width), bias)
 
     def w_comp_row(row, k_row):  # (B, 1, W, Ci) -> (B, 1, 2W, Co), ring
-        return _polyphase_ring_conv(row, _row_composed_kernel(k_row, 2.0), h_phases=False)
+        return _polyphase_ring_conv(row, _row_composed_kernel(k_row, 2.0), h_phases=False, width=width)
 
     top = -(w_comp_row(h[:, 0:1], kernel[0]).float() * (2.0 * FIR[3]))
     bottom = -(w_comp_row(h[:, H - 1:H], kernel[2]).float() * (2.0 * FIR[0]))

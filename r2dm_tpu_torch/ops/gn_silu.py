@@ -13,6 +13,17 @@ x*a + b, the coefficients of ``act_ringconv``'s prologue (``apply_act=True``).
 A CPU tensor takes the plain version; a CUDA tensor launches the kernel or
 raises. The wrapper counts its kernel launches in ``.launches``.
 
+Under a width axis (``width``: a ``World`` whose width group splits each
+image's columns) the statistics are sums over every rank's pixels, as GSPMD
+all-reduces them in the JAX package. ``group_norm_silu_sharded`` is then two
+launches with the sum across ranks between them: ``gn_stats`` (the (2, B, C) fp32 sums of x
+and x^2 of this rank's pixels, folded across each cluster in rank order),
+``parallel.all_reduce_sum_`` over the width group, and ``gn_apply`` (each
+group folded from the summed channels in channel order with the whole
+image's count, then v2's apply loop). Each counts its own launches. Their
+plain versions are ``gn_coeffs_plain``'s sums split the same way. The split
+form has no backward: training under a width axis is a later item.
+
 Under autograd (grad enabled and an operand that requires grad) the call is
 the ``GroupNormSiLU`` function: its forward is the same kernel launch, its
 backward ``gn_silu_backward``, fp32 PyTorch ops that recompute the group
@@ -28,6 +39,8 @@ from typing import NamedTuple
 
 import torch
 
+from ..parallel.mesh import WIDTH_TRAINING_ITEM
+from ..parallel.width import all_reduce_sum_
 from . import build
 
 _ARGS = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 10 + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
@@ -46,11 +59,20 @@ class Launch(NamedTuple):
     smem_bytes: int  # dynamic shared memory: 2*rows_per_pass*C + 2*C fp32
 
 
+_STATS_ARGS = [ctypes.c_void_p] * 2 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
+_APPLY_ARGS = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 9 + [ctypes.c_float] * 2 + [ctypes.c_int]
+               + [ctypes.c_void_p])
+
+
 def _lib():
     lib = build.load("gn_silu")
     if lib.gn_launch.argtypes is None:
         lib.gn_launch.argtypes = _ARGS
         lib.gn_launch.restype = ctypes.c_int
+        lib.gn_stats_launch.argtypes = _STATS_ARGS
+        lib.gn_stats_launch.restype = ctypes.c_int
+        lib.gn_apply_launch.argtypes = _APPLY_ARGS
+        lib.gn_apply_launch.restype = ctypes.c_int
         lib.gn_max_active_clusters.argtypes = [ctypes.c_int] * 2
         lib.gn_max_active_clusters.restype = ctypes.c_int
     return lib
@@ -67,28 +89,58 @@ def _affine(gain, shift, B, C):
     return g.expand(B, C), s.expand(B, C)
 
 
-def _group_stats(xf, num_groups: int, eps: float):
-    """Per (sample, channel) group mean and 1/sqrt(var + eps) of fp32 x
-    (B, N, C) or (B, H, W, C): fp32 sums of x and x^2 over the pixels, then
-    over the group's channels, E[x^2]-E[x]^2 clamped at 0 (models/layers.py
-    group_norm_coeffs)."""
-    B, C = xf.shape[0], xf.shape[-1]
-    G = num_groups
+def _channel_sums(xf):
+    """(2, B, C) fp32: the sums of x and of x^2 over the pixels of fp32 x
+    (B, N, C) or (B, H, W, C)."""
     dims = tuple(range(1, xf.dim() - 1))
-    cnt = xf[0].numel() // G
-    g1 = xf.sum(dim=dims).reshape(B, G, -1).sum(-1) / cnt
-    g2 = (xf * xf).sum(dim=dims).reshape(B, G, -1).sum(-1) / cnt
+    return torch.stack([xf.sum(dim=dims), (xf * xf).sum(dim=dims)])
+
+
+def _fold(sums, num_groups: int, cnt, eps: float):
+    """Per (sample, channel) group mean and 1/sqrt(var + eps) from the
+    (2, B, C) channel sums over ``cnt`` elements a group: the sums over the
+    group's channels, E[x^2]-E[x]^2 clamped at 0 (models/layers.py
+    group_norm_coeffs)."""
+    B, C = sums.shape[1:]
+    G = num_groups
+    g1 = sums[0].reshape(B, G, -1).sum(-1) / cnt
+    g2 = sums[1].reshape(B, G, -1).sum(-1) / cnt
     inv = torch.rsqrt(torch.clamp(g2 - g1 * g1, min=0.0) + eps)
     return g1.repeat_interleave(C // G, dim=1), inv.repeat_interleave(C // G, dim=1)
+
+
+def _group_stats(xf, num_groups: int, eps: float):
+    """``_fold`` of fp32 x's own channel sums."""
+    return _fold(_channel_sums(xf), num_groups, xf[0].numel() // num_groups, eps)
+
+
+def _coeffs(mean, inv, gain, shift):
+    B, C = mean.shape
+    g, s = _affine(gain, shift, B, C)
+    return inv * g, (-mean * inv) * g + s
 
 
 def gn_coeffs_plain(x, num_groups: int, eps: float, gain, shift):
     """fp32 (a, b), GN_affine(x) == x*a + b, from ``_group_stats``
     (models/layers.py _folded_gn_coeffs)."""
-    B, C = x.shape[0], x.shape[-1]
-    mean, inv = _group_stats(x.to(torch.float32), num_groups, eps)
-    g, s = _affine(gain, shift, B, C)
-    return inv * g, (-mean * inv) * g + s
+    return _coeffs(*_group_stats(x.to(torch.float32), num_groups, eps), gain, shift)
+
+
+def gn_stats_plain(x):
+    """The split form's statistics: (2, B, C) fp32 sums of x and x^2 over
+    x's pixels."""
+    return _channel_sums(x.to(torch.float32))
+
+
+def gn_apply_plain(x, sums, count, gain, shift, num_groups: int, eps: float, apply_silu: bool = True):
+    """The split form's apply: [silu](x*a + b) with (a, b) folded from the
+    (2, B, C) ``sums`` over ``count`` elements a group, in fp32, rounded to
+    x's dtype once."""
+    a, b = _coeffs(*_fold(sums, num_groups, count, eps), gain, shift)
+    y = x.to(torch.float32) * a[:, None, None, :] + b[:, None, None, :]
+    if apply_silu:
+        y = y * torch.sigmoid(y)
+    return y.to(x.dtype)
 
 
 def fused_group_norm_silu_plain(x, gain, shift, num_groups: int, eps: float, apply_silu: bool = True):
@@ -102,7 +154,7 @@ def fused_group_norm_silu_plain(x, gain, shift, num_groups: int, eps: float, app
 
 
 # ----------------------------------------------------------------- kernel
-def _check(x, num_groups, gain, shift):
+def _check(x, num_groups, gain, shift, affine: bool = True):
     if not x.is_cuda:
         raise ValueError(f"gn_silu: expected a CPU or CUDA tensor, got {x.device}")
     if x.dtype != torch.bfloat16:
@@ -114,7 +166,7 @@ def _check(x, num_groups, gain, shift):
     B, H, W, C = x.shape
     if C % 8 or C > _MAX_C or C % num_groups:
         raise ValueError(f"gn_silu: C={C} must be a multiple of 8 and of G={num_groups}, at most {_MAX_C}")
-    for name, t in (("gain", gain), ("shift", shift)):
+    for name, t in (("gain", gain), ("shift", shift)) if affine else ():
         if t.device != x.device:
             raise ValueError(f"gn_silu: {name} is on {t.device}, x on {x.device}")
         if tuple(t.shape) not in ((C,), (B, C)):
@@ -167,6 +219,60 @@ def _launch(x, gain, shift, num_groups: int, eps: float, apply_silu: bool):
     build.check(lib, rc, "fused_group_norm_silu")
     fused_group_norm_silu.launches += 1
     return y
+
+
+def gn_stats(x):
+    """(2, B, C) fp32 sums of x and x^2 over x's pixels: the kernel's stats
+    launch on a CUDA tensor, the plain version on a CPU one."""
+    if x.device.type == "cpu":
+        return gn_stats_plain(x)
+    _check(x, 1, None, None, affine=False)
+    lib = _lib()
+    B, H, W, C = x.shape
+    la = _launch_args(B, H, W, C)
+    sums = torch.empty((2, B, C), dtype=torch.float32, device=x.device)
+    rc = lib.gn_stats_launch(x.data_ptr(), sums.data_ptr(), B, H * W, C, la.cluster, la.rows_per_cta,
+                             la.threads_per_row, la.rows_per_pass, la.smem_bytes, build.stream_ptr(x.device))
+    build.check(lib, rc, "gn_stats")
+    gn_stats.launches += 1
+    return sums
+
+
+def gn_apply(x, sums, count, gain, shift, num_groups: int, eps: float, apply_silu: bool = True):
+    """[silu](GN(x) * gain + shift) from the (2, B, C) ``sums`` over
+    ``count`` elements a group: the kernel's apply launch on a CUDA tensor,
+    the plain version on a CPU one."""
+    if x.device.type == "cpu":
+        return gn_apply_plain(x, sums, count, gain, shift, num_groups, eps, apply_silu)
+    _check(x, num_groups, gain, shift)
+    B, H, W, C = x.shape
+    if sums.dtype != torch.float32 or tuple(sums.shape) != (2, B, C) or not sums.is_contiguous() \
+            or sums.device != x.device:
+        raise ValueError(f"gn_apply: sums must be contiguous fp32 (2, {B}, {C}) on {x.device}")
+    lib = _lib()
+    gain, shift, gstride = _affine_args(x, gain, shift)
+    la = _launch_args(B, H, W, C)
+    y = torch.empty_like(x)
+    rc = lib.gn_apply_launch(
+        x.data_ptr(), y.data_ptr(), sums.data_ptr(), gain.data_ptr(), shift.data_ptr(), gstride,
+        B, H * W, C, num_groups, la.cluster, la.rows_per_cta, la.threads_per_row, la.rows_per_pass,
+        float(count), float(eps), int(apply_silu), build.stream_ptr(x.device),
+    )
+    build.check(lib, rc, "gn_apply")
+    gn_apply.launches += 1
+    return y
+
+
+def group_norm_silu_sharded(x, gain, shift, num_groups: int, eps: float, apply_silu: bool, width):
+    """The split form under a width axis: ``gn_stats``, the sums all-reduced
+    over ``width``'s group, ``gn_apply`` with the whole image's count."""
+    if torch.is_grad_enabled() and (x.requires_grad or gain.requires_grad or shift.requires_grad):
+        raise NotImplementedError(
+            f"fused_group_norm_silu: no backward under a width axis; training there is {WIDTH_TRAINING_ITEM}")
+    B, H, W, C = x.shape
+    sums = all_reduce_sum_(gn_stats(x), width)
+    count = H * W * width.width_size * (C // num_groups)
+    return gn_apply(x, sums, count, gain, shift, num_groups, eps, apply_silu)
 
 
 # ----------------------------------------------------------------- backward
@@ -247,3 +353,5 @@ def fused_group_norm_silu(x, gain, shift, num_groups: int, eps: float, apply_sil
 
 
 fused_group_norm_silu.launches = 0
+gn_stats.launches = 0
+gn_apply.launches = 0

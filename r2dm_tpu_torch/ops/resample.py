@@ -12,6 +12,9 @@ of length (H+2m-1)*u + 1 that is a pad of
     lo = p0 - m*u,    hi = p1 + u - 1 - m*u
 (negative = crop) before a stride-d filter; p0/p1 follow models/ops.py:98-109.
 The two axes run as ONE depthwise conv with the outer-product kernel.
+Under a width axis (``width``) the W margins come from the neighbouring
+ranks' columns (``ring_pad``): the filter is shift-equivariant in W, so each
+rank's output columns are those of the whole image's.
 """
 
 from __future__ import annotations
@@ -85,10 +88,11 @@ def fir_resample(
     normalize: bool = True,
     direction: str = "hw",
     kernel: torch.Tensor | None = None,
+    width=None,
 ) -> torch.Tensor:
     """Anti-aliased resample of (B, H, W, C) by ``up``/``down`` per axis.
     ``kernel`` is ``fir_kernel(up, window, normalize, direction)``, passed in
-    where it already lies on x's device."""
+    where it already lies on x's device; ``width`` as in ``ring_pad``."""
     assert direction in ("h", "w", "hw")
     up = (up, up) if isinstance(up, int) else tuple(up)
     down = (down, down) if isinstance(down, int) else tuple(down)
@@ -101,7 +105,7 @@ def fir_resample(
     ph0, ph1 = _axis_params(k_h, up_h, down_h)
     pw0, pw1 = _axis_params(k_w, up_w, down_w)
     margin = max(ph0, ph1, pw0, pw1)
-    x = ring_pad(x, (margin, margin, margin, margin), ring=ring)
+    x = ring_pad(x, (margin, margin, margin, margin), ring=ring, width=width)
 
     C = x.shape[-1]
     xc = x.permute(0, 3, 1, 2)
@@ -112,13 +116,13 @@ def fir_resample(
     return y.permute(0, 2, 3, 1).contiguous()
 
 
-def upsample2x(x: torch.Tensor, kernel: torch.Tensor | None = None) -> torch.Tensor:
+def upsample2x(x: torch.Tensor, kernel: torch.Tensor | None = None, width=None) -> torch.Tensor:
     """2x FIR upsample, both axes (reference Resample(up=2)); ``kernel`` is
     ``fir_kernel(up=2)``."""
-    return fir_resample(x, up=2, kernel=kernel)
+    return fir_resample(x, up=2, kernel=kernel, width=width)
 
 
-def downsample2x(x: torch.Tensor, kernel: torch.Tensor | None = None) -> torch.Tensor:
+def downsample2x(x: torch.Tensor, kernel: torch.Tensor | None = None, width=None) -> torch.Tensor:
     """2x anti-aliased downsample, both axes (reference Resample(down=2));
     ``kernel`` is ``fir_kernel()``."""
-    return fir_resample(x, down=2, kernel=kernel)
+    return fir_resample(x, down=2, kernel=kernel, width=width)

@@ -1,10 +1,12 @@
-"""Data parallelism across processes: one process per card.
+"""Parallelism across processes: one process per card, on a (data, width)
+mesh.
 
 The counterpart of ``r2dm_tpu/parallel/mesh.py``. The JAX package drives
 every device of a host from one process through a ``jax.sharding.Mesh``
-whose ``data`` axis splits the batch; here each card has its own process
-(the torch idiom, as the reference's accelerate DDP does, reference
-train.py:45-53), and the data axis is the process group:
+whose ``data`` axis splits the batch and whose ``width`` axis splits each
+image's azimuth columns; here each card has its own process (the torch
+idiom, as the reference's accelerate DDP does, reference train.py:45-53),
+and the mesh is the process group:
 
 - ``init(device)`` joins the group ``torchrun`` describes in the environment
   (``RANK``, ``WORLD_SIZE``, ``LOCAL_RANK``, ``MASTER_ADDR``/``MASTER_PORT``):
@@ -15,14 +17,23 @@ train.py:45-53), and the data axis is the process group:
   one card. Each rank runs on ``cuda:LOCAL_RANK``.
 - One gloo side group carries host objects: the stop flag, gathered
   features, per-rank results. It is the default group when that is gloo.
-- ``parse_mesh`` (the CLIs' ``--mesh``) and ``check_mesh_shape``
-  (``training.mesh_shape``) keep the JAX function's checks and messages:
-  ``'N'`` or ``'Nx1'`` must equal the world size, and a width axis over one
-  exits, since only the data axis is ported.
+- The mesh ``(D, W)`` lays the ranks out as the JAX package reshapes its
+  devices (r2dm_tpu/parallel/mesh.py:42-43): rank ``d*W + w``, so a width
+  group is W consecutive ranks. ``init(device, mesh=...)`` builds every
+  width group with ``dist.new_group`` on every rank, in the same order.
+  Rank ``w`` of a group holds columns ``[w*Wimg/W, (w+1)*Wimg/W)`` of each
+  image of its data group's batch (``parallel/width.py``); the data index
+  ``d`` strides the seeds, so every width rank of a group holds the same
+  seeds.
+- ``parse_mesh`` (the CLIs' ``--mesh``) keeps the JAX function's checks and
+  messages: ``'N'`` or ``'DxW'`` must multiply to the world size.
+  ``check_mesh_shape`` (``training.mesh_shape``) does the same for the
+  trainer, where a width axis over one still exits (``WIDTH_TRAINING_ITEM``).
 """
 
 from __future__ import annotations
 
+import math
 import os
 import socket
 from dataclasses import dataclass
@@ -32,11 +43,15 @@ import torch
 import torch.distributed as dist
 
 WIDTH_AXIS_ITEM = "ROADMAP.md queue 1, parallelism (width axis)"
+# what still exits or raises under a width axis over one, each its own item
+WIDTH_TRAINING_ITEM = f"{WIDTH_AXIS_ITEM}: training"
+WIDTH_INT8_ITEM = f"{WIDTH_AXIS_ITEM}: the int8 lane"
+WIDTH_REFINENET_ITEM = f"{WIDTH_AXIS_ITEM}: RefineNet"
 
 
 @dataclass
 class World:
-    """This process's place on the data axis."""
+    """This process's place on the (data, width) mesh: rank ``d*W + w``."""
 
     rank: int = 0
     size: int = 1
@@ -45,10 +60,27 @@ class World:
     distributed: bool = False  # a process group exists (possibly of one rank)
     side: Any = None  # the gloo group for host objects (None: no group)
     owns_group: bool = False  # init() created the default group and close() destroys it
+    width_size: int = 1  # W: the ranks that split each image's columns
+    width_group: Any = None  # this rank's width group (None when W = 1)
+    # the width collectives' host time (parallel/width.py adds to them)
+    collective_calls: int = 0
+    collective_seconds: float = 0.0
 
     @property
     def is_main(self) -> bool:
         return self.rank == 0
+
+    @property
+    def width_rank(self) -> int:
+        return self.rank % self.width_size
+
+    @property
+    def data_index(self) -> int:
+        return self.rank // self.width_size
+
+    @property
+    def data_size(self) -> int:
+        return self.size // self.width_size
 
     def close(self) -> None:
         if self.owns_group and dist.is_initialized():
@@ -61,8 +93,32 @@ def _launched() -> bool:
     return "RANK" in os.environ and "WORLD_SIZE" in os.environ
 
 
-def init(device="cuda") -> World:
-    """This process's ``World``: the caller's group, torchrun's, or none."""
+def init(device="cuda", mesh=None, batch_size: Optional[int] = None) -> World:
+    """This process's ``World``: the caller's group, torchrun's, or none;
+    with ``mesh`` (a ``--mesh`` spec, ``parse_mesh``), laid out on it, the
+    width groups built. A mesh that does not fit exits."""
+    world = _join(device)
+    try:
+        shape = parse_mesh(mesh, world.size, batch_size)
+        if shape is not None and len(shape) == 2 and shape[1] > 1:
+            _build_width_groups(world, shape[1])
+    except BaseException:
+        world.close()
+        raise
+    return world
+
+
+def _build_width_groups(world: World, width: int) -> None:
+    """Every rank creates every width group, in the same order (new_group
+    is collective over the default group), and keeps its own."""
+    for d in range(world.size // width):
+        group = dist.new_group(list(range(d * width, (d + 1) * width)))
+        if d == world.rank // width:
+            world.width_group = group
+    world.width_size = width
+
+
+def _join(device) -> World:
     device = torch.device(device)
     owns = False
     local_rank = int(os.environ.get("LOCAL_RANK", "0"))
@@ -145,19 +201,18 @@ def broadcast_object(world: World, obj):
 def _mesh_error(shape: tuple, world_size: int) -> Optional[str]:
     """Why a (data,) or (data, width) mesh cannot run on ``world_size``
     processes (a phrase that follows the mesh's name), or None."""
-    if len(shape) == 2 and shape[1] > 1:
-        return f"shards the width axis (W = {shape[1]}), which is not ported yet ({WIDTH_AXIS_ITEM})"
-    if shape[0] != world_size:
-        return (f"needs {shape[0]} devices, have {world_size} (one process per device: start "
-                f"{shape[0]} with torchrun --nproc_per_node {shape[0]})")
+    n = math.prod(shape)
+    if n != world_size:
+        return (f"needs {n} devices, have {world_size} (one process per device: start "
+                f"{n} with torchrun --nproc_per_node {n})")
     return None
 
 
 def parse_mesh(spec, world_size: int, batch_size: Optional[int] = None) -> Optional[tuple]:
     """CLI mesh spec -> its shape: '' / 0 / '0' -> None (every rank on the
-    data axis), 'N' or 'Nx1' -> (N,) / (N, 1), which must equal the world
-    size; 'DxW' with W > 1 exits (the width axis is not ported). With
-    ``batch_size``, the batch must divide over the data axis."""
+    data axis), 'N' -> (N,), 'DxW' -> (D, W), whose product must equal the
+    world size. With ``batch_size``, the batch must divide over the data
+    axis."""
     if not spec or str(spec) == "0":
         return None
     try:
@@ -175,12 +230,16 @@ def parse_mesh(spec, world_size: int, batch_size: Optional[int] = None) -> Optio
 
 def check_mesh_shape(mesh_shape, world_size: int) -> None:
     """``training.mesh_shape`` under the rules of ``parse_mesh``: None puts
-    every rank on the data axis; anything else must match the world."""
+    every rank on the data axis; anything else must match the world. A
+    width axis over one raises: the trainer runs the data axis only."""
     if mesh_shape is None:
         return
     shape = tuple(int(s) for s in mesh_shape)
     if len(shape) not in (1, 2) or not all(s > 0 for s in shape):
         raise ValueError(f"training.mesh_shape={mesh_shape}: expected (N,) or (D, W) with positive ints")
+    if len(shape) == 2 and shape[1] > 1:
+        raise ValueError(f"training.mesh_shape={mesh_shape} shards the width axis (W = {shape[1]}), which the "
+                         f"trainer does not run yet ({WIDTH_TRAINING_ITEM})")
     msg = _mesh_error(shape, world_size)
     if msg is not None:
         raise ValueError(f"training.mesh_shape={mesh_shape} {msg}")

@@ -14,11 +14,13 @@ reverted to metres and back-projected, and written as
 reflectance], which ``evaluate`` of either package reads. On CUDA the
 network computes in bfloat16, the kernels' type, so ``--bf16`` is implied.
 
-Under ``torchrun`` the seeds are strided over the ranks, ``seeds[rank::
-world]``, as the JAX package strides them over processes
+Under ``torchrun`` the seeds are strided over the data axis, ``seeds[d::
+D]``, as the JAX package strides them over processes
 (sample_and_save.py:60-62); samples are per-seed deterministic, so no batch
-is padded. ``--mesh`` ('N' or 'Nx1') must equal the world size; a width axis
-exits (``parallel.parse_mesh``). ``$R2DM_TPU_INT8`` (any non-empty value)
+is padded. ``--mesh`` ('N' or 'DxW') must multiply to the world size
+(``parallel.parse_mesh``); with W > 1 the W ranks of a data group sample the
+same seeds, each its columns of the scans (``DDPM.sample(world=)``), and
+width rank 0 of each group writes the files. ``$R2DM_TPU_INT8`` (any non-empty value)
 samples on the W8A8 serving lane (``models/layers.py::set_quant_conv``), as
 the JAX package's does (sample_and_save.py:29-35); an int8 scan depends on
 the batch it ran in (one activation scale a tensor).
@@ -52,7 +54,7 @@ def postprocess(x: torch.Tensor, lidar_utils: LiDARUtility) -> torch.Tensor:
 
 
 def main(args: argparse.Namespace) -> int:
-    world = parallel.init(args.device)
+    world = parallel.init(args.device, mesh=args.mesh)
     try:
         return _run(args, world)
     finally:
@@ -60,7 +62,6 @@ def main(args: argparse.Namespace) -> int:
 
 
 def _run(args: argparse.Namespace, world: parallel.World) -> int:
-    parallel.parse_mesh(args.mesh, world.size)
     device = world.device
     bf16 = args.bf16 or device.type == "cuda"
     ddpm, lidar_utils, _ = setup_model(args.ckpt, dtype=torch.bfloat16 if bf16 else None, device=device)
@@ -68,15 +69,17 @@ def _run(args: argparse.Namespace, world: parallel.World) -> int:
         set_quant_conv(ddpm.model, "w8a8")
     save_dir = Path(args.output_dir)
     save_dir.mkdir(parents=True, exist_ok=True)
-    seeds = np.arange(args.num_samples)[world.rank::world.size]
+    seeds = np.arange(args.num_samples)[world.data_index::world.data_size]
+    writes = world.width_rank == 0
     for lo in range(0, len(seeds), args.batch_size):
         batch_seeds = seeds[lo:lo + args.batch_size]
         x = ddpm.sample(batch_size=len(batch_seeds), num_steps=args.num_steps, seeds=batch_seeds.tolist(),
-                        mode=args.mode)
-        samples = postprocess(x, lidar_utils).cpu().numpy()
-        for seed, sample in zip(batch_seeds, samples):
-            np.savez_compressed(save_dir / f"samples_{seed:010d}.npz", sample=sample)
-        print(f"[{lo + len(batch_seeds)}/{len(seeds)}] saved", flush=True)
+                        mode=args.mode, world=world)
+        if writes:
+            samples = postprocess(x, lidar_utils).cpu().numpy()
+            for seed, sample in zip(batch_seeds, samples):
+                np.savez_compressed(save_dir / f"samples_{seed:010d}.npz", sample=sample)
+            print(f"[{lo + len(batch_seeds)}/{len(seeds)}] saved", flush=True)
     return 0
 
 
@@ -89,7 +92,7 @@ def parse_args(argv=None) -> argparse.Namespace:
     parser.add_argument("--num_steps", type=int, default=256)
     parser.add_argument("--mode", choices=MODES, default="ddpm")
     parser.add_argument("--bf16", action="store_true", help="bf16 network compute (implied on CUDA)")
-    parser.add_argument("--mesh", type=str, default="", help="'N' data axis: must equal the torchrun world size")
+    parser.add_argument("--mesh", type=str, default="", help="'N' or 'DxW': must multiply to the torchrun world size")
     parser.add_argument("--device", type=str, default="cuda", help="cuda (default) or cpu")
     return parser.parse_args(argv)
 

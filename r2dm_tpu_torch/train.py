@@ -46,7 +46,8 @@ Options of the JAX trainer that this one leaves out or ignores:
   the JAX trainer does; the network then runs level 1 on the NHWC kernels
   (``EfficientUNet``), with the same parameters, math and checkpoints;
 - ``mesh_shape`` with a width axis over one: raises (ROADMAP.md queue 1,
-  parallelism (width axis)); a data axis must equal the world size;
+  parallelism (width axis): training); a data axis must equal the world
+  size;
 - ``gn_bf16``: the JAX package computes the GroupNorm FMA + SiLU pass in
   bf16 when it is set (the default); the port's kernel computes it in fp32
   and rounds once, about one bf16 ulp apart (ROADMAP, North star).
@@ -200,8 +201,8 @@ def _train(cfg: config_lib.Config, world: parallel.World):
     # ----------------------------------------------------------------- data
     dataset = make_dataset(cfg.data.dataset, cfg.data.data_root, "train", cfg.data.projection,
                            cache_dir=os.path.join(out_dir, "cache") if cfg.data.data_root else None)
-    loader = DataLoader(dataset, batch_size=tcfg.batch_size_train, seed=tcfg.seed, process_index=world.rank,
-                        process_count=world.size)
+    loader = DataLoader(dataset, batch_size=tcfg.batch_size_train, seed=tcfg.seed, process_index=world.data_index,
+                        process_count=world.data_size)
     keys = (["depth"] if cfg.data.train_depth else []) + (["reflectance"] if cfg.data.train_reflectance else [])
     batches = _device_batches(loader, keys, device)
     logger = MetricLogger(out_dir, enabled=is_main)
@@ -250,7 +251,7 @@ def _train(cfg: config_lib.Config, world: parallel.World):
             )
             g = step_generator(tcfg.seed, global_step, device)
             if world.distributed:
-                steps, noise = _rank_draws(diffusion, g, tcfg.batch_size_train, x_0, world.rank)
+                steps, noise = _rank_draws(diffusion, g, tcfg.batch_size_train, x_0, world.data_index)
                 metrics = train_step(state, x_0, g, steps=steps, noise=noise)
             else:
                 metrics = train_step(state, x_0, g)
@@ -268,7 +269,7 @@ def _train(cfg: config_lib.Config, world: parallel.World):
                 if world.distributed:  # the global batch's mean loss
                     metrics["loss"] = metrics["loss"].clone()
                     torch.distributed.all_reduce(metrics["loss"])
-                    metrics["loss"] /= world.size
+                    metrics["loss"] /= world.data_size
                 m = {k: float(v) for k, v in metrics.items()}
                 m["lr"] = schedule_lr(scheduler, global_step)
                 m["steps_per_sec"] = (global_step - start_step) / (time.time() - t0)

@@ -247,7 +247,7 @@ def test_bench_flow_euler1_secondary_headline(monkeypatch):
 
     calls = []
 
-    def counted(ddpm, batch, steps, mode, seed):
+    def counted(ddpm, batch, steps, mode, seed, world=None):
         calls.append((type(ddpm.diffusion).__name__, batch, steps, mode))
         x_T = torch.randn((batch, *ddpm.sampling_shape), generator=torch.Generator().manual_seed(seed))
         t0 = time.perf_counter()

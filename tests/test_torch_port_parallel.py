@@ -334,8 +334,8 @@ def test_two_ranks_complete_as_one(tmp_path, tiny_msgpack):
 # ------------------------------------------------------------------ meshes
 @pytest.mark.parametrize("spec,world,match", [
     ("2", 1, "--mesh 2 needs 2 devices, have 1"),
-    ("1x2", 1, r"width axis \(W = 2\).*ROADMAP.md queue 1, parallelism \(width axis\)"),
-    ("2x4", 2, "ROADMAP.md queue 1, parallelism \\(width axis\\)"),
+    ("1x2", 1, "--mesh 1x2 needs 2 devices, have 1"),
+    ("2x4", 2, "--mesh 2x4 needs 8 devices, have 2"),
     ("x", 1, "positive ints"),
     ("0x1", 1, "positive ints"),
 ])
@@ -351,7 +351,7 @@ def test_parse_mesh_takes_the_data_axis(spec, world, shape):
 
 @pytest.mark.parametrize("shape,match", [
     ((2,), "needs 2 devices, have 1"),
-    ((1, 2), "ROADMAP.md queue 1, parallelism \\(width axis\\)"),
+    ((1, 2), r"ROADMAP.md queue 1, parallelism \(width axis\): training"),
     ((1, 1, 1), "expected"),
 ])
 def test_mesh_shape_errors_stop_the_trainer(tmp_path, shape, match):
@@ -369,7 +369,7 @@ def test_mesh_shape_errors_stop_the_trainer(tmp_path, shape, match):
 
 @pytest.mark.parametrize("module,argv,match", [
     ("sample_and_save", ["--output_dir", "x", "--mesh", "2"], "needs 2 devices, have 1"),
-    ("evaluate", ["--sample_dir", "x", "--mesh", "1x2"], "width axis"),
+    ("evaluate", ["--sample_dir", "x", "--mesh", "1x2"], "needs 2 devices, have 1"),
     ("completion_demo", ["--mesh", "2x1"], "needs 2 devices, have 1"),
 ])
 def test_cli_mesh_must_match_the_world(tiny_msgpack, module, argv, match):
