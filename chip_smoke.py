@@ -131,7 +131,21 @@ through ``DDPM.sample(world=)`` (its launches the width axis's main path)
 and ``sample_and_save --mesh 1x2`` on phase 9's seeds against one rank
 within WIDTH_SPREAD times one rank's kernel-vs-plain distance on the same
 chain, and ``bench --mesh 1x2`` (b8, 2 steps; its line's unit "img/s
-aggregate (2 dev)").
+aggregate (2 dev)"); then the int8 lane under ``--mesh 1x2``: every site of
+a b8 forward fed a rank's columns (the s8 layout, the absmax and the output
+bit for bit against one rank), a NaN in one rank's columns, a b8 forward
+(53 absmax + 53 halo'd quantize + 53 s8 conv and 50 + 50 GN launches a
+rank), a DDIM-4 chain and ``sample_and_save`` under R2DM_TPU_INT8 against
+one rank within WIDTH_SPREAD times the lane's kernel-vs-plain distance, and
+``bench --mesh 1x2`` under R2DM_TPU_INT8. Its kernel checks also hold the
+halo'd conv at its dx shapes and the int8 lane's halo'd quantize pass at
+every site shape (bit for bit), each timed. Last, the width axis for
+training: one b8 loss + backward on each rank's columns against one rank's
+kernel path within WIDTH_SPREAD times that path's distance from its plain
+path (96 halo'd convs and 50 + 50 GN launches a rank, the collectives'
+calls and host seconds), and ``python -m r2dm_tpu_torch.train
+--training.mesh_shape 1,2`` at config H, b8, for WIDTH_TRAIN_STEPS steps
+against one rank's trainer.
 The line before the last is the kernels JSON; the last line is
 {"ok": true, "device": {...}}. Exits non-zero, printing no result, without a
 CUDA device or without the port's package.
@@ -179,6 +193,11 @@ WIDTH_MESH = "1x2"
 WIDTH_FORWARD_REL_L2 = 1e-2
 WIDTH_DDIM_STEPS = 4
 WIDTH_SPREAD = 1.5
+# the width axis for training: the trainer's steps under --mesh 1x2 (its
+# loss each step held at TRAIN_REL_L2 and its weights' updates at
+# TWO_RANK_UPDATE_REL against one rank's trainer); one step's loss and
+# gradient held at WIDTH_SPREAD times one rank's kernel-vs-plain distance
+WIDTH_TRAIN_STEPS = 3
 # every batch at which this script runs the network: generate b2, RePaint
 # b4, the other paths b8, the memory probe b32; one forward at each is held
 # against the plain path
@@ -235,6 +254,8 @@ SOURCES = {
     "act_ringconv_halo": ("r2dm_tpu_torch/csrc/act_ringconv.cu", "r2dm_tpu/ops/pallas_resconv.py:174"),
     "gn_stats": ("r2dm_tpu_torch/csrc/gn_silu.cu", "r2dm_tpu/ops/pallas_gn.py:107"),
     "gn_apply": ("r2dm_tpu_torch/csrc/gn_silu.cu", "r2dm_tpu/ops/pallas_gn.py:107"),
+    # the int8 lane's quantize pass under the width axis
+    "act_quantize_halo": ("r2dm_tpu_torch/csrc/w8a8_ringconv.cu", "r2dm_tpu/ops/quant.py:63"),
 }
 
 
@@ -870,13 +891,16 @@ def _launches(ops) -> dict:
     return {fn.__name__: fn.launches for fn in ops.KERNEL_WRAPPERS}
 
 
-def launches_of(gn: int, conv: int, s8: int = 0, halo: int = 0, gn_pair: int = 0) -> dict:
+def launches_of(gn: int, conv: int, s8: int = 0, halo: int = 0, gn_pair: int = 0, s8_halo: int = 0) -> dict:
     """The launch counts a run must read: GroupNorm, the bf16 ring conv, the
     int8 lane's absmax reduction, quantize pass and s8 ring conv (one each a
-    quantized conv), and under a width axis the ring conv's halo'd form and
-    GroupNorm's stats and apply launches (one each a norm)."""
-    return {"fused_group_norm_silu": gn, "fused_act_ringconv": conv, "ring_conv_w8a8": s8, "act_absmax": s8,
-            "act_quantize": s8, "act_ringconv_halo": halo, "gn_stats": gn_pair, "gn_apply": gn_pair}
+    quantized conv), and under a width axis the ring conv's halo'd form,
+    GroupNorm's stats and apply launches (one each a norm) and the int8
+    lane's absmax, halo'd quantize pass and s8 conv (one each a quantized
+    conv, ``s8_halo``)."""
+    return {"fused_group_norm_silu": gn, "fused_act_ringconv": conv, "ring_conv_w8a8": s8 + s8_halo,
+            "act_absmax": s8 + s8_halo, "act_quantize": s8, "act_ringconv_halo": halo, "gn_stats": gn_pair,
+            "gn_apply": gn_pair, "act_quantize_halo": s8_halo}
 
 
 def phase_eval(torch, main_out, tmp, card):
@@ -1994,22 +2018,27 @@ def _rel(a, b) -> float:
 
 
 def _plain_layers():
-    """A context in which the network runs the plain versions of both
-    kernels (the patch phase_main applies for its kernel-vs-plain check)."""
+    """A context in which the network runs the plain versions of its
+    kernels (the patch phase_main applies for its kernel-vs-plain check):
+    GroupNorm, the ring conv and, on the int8 lane, the quantized conv."""
     import contextlib
 
     from r2dm_tpu_torch import ops
     from r2dm_tpu_torch.models import layers
 
+    def plain_w8a8(x, kernel, bias, out_dtype=None, packed=None, width=None):
+        return ops.quant.ring_conv_w8a8_plain(x, kernel, bias, out_dtype)
+
     @contextlib.contextmanager
     def patched():
-        saved = (layers.fused_group_norm_silu, layers.fused_act_ringconv)
+        saved = (layers.fused_group_norm_silu, layers.fused_act_ringconv, layers.ring_conv_w8a8)
         layers.fused_group_norm_silu = ops.gn_silu.fused_group_norm_silu_plain
         layers.fused_act_ringconv = ops.act_ringconv.act_ringconv_plain
+        layers.ring_conv_w8a8 = plain_w8a8
         try:
             yield
         finally:
-            layers.fused_group_norm_silu, layers.fused_act_ringconv = saved
+            layers.fused_group_norm_silu, layers.fused_act_ringconv, layers.ring_conv_w8a8 = saved
 
     return patched()
 
@@ -2084,6 +2113,143 @@ def width_rank_job(torch, ckpt: str, chain_out: str) -> dict:
     return out
 
 
+def width_int8_job(torch, ckpt: str, chain_out: str) -> dict:
+    """One rank of the width phase's int8 lane (``--mesh 1x2``): every site
+    of one b8 forward on one rank (its input recorded there) fed this rank's
+    columns, the s8 layout, the absmax and the output against one rank's,
+    bit for bit; a NaN in the other rank's columns; one sharded b8 forward
+    against this rank's unsharded one, with its launches and the
+    collectives' host time; then a DDIM-4 chain through
+    ``DDPM.sample(world=)`` with its launches (the lane's main path under
+    the width axis), written to ``chain_out`` by width rank 0."""
+    import numpy as np
+
+    from r2dm_tpu_torch import ops, parallel, setup_model
+    from r2dm_tpu_torch.models import layers
+    from r2dm_tpu_torch.ops import quant
+
+    world = parallel.init("cuda", mesh=WIDTH_MESH)
+    out = {"rank": world.rank, "width_rank": world.width_rank}
+    try:
+        ddpm, _, _ = setup_model(ckpt, dtype=torch.bfloat16, device=world.device)
+        model = layers.set_quant_conv(ddpm.model, "w8a8")
+        x = randn(torch, (B, 64, 1024, 2), 40)
+        cond = torch.linspace(-5.0, 5.0, B, device="cuda")
+        sites, real = [], layers.ring_conv_w8a8
+
+        def recorded(x, kernel, bias, out_dtype=None, packed=None, width=None):
+            sites.append((x, kernel, bias, out_dtype or x.dtype))
+            return real(x, kernel, bias, out_dtype, packed, width=width)
+
+        with torch.inference_mode():
+            layers.ring_conv_w8a8 = recorded
+            try:
+                ref = model(x, cond)
+            finally:
+                layers.ring_conv_w8a8 = real
+            exact = []
+            for x_site, k, b, od in sites:
+                xs = parallel.shard_columns(x_site, world)
+                Wl = xs.shape[2]
+                amax = quant.act_absmax(xs, world)
+                xq = quant.act_quantize(xs, amax, halo=parallel.halo_exchange(xs, 1, 1, world))
+                one_amax = quant.act_absmax(x_site)
+                one_xq = quant.act_quantize(x_site, one_amax).narrow(2, world.width_rank * Wl, Wl + 2)
+                packed = quant.pack_weight(k)
+                y = parallel.gather_columns(quant.ring_conv_w8a8(xs, k, b, od, packed, width=world), world)
+                exact.append(bool(torch.equal(amax, one_amax) and torch.equal(xq, one_xq)
+                                  and torch.equal(y, quant.ring_conv_w8a8(x_site, k, b, od, packed))))
+            out["sites"], out["sites_bit_for_bit"] = len(sites), sum(exact)
+            x_nan, k, b, od = sites[1]
+            x_nan = x_nan.clone()
+            x_nan[B - 1, 5, x_nan.shape[2] - 3, 0] = float("nan")  # in width rank 1's columns
+            y = quant.ring_conv_w8a8(parallel.shard_columns(x_nan, world), k, b, od, width=world)
+            out["nan_all"] = bool(torch.isnan(y).all())
+            del sites, x_nan, y
+            with layers.width_sharded(model, world):
+                xs = parallel.shard_columns(x, world)
+                model(xs, cond)  # warm-up
+                torch.cuda.synchronize()
+                ops.reset_launch_counts()
+                world.collective_calls, world.collective_seconds = 0, 0.0
+                t0 = time.time()
+                y = model(xs, cond)
+                torch.cuda.synchronize()
+                out["forward_host_s"] = time.time() - t0
+                out["forward_launches"] = _launches(ops)
+                out["collective_calls"], out["collective_host_s"] = world.collective_calls, world.collective_seconds
+            out["forward_rel_l2"] = _rel(parallel.gather_columns(y, world), ref)
+            torch.cuda.synchronize()
+            ops.reset_launch_counts()
+            two = ddpm.sample(B, WIDTH_DDIM_STEPS, mode="ddim", seeds=list(range(B)), data_format="NHWC",
+                              world=world)
+            torch.cuda.synchronize()
+            out["ddim_launches"] = _launches(ops)
+            if world.width_rank == 0:
+                np.save(chain_out, two.float().cpu().numpy())
+    finally:
+        world.close()
+    return out
+
+
+def width_train_job(torch) -> dict:
+    """One rank of the width training phase (``--mesh 1x2``): width rank 0
+    first takes one config-H b8 loss + backward on the whole image through
+    the kernel path and through the plain path (phase 8's weights, batch,
+    steps and noise), the yardstick; then both ranks take the same step on
+    their columns, the gradients summed over the world as the trainer sums
+    them, with its launches, the collectives' calls and host seconds, and
+    (width rank 0) its distance from the one-rank kernel path."""
+    from r2dm_tpu_torch import ops, parallel
+    from r2dm_tpu_torch.bench import random_ddpm
+    from r2dm_tpu_torch.models import layers
+
+    world = parallel.init("cuda", mesh=WIDTH_MESH)
+    out = {"rank": world.rank, "width_rank": world.width_rank}
+    try:
+        ddpm = random_ddpm(seed=1)
+        model, diffusion = ddpm.model.train(), ddpm.diffusion
+        g = torch.Generator("cuda").manual_seed(2)
+        x_0 = torch.rand((B, 64, 1024, 2), generator=g, device="cuda") * 2 - 1
+        steps = torch.rand((B,), generator=g, device="cuda")
+        noise = torch.randn((B, 64, 1024, 2), generator=g, device="cuda")
+
+        def loss_and_grad(x_0, noise):
+            model.zero_grad(set_to_none=True)
+            loss = diffusion.p_loss(model, x_0, steps, noise)
+            loss.backward()
+            return loss.detach(), torch.cat([p.grad.flatten() for p in model.parameters()])
+
+        if world.width_rank == 0:
+            loss_k, grad_k = loss_and_grad(x_0, noise)
+            with _plain_layers():
+                loss_p, grad_p = loss_and_grad(x_0, noise)
+            out["kernel_vs_plain_loss_rel"] = ((loss_k - loss_p).abs() / loss_p.abs()).item()
+            out["kernel_vs_plain_grad_rel_l2"] = _rel(grad_k, grad_p)
+            del grad_p
+        layers.set_width_shard(model, world)
+        xs, ns = parallel.shard_columns(x_0, world), parallel.shard_columns(noise, world)
+        loss_and_grad(xs, ns)  # warm-up
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        world.collective_calls, world.collective_seconds = 0, 0.0
+        t0 = time.time()
+        loss_s, grad_s = loss_and_grad(xs, ns)
+        torch.cuda.synchronize()
+        out["step_host_s"] = time.time() - t0
+        out["launches"] = _launches(ops)
+        out["collective_calls"], out["collective_host_s"] = world.collective_calls, world.collective_seconds
+        for t in (loss_s, grad_s):  # the width shares summed (D = 1), as training/step.py sums them
+            torch.distributed.all_reduce(t)
+        if world.width_rank == 0:
+            out["loss"], out["one_rank_loss"] = loss_s.item(), loss_k.item()
+            out["loss_rel"] = ((loss_s - loss_k).abs() / loss_k.abs()).item()
+            out["grad_rel_l2"] = _rel(grad_s, grad_k)
+    finally:
+        world.close()
+    return out
+
+
 def width_bench_job(torch) -> dict:
     """``r2dm_tpu_torch.bench --mesh 1x2 --batch 8 --steps 2`` on this rank
     (its line printed by rank 0); the aggregated result."""
@@ -2106,19 +2272,27 @@ def phase_width(torch, main_out, eval_out, tmp, card):
 
     work = os.path.join(tmp, "width_axis")
     os.makedirs(work)
-    chain_out = os.path.join(work, "ddim_two_ranks.npy")
-    samples = os.path.join(work, "samples")
+    chain_out, int8_chain_out = (os.path.join(work, f"ddim_two_ranks{t}.npy") for t in ("", "_int8"))
+    samples, int8_samples = os.path.join(work, "samples"), os.path.join(work, "samples_int8")
+    int8_sas_argv = ["--ckpt", main_out["ckpt"], "--num_samples", str(B), "--batch_size", str(B), "--num_steps", "2",
+                     "--mode", "ddim"]
+    # the int8 jobs last: R2DM_TPU_INT8 stays set in the ranks from then on
     jobs = [
         {"call": "width_rank_job", "kwargs": {"ckpt": main_out["ckpt"], "chain_out": chain_out}, "env": {}},
         {"module": "r2dm_tpu_torch.sample_and_save", "env": {},
          "argv": ["--ckpt", eval_out["ckpt"], "--output_dir", samples, "--batch_size", str(B), "--num_samples",
                   str(2 * B), "--num_steps", "4", "--mode", "ddim", "--mesh", WIDTH_MESH]},
         {"call": "width_bench_job", "kwargs": {}, "env": {"R2DM_BENCH_BUDGET_S": "300"}},
+        {"call": "width_int8_job", "kwargs": {"ckpt": main_out["ckpt"], "chain_out": int8_chain_out}, "env": {}},
+        {"module": "r2dm_tpu_torch.sample_and_save", "env": {"R2DM_TPU_INT8": "1"},
+         "argv": int8_sas_argv + ["--output_dir", int8_samples, "--mesh", WIDTH_MESH]},
+        {"call": "width_bench_job", "kwargs": {}, "env": {}},
     ]
     t0 = time.time()
     ranks = _two_ranks(work, [[{**job, "cwd": work} for job in jobs] for _ in range(2)])
     seconds = time.time() - t0
-    (job0, job1), (sas0, sas1), (bench0, _) = ([rank[i] for rank in ranks] for i in range(3))
+    (job0, job1), (sas0, sas1), (bench0, _), (i8_0, i8_1), (i8sas0, i8sas1), (i8bench0, _) = (
+        [rank[i] for rank in ranks] for i in range(6))
     out = {"card": card, "seconds": seconds}
 
     # ---- one forward, and the chain's steps fed one rank's x_t
@@ -2192,22 +2366,212 @@ def phase_width(torch, main_out, eval_out, tmp, card):
     if not (math.isfinite(bench0["value"]) and bench0["value"] > 0 and bench0["unit"] == "img/s aggregate (2 dev)"):
         raise AssertionError(f"bench --mesh {WIDTH_MESH}: {out['bench']}")
     out["launches"] = job0["ddim_launches"]
+    out["int8"] = _width_int8_checks(torch, main_out, ddpm, work, int8_sas_argv, (i8_0, i8_1), (i8sas0, i8sas1),
+                                     i8bench0, int8_chain_out, int8_samples, card)
+    return out
+
+
+def _width_int8_checks(torch, main_out, ddpm, work, sas_argv, jobs, sas, bench0, chain_out, samples, card):
+    """The int8 lane under ``--mesh 1x2`` (``width_int8_job``, then
+    ``sample_and_save`` and ``bench`` under R2DM_TPU_INT8 in the ranks):
+    every site bit for bit against one rank, a NaN in one rank's columns,
+    exact launches (53 absmax + 53 halo'd quantize + 53 s8 conv and 50 + 50
+    GN a forward), and the forward, the DDIM-4 chain and sample_and_save's
+    files against one rank within WIDTH_SPREAD times one rank's int8
+    kernel-vs-plain distance, measured here on the same inputs."""
+    import numpy as np
+
+    from r2dm_tpu_torch import setup_model
+    from r2dm_tpu_torch.models import layers
+    from r2dm_tpu_torch.sample_and_save import postprocess
+
+    job0, job1 = jobs
+    out = {k: job0[k] for k in ("sites", "sites_bit_for_bit", "forward_rel_l2", "forward_host_s", "collective_calls",
+                                "collective_host_s")}
+    out["nan_all"] = [job0["nan_all"], job1["nan_all"]]
+    out["forward_launches"] = job0["forward_launches"]
+    per_forward = launches_of(0, 0, gn_pair=50, s8_halo=INT8_SITES)
+    net = ddpm.model
+    x = randn(torch, (B, 64, 1024, 2), 40)
+    cond = torch.linspace(-5.0, 5.0, B, device="cuda")
+    seeds = list(range(B))
+    layers.set_quant_conv(net, "w8a8")
+    try:
+        with torch.inference_mode():
+            one = net(x, cond)
+            one_chain = ddpm.sample(B, WIDTH_DDIM_STEPS, mode="ddim", seeds=seeds, data_format="NHWC")
+            with _plain_layers():
+                plain = net(x, cond)
+                plain_chain = ddpm.sample(B, WIDTH_DDIM_STEPS, mode="ddim", seeds=seeds, data_format="NHWC")
+    finally:
+        layers.set_quant_conv(net, None)
+    out["forward_kernel_vs_plain_rel_l2"] = _rel(one, plain)
+    two_chain = torch.from_numpy(np.load(chain_out)).to("cuda")
+    out["ddim"] = {"rel_l2_vs_one_rank": _rel(two_chain, one_chain),
+                   "kernel_vs_plain_rel_l2": _rel(one_chain, plain_chain),
+                   "launches_per_rank": [job0["ddim_launches"], job1["ddim_launches"]]}
+    out["ddim_launches"] = job0["ddim_launches"]
+
+    # sample_and_save under R2DM_TPU_INT8: one rank here, its plain path, the two ranks' files
+    one_dir = os.path.join(work, "samples_int8_one")
+    os.environ["R2DM_TPU_INT8"] = "1"
+    try:
+        one_sas = counted_main(torch, "r2dm_tpu_torch.sample_and_save", sas_argv + ["--output_dir", one_dir])
+    finally:
+        os.environ.pop("R2DM_TPU_INT8")
+    files = sorted(os.listdir(samples))
+    two_s, one_s = (np.stack([np.load(os.path.join(d, f))["sample"] for f in files]) for d in (samples, one_dir))
+    eval_ddpm, lidar, _ = setup_model(main_out["ckpt"], dtype=torch.bfloat16, device="cuda")
+    layers.set_quant_conv(eval_ddpm.model, "w8a8")
+    with torch.inference_mode(), _plain_layers():
+        plain_s = postprocess(eval_ddpm.sample(B, 2, mode="ddim", seeds=seeds), lidar).cpu().numpy()
+    del eval_ddpm
+    t_two, t_one, t_plain = (torch.from_numpy(a) for a in (two_s, one_s, plain_s))
+    out["sample_and_save"] = {"files": len(files), "rel_l2_vs_one_rank": _rel(t_two, t_one),
+                              "kernel_vs_plain_rel_l2": _rel(t_plain, t_one),
+                              "max_abs_diff_m": float(np.abs(two_s - one_s).max()),
+                              "launches_per_rank": [r["launches"] for r in sas],
+                              "one_rank_launches": one_sas["launches"], "seconds": sas[0]["seconds"]}
+    out["bench"] = {k: bench0.get(k) for k in ("value", "unit", "ranks", "per_rank_img_per_s", "int8", "batch",
+                                              "steps")}
+    print(f"width axis, the int8 lane under --mesh {WIDTH_MESH}, two gloo ranks on one card ({card}; a correctness "
+          f"check, no scaling number): {json.dumps(out)}")
+    failures = []
+    if out["sites_bit_for_bit"] != INT8_SITES or out["sites"] != INT8_SITES:
+        failures.append(f"{out['sites_bit_for_bit']} of {out['sites']} sites bit for bit, expected {INT8_SITES}")
+    if out["nan_all"] != [True, True]:
+        failures.append(f"a NaN in one rank's columns: all NaN {out['nan_all']}")
+    if [job0["forward_launches"], job1["forward_launches"]] != [per_forward] * 2:
+        failures.append(f"forward launches {job0['forward_launches']}, {job1['forward_launches']}; each {per_forward}")
+    for name, rel, spread in (("forward", out["forward_rel_l2"], out["forward_kernel_vs_plain_rel_l2"]),
+                              ("DDIM-4", out["ddim"]["rel_l2_vs_one_rank"], out["ddim"]["kernel_vs_plain_rel_l2"]),
+                              ("sample_and_save", out["sample_and_save"]["rel_l2_vs_one_rank"],
+                               out["sample_and_save"]["kernel_vs_plain_rel_l2"])):
+        if not (math.isfinite(rel) and rel <= WIDTH_SPREAD * spread):
+            failures.append(f"{name}: {rel} against one rank, limit {WIDTH_SPREAD} x {spread}")
+    chain_expected = launches_of(0, 0, gn_pair=50 * WIDTH_DDIM_STEPS, s8_halo=INT8_SITES * WIDTH_DDIM_STEPS)
+    if out["ddim"]["launches_per_rank"] != [chain_expected] * 2:
+        failures.append(f"DDIM-4 launches {out['ddim']['launches_per_rank']}, each {chain_expected}")
+    sas_expected = launches_of(0, 0, gn_pair=50 * 2, s8_halo=INT8_SITES * 2)
+    if files != sorted(os.listdir(one_dir)) or len(files) != B or out["sample_and_save"]["launches_per_rank"] != [
+            sas_expected] * 2 or not np.isfinite(two_s).all():
+        failures.append(f"sample_and_save: {out['sample_and_save']} (launches {sas_expected} each)")
+    if not (math.isfinite(bench0["value"]) and bench0["value"] > 0 and bench0["int8"] == "w8a8"
+            and bench0["unit"] == "img/s aggregate (2 dev)"):
+        failures.append(f"bench: {out['bench']}")
+    if failures:
+        raise AssertionError("int8 lane under the width axis: " + "; ".join(failures))
+    return out
+
+
+def phase_width_train(torch, tmp, card):
+    """The width axis for training, ``--mesh 1x2`` as two gloo ranks sharing
+    this card (a correctness check, no scaling number): one config-H b8
+    loss + backward on each rank's columns (``width_train_job``) against
+    one rank's kernel path, within WIDTH_SPREAD times that path's distance
+    from its plain path, with exact launches (48 + 48 halo'd convs, 50 + 50
+    GN stats/apply a rank, no ring-form conv, no one-launch GN) and the
+    collectives' calls and host seconds; then ``python -m
+    r2dm_tpu_torch.train --training.mesh_shape 1,2`` at config H, b8, on
+    the synthetic set for WIDTH_TRAIN_STEPS steps against one rank's
+    trainer with the same seed here: the loss each step, the weights'
+    updates, the launches a rank a step."""
+    import numpy as np
+
+    from r2dm_tpu_torch import config as config_lib
+    from r2dm_tpu_torch.checkpoint import load_checkpoint
+    from r2dm_tpu_torch.inference import build_model
+    from r2dm_tpu_torch.utils.weights import jax_from_state_dict
+
+    work = os.path.join(tmp, "width_train")
+    os.makedirs(work)
+    steps = WIDTH_TRAIN_STEPS
+    one_dir, two_dir = os.path.join(work, "one"), os.path.join(work, "two")
+
+    def train_argv(out_dir):
+        return ["--data.dataset", "synthetic", "--training.output_dir", out_dir, "--training.seed", "0",
+                "--training.num_steps", str(steps), "--training.lr_warmup_steps", "1",
+                "--training.steps_save_image", "100000", "--training.steps_save_model", "100000"]
+
+    saved = os.environ.get("R2DM_SYNTH_SCANS")
+    os.environ["R2DM_SYNTH_SCANS"] = str(B)
+    try:
+        one = counted_main(torch, "r2dm_tpu_torch.train", train_argv(one_dir))
+    finally:
+        if saved is None:
+            os.environ.pop("R2DM_SYNTH_SCANS")
+        else:
+            os.environ["R2DM_SYNTH_SCANS"] = saved
+    jobs = [
+        {"call": "width_train_job", "kwargs": {}, "env": {}},
+        {"module": "r2dm_tpu_torch.train", "env": {"R2DM_SYNTH_SCANS": str(B)},
+         "argv": train_argv(two_dir) + ["--training.mesh_shape", WIDTH_MESH.replace("x", ",")]},
+    ]
+    t0 = time.time()
+    ranks = _two_ranks(work, [[{**job, "cwd": work} for job in jobs] for _ in range(2)])
+    seconds = time.time() - t0
+    (step0, step1), (cli0, cli1) = ([rank[i] for rank in ranks] for i in range(2))
+    out = {"card": card, "seconds": seconds}
+
+    # ---- one step against one rank's kernel path and its spread
+    per_step = launches_of(0, 0, halo=96, gn_pair=50)
+    out["step"] = {k: step0[k] for k in ("loss", "one_rank_loss", "loss_rel", "grad_rel_l2", "kernel_vs_plain_loss_rel",
+                                         "kernel_vs_plain_grad_rel_l2", "step_host_s", "collective_calls",
+                                         "collective_host_s")}
+    out["step"]["launches_per_rank"] = [step0["launches"], step1["launches"]]
+    print(f"width axis {WIDTH_MESH}, one b{B} loss + backward on each rank's columns against one rank ({card}; two "
+          f"gloo ranks on one card, a correctness check): {json.dumps(out['step'])}")
+    st = out["step"]
+    if st["launches_per_rank"] != [per_step] * 2:
+        raise AssertionError(f"sharded train step launches {st['launches_per_rank']}, each {per_step}")
+    for what in ("loss", "grad"):
+        rel = st["loss_rel" if what == "loss" else "grad_rel_l2"]
+        spread = st[f"kernel_vs_plain_{what}_rel" if what == "loss" else "kernel_vs_plain_grad_rel_l2"]
+        if not (math.isfinite(rel) and rel <= WIDTH_SPREAD * spread):
+            raise AssertionError(f"sharded train step, {what}: {rel} against one rank, limit {WIDTH_SPREAD} x {spread}")
+
+    # ---- the trainer
+    expected = launches_of(0, 0, halo=96 * steps, gn_pair=50 * steps)
+    launches = [cli0["launches"], cli1["launches"]]
+    global_loss = [a + b for a, b in zip(cli0["losses"], cli1["losses"])]  # each rank's loss is its share
+    loss_rel = [abs(a - b) / abs(b) for a, b in zip(global_loss, one["losses"])]
+    with torch.random.fork_rng(devices=[]):  # the trainer's initial weights, from its seed
+        torch.manual_seed(0)
+        w0 = jax_from_state_dict(build_model(config_lib.Config(), dtype=torch.bfloat16, device="cpu").state_dict())
+    w = [load_checkpoint(os.path.join(d, "checkpoint.msgpack"))["weights"] for d in (one_dir, two_dir)]
+    start, w1, w2 = (np.concatenate([np.asarray(a, np.float64).ravel() for a in _leaves(t["params"])])
+                     for t in (w0, w[0], w[1]))
+    upd_rel = float(np.linalg.norm(w2 - w1) / np.linalg.norm(w1 - start))
+    out["train"] = {"one_rank_loss": one["losses"], "two_rank_loss": global_loss, "loss_rel": loss_rel,
+                    "update_rel_l2": upd_rel, "launches_per_rank_per_step": {k: v // steps for k, v in launches[0].items()},
+                    "seconds": [one["seconds"], cli0["seconds"]], "peak_bytes": [one["peak_bytes"], cli0["peak_bytes"]]}
+    print(f"width axis {WIDTH_MESH}, python -m r2dm_tpu_torch.train --training.mesh_shape "
+          f"{WIDTH_MESH.replace('x', ',')} {steps} steps b{B} against one rank ({card}): {json.dumps(out['train'])}")
+    if launches != [expected] * 2 or one["launches"] != launches_of(50 * steps, 96 * steps):
+        raise AssertionError(f"train launches: one rank {one['launches']}, two ranks {launches}; each {expected}")
+    if not (len(global_loss) == steps and max(loss_rel) <= TRAIN_REL_L2 and upd_rel <= TWO_RANK_UPDATE_REL):
+        raise AssertionError(f"the width trainer against one rank: loss {loss_rel} (limit {TRAIN_REL_L2}), "
+                             f"update {upd_rel} (limit {TWO_RANK_UPDATE_REL})")
+    out["launches_per_rank_per_step"] = out["train"]["launches_per_rank_per_step"]
     return out
 
 
 def phase_width_kernels(torch, card):
-    """The width axis's forms of both kernels at the shapes a rank gives
+    """The width axis's forms of the kernels at the shapes a rank gives
     them under --mesh 1x2 (W halved), against their plain versions (the
     gates of the one-rank forms), each timed beside its bound and plain
-    version: the halo'd ring conv at every ResidualBlock shape, the
-    GroupNorm stats + apply pair at every GN shape."""
+    version: the halo'd ring conv at every ResidualBlock shape (forward,
+    and at its dx shape as a train step launches it), the GroupNorm stats +
+    apply pair at every GN shape, and the int8 lane's halo'd quantize pass
+    at every site shape of its forward (bit for bit)."""
     import torch.nn.functional as F
 
     from r2dm_tpu_torch.ops import act_ringconv, gn_silu
 
     torch.backends.cudnn.allow_tf32 = False
     G, eps = 8, 1e-6
-    conv_rows, gn_rows, worst = [], [], {"act_ringconv_halo": 0.0, "gn_stats": 0.0, "gn_apply": 0.0}
+    conv_rows, gn_rows = [], []
+    worst = {"act_ringconv_halo": 0.0, "gn_stats": 0.0, "gn_apply": 0.0}
     for (C, Fo, H, W), count in CONV_SHAPES.items():
         Wl = W // 2
         x = randn(torch, (B, H, Wl, C), 41, torch.bfloat16)
@@ -2228,8 +2592,24 @@ def phase_width_kernels(torch, card):
         flops = 2 * 9 * C * Fo * B * H * Wl
         nbytes = B * H * (Wl + 2) * C * 2 + B * H * Wl * Fo * 2 + 9 * C * Fo * 2 + Fo * 4
         t_bytes, t_ops = nbytes / PEAK_BYTES * 1e3, flops / PEAK_BF16_FLOPS * 1e3
+        # its dx in a train step: the same halo'd kernel on dy (F channels) and
+        # dy's strips, the kernel flipped with its channels swapped
+        dy = randn(torch, (B, H, Wl, Fo), 49, torch.bfloat16)
+        dhalo = (randn(torch, (B, H, 1, Fo), 50, torch.bfloat16), randn(torch, (B, H, 1, Fo), 51, torch.bfloat16))
+        kt = k.flip(0, 1).transpose(2, 3).contiguous()
+        zeros = torch.zeros(C, device="cuda")
+        dx = act_ringconv.act_ringconv_halo(dy, *dhalo, None, None, kt, zeros, apply_act=False)
+        dx_ref = act_ringconv.act_ringconv_plain(dy, None, None, kt, zeros, apply_act=False, halo=dhalo)
+        dx_err, dx_scale = (dx.float() - dx_ref.float()).abs().max().item(), dx_ref.float().abs().max().item()
+        if not dx_err <= 1e-2 * dx_scale:
+            raise AssertionError(f"act_ringconv_halo dx {(Fo, C, H, Wl)}: max|err| {dx_err:.3e} vs {dx_scale:.3e}")
+        worst["act_ringconv_halo"] = max(worst["act_ringconv_halo"], dx_err)
+        dx_bytes = (B * H * (Wl + 2) * Fo * 2 + B * H * Wl * C * 2 + 9 * C * Fo * 2 + C * 4) / PEAK_BYTES * 1e3
         conv_rows.append({
             "cin": C, "f": Fo, "h": H, "w": Wl, "per_forward": count, "max_abs_err": err,
+            "dx_ms": graph_ms(torch, lambda: act_ringconv.act_ringconv_halo(dy, *dhalo, None, None, kt, zeros,
+                                                                            apply_act=False)),
+            "dx_bound_ms": max(dx_bytes, t_ops), "dx_max_abs_err": dx_err,
             "ms": graph_ms(torch, lambda: act_ringconv.fused_act_ringconv(x, None, None, k, bias, apply_act=False,
                                                                           halo=halo)),
             "plain_ms": graph_ms(torch, lambda: act_ringconv.act_ringconv_plain(x, None, None, k, bias,
@@ -2274,11 +2654,58 @@ def phase_width_kernels(torch, card):
             "apply_bound_ms": max(ap_bytes, ap_ops), "apply_bound_by": "bytes" if ap_bytes >= ap_ops else "operations",
             "one_launch_ms": graph_ms(torch, lambda: gn_silu.fused_group_norm_silu(x, gain, shift, G, eps))})
     conv_total = {k: sum(r[k] * r["per_forward"] for r in conv_rows) for k in ("ms", "plain_ms", "library_ms",
-                                                                             "bound_ms")}
+                                                                             "bound_ms", "dx_ms", "dx_bound_ms")}
     print(f"width axis, the halo'd ring conv at every ResidualBlock shape, W halved, b{B} ({card}): "
           + json.dumps({"shapes": conv_rows, "per_forward_total": conv_total}))
     print(f"width axis, GroupNorm stats + apply at every GN shape, W halved, b{B} ({card}): " + json.dumps(gn_rows))
-    return {"conv": conv_rows, "gn": gn_rows, "worst": worst, "conv_total": conv_total}
+    quant_rows, quant_total = _width_quantize_kernel(torch, card)
+    worst["act_quantize_halo"] = 0.0  # bit for bit, or the phase failed
+    return {"conv": conv_rows, "gn": gn_rows, "worst": worst, "conv_total": conv_total, "quantize": quant_rows,
+            "quantize_total": quant_total}
+
+
+def _width_quantize_kernel(torch, card):
+    """The int8 lane's halo'd quantize pass at every site shape of a config-H
+    b8 forward with W halved (the sites from one b1 forward of a config-H
+    network on the lane): the s8 layout bit for bit against its plain
+    version, ties included, then timed beside its bound (x and the two
+    strips read once, xq written once) and its plain version."""
+    from r2dm_tpu_torch import config as config_lib
+    from r2dm_tpu_torch.inference import build_model
+    from r2dm_tpu_torch.models import layers
+    from r2dm_tpu_torch.ops import quant
+
+    net = layers.set_quant_conv(build_model(config_lib.Config(), dtype=torch.bfloat16, device="cuda"), "w8a8")
+    sites = _lane_sites(torch, net, torch.zeros(1, 64, 1024, 2, device="cuda"), torch.zeros(1, device="cuda"))
+    del net
+    if len(sites) != INT8_SITES:
+        raise AssertionError(f"the lane quantized {len(sites)} convs a forward, expected {INT8_SITES}")
+    unique = {}
+    for shape, x_dtype, _, _ in sites:
+        key = (*shape[1:], x_dtype)
+        unique[key] = unique.get(key, 0) + 1
+    rows = []
+    for (H, W, C, x_dtype), count in unique.items():
+        Wl = W // 2
+        x = randn(torch, (B, H, Wl, C), 52, x_dtype, scale=1.5)
+        flat = x.view(-1)
+        flat[::7] = ((torch.arange(flat.numel(), device="cuda") % 9 - 4) + 0.5)[::7].to(x_dtype)
+        flat[0] = 127.0  # the scale is then 1, and every seventh value a tie
+        halo = (randn(torch, (B, H, 1, C), 53, x_dtype, scale=1.5), randn(torch, (B, H, 1, C), 54, x_dtype, scale=1.5))
+        amax = quant.act_absmax(x)
+        xq = quant.act_quantize(x, amax, halo=halo)
+        if not torch.equal(xq, quant.act_quantize_plain(x, amax, halo=halo)):
+            raise AssertionError(f"act_quantize_halo {(B, H, Wl, C)} {x_dtype}: not its plain version bit for bit")
+        nbytes = x.numel() * x.element_size() + 2 * halo[0].numel() * x.element_size() + xq.numel()
+        rows.append({"h": H, "w": Wl, "c": C, "x_dtype": str(x_dtype).split(".")[-1], "per_forward": count,
+                     "ms": graph_ms(torch, lambda: quant.act_quantize(x, amax, halo=halo)),
+                     "plain_ms": graph_ms(torch, lambda: quant.act_quantize_plain(x, amax, halo=halo)),
+                     "ring_form_ms": graph_ms(torch, lambda: quant.act_quantize(x, amax)),
+                     "bound_ms": nbytes / PEAK_BYTES * 1e3, "bound_by": "bytes"})
+    total = {k: sum(r[k] * r["per_forward"] for r in rows) for k in ("ms", "plain_ms", "ring_form_ms", "bound_ms")}
+    print(f"width axis, the int8 lane's halo'd quantize pass at every site shape, W halved, b{B} ({card}; bit for "
+          f"bit against its plain version): " + json.dumps({"shapes": rows, "per_forward_total": total}))
+    return rows, total
 
 
 def width_rows(width, kern) -> list:
@@ -2288,19 +2715,28 @@ def width_rows(width, kern) -> list:
     shape of the one-rank line (512 channels at 8x64, b8)."""
     conv = next(r for r in kern["conv"] if (r["cin"], r["f"], r["h"]) == (64, 64, 64))
     gn = next(r for r in kern["gn"] if (r["c"], r["h"]) == (512, 8))
+    q = next(r for r in kern["quantize"] if (r["c"], r["h"], r["x_dtype"]) == (64, 64, "bfloat16"))
     rows = [{"name": "act_ringconv_halo", "ms": conv["ms"], "plain_ms": conv["plain_ms"], "bound_ms": conv["bound_ms"],
-             "bound_by": conv["bound_by"], "library_ms": conv["library_ms"],
-             "shape": [B, conv["h"], conv["w"], conv["cin"], conv["f"]]}]
+             "bound_by": conv["bound_by"], "library_ms": conv["library_ms"], "dx_ms": conv["dx_ms"],
+             "dx_bound_ms": conv["dx_bound_ms"], "shape": [B, conv["h"], conv["w"], conv["cin"], conv["f"]],
+             "per_forward_total": kern["conv_total"]}]
     for name in ("gn_stats", "gn_apply"):
         key = name[3:]
         # no one PyTorch call computes the split form's sums or its apply
         rows.append({"name": name, "ms": gn[f"{key}_ms"], "plain_ms": gn[f"{key}_plain_ms"],
                      "bound_ms": gn[f"{key}_bound_ms"], "bound_by": gn[f"{key}_bound_by"], "library_ms": None,
                      "shape": [B, gn["h"], gn["w"], gn["c"]]})
+    # no one PyTorch call quantizes to s8; its launches are the int8 lane's
+    # main path under the width axis, a DDIM-4 chain through DDPM.sample(world=)
+    rows.append({"name": "act_quantize_halo", "ms": q["ms"], "plain_ms": q["plain_ms"], "bound_ms": q["bound_ms"],
+                 "bound_by": q["bound_by"], "library_ms": None, "ring_form_ms": q["ring_form_ms"],
+                 "shape": [B, q["h"], q["w"], q["c"]], "per_forward_total": kern["quantize_total"]})
     for row in rows:
         src, replaces = SOURCES[row["name"]]
-        row.update({"route": "cuda", "source": src, "replaces": replaces, "launches": width["launches"][row["name"]],
-                    "max_abs_err": kern["worst"][row["name"]]})
+        name = row["name"]
+        launches = width["int8"]["ddim_launches"][name] if name == "act_quantize_halo" else width["launches"][name]
+        row.update({"route": "cuda", "source": src, "replaces": replaces, "launches": launches,
+                    "max_abs_err": kern["worst"][name]})
     return rows
 
 
@@ -2375,9 +2811,9 @@ def _lane_sites(torch, net, x, cond):
 
     sites, real = [], layers.ring_conv_w8a8
 
-    def recorded(x, kernel, bias, out_dtype=None, packed=None):
+    def recorded(x, kernel, bias, out_dtype=None, packed=None, width=None):
         sites.append((tuple(x.shape), x.dtype, kernel.shape[3], out_dtype or x.dtype))
-        return real(x, kernel, bias, out_dtype, packed)
+        return real(x, kernel, bias, out_dtype, packed, width=width)
 
     layers.ring_conv_w8a8 = recorded
     try:
@@ -2555,7 +2991,7 @@ def phase_int8(torch, main_out, tmp, card):
             "m64_tiles": mt, **regs_of(f"w8a8_ringconv_kernel{mangled[out_dtype]}Li{mt}E"),
             "quantize_ms": q_ms, "quantize_bound_ms": (nbytes(x) + nbytes(xq)) / PEAK_BYTES * 1e3,
             "quantize_plain_ms": q_plain,
-            **{f"quantize_{k_}": v for k_, v in regs_of(f"quantize_kernel{mangled[x_dtype]}E").items()},
+            **{f"quantize_{k_}": v for k_, v in regs_of(f"quantize_kernel{mangled[x_dtype]}Lb0E").items()},
             "lane_ms": lane_ms, "lane_bound_ms": max(lane_bytes, t_ops), "bf16_act_ringconv_ms": bf16_ms,
             "absmax_ms": absmax_ms, "absmax_bound_ms": nbytes(x) / PEAK_BYTES * 1e3,
             "absmax_plain_ms": absmax_plain, "absmax_library_ms": absmax_lib})
@@ -2827,7 +3263,7 @@ def main() -> int:
     width_kern = phases.run("width axis: the halo'd conv and the GN pair against their plain versions",
                             phase_width_kernels, torch, card)
     phases.run("conv∘FIR composed against two ops; the W2C record", phase_resample, torch)
-    eval_out = accum = two_ranks = reflowed = int8 = width = None
+    eval_out = accum = two_ranks = reflowed = int8 = width = width_train = None
     with tempfile.TemporaryDirectory() as tmp:
         main_out = phases.run("main path", phase_main, torch, tmp)
         if main_out is not None:
@@ -2850,6 +3286,8 @@ def main() -> int:
                 width = phases.run(f"width axis: two ranks on one card, --mesh {WIDTH_MESH}", phase_width, torch,
                                    main_out, eval_out, tmp, card)
             reflowed = phases.run("reflow", phase_reflow, torch, main_out, tmp, card)
+        width_train = phases.run(f"width axis: training, two ranks on one card, --mesh {WIDTH_MESH}",
+                                 phase_width_train, torch, tmp, card)
     step_out = phases.run("training: kernel path against plain path", phase_train_step, torch)
     train_time = bf16 = None
     if step_out is not None:
@@ -2883,6 +3321,9 @@ def main() -> int:
         row["int8_ddim16_launches"] = int8["launches"][name]
         row["refinenet_phase_launches"] = refinenet["launches"][name]
         row["width_ddim4_launches_per_rank"] = width["launches"][name]
+        row["width_int8_launches_per_rank"] = width["int8"]["forward_launches"][name]
+        row["width_int8_ddim4_launches_per_rank"] = width["int8"]["ddim_launches"][name]
+        row["width_train_launches_per_rank_per_step"] = width_train["launches_per_rank_per_step"][name]
     print(f"ddim16_b{B}_img_per_s {main_out['ddim16_img_s']:.4f}")
     print(f"int8_ddim16_b{B}_img_per_s {int8['ddim16']['img_per_s']:.4f}; int8 forward device ms "
           f"{json.dumps(int8['forward_times'])}")

@@ -39,7 +39,11 @@
 // conv is one rectangle of xq (no modulo in the copies; a TMA box later).
 // One thread makes 16 channels of one padded pixel and stores them as one
 // 16-byte vector. Bound: x read once and xq written once, 67 + 34 MB at
-// level 1 b8 in bf16: 0.030 ms.
+// level 1 b8 in bf16: 0.030 ms. Its halo'd form (kHalo, quantize_halo_launch)
+// serves a width axis, where a rank holds W of the image's columns: columns
+// 0 and W + 1 come from the (B, H, 1, C) strips left and right (the
+// neighbours' edge columns, exchanged by the caller, in x's dtype) in place
+// of the wrap, quantized with the same scale, each element divided once.
 //
 // w8a8_ringconv_kernel (v2): an implicit GEMM, M = BM output pixels of one
 // (b, h) row segment, N = BN = 64 output channels, K = 9 x Cp, walked as
@@ -435,8 +439,9 @@ __global__ void __launch_bounds__(kThreads, 2) w8a8_ringconv_kernel(
   }
 }
 
-template <typename T>
-__global__ void __launch_bounds__(256) quantize_kernel(const T* __restrict__ x, const float* __restrict__ amax,
+template <typename T, bool kHalo>
+__global__ void __launch_bounds__(256) quantize_kernel(const T* __restrict__ x, const T* __restrict__ left,
+                                                       const T* __restrict__ right, const float* __restrict__ amax,
                                                        int8_t* __restrict__ xq, long long rows, int W, int C,
                                                        int Cp) {
   const float xs = act_scale(amax);
@@ -447,9 +452,17 @@ __global__ void __launch_bounds__(256) quantize_kernel(const T* __restrict__ x, 
   for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x; i < n; i += stride) {
     const int c = static_cast<int>(i % nv) * QV;
     const long long pix = i / nv;  // padded pixel (row, wp)
+    const long long row = pix / Wp;
     const int wp = static_cast<int>(pix % Wp);
-    const int w = wp == 0 ? W - 1 : (wp > W ? 0 : wp - 1);  // the ring
-    const T* src = x + ((pix / Wp) * W + w) * C + c;
+    const T* src;
+    if (kHalo && wp == 0) {
+      src = left + row * C + c;  // the left neighbour's last column
+    } else if (kHalo && wp == W + 1) {
+      src = right + row * C + c;  // the right neighbour's first column
+    } else {
+      const int w = wp == 0 ? W - 1 : (wp > W ? 0 : wp - 1);  // the ring
+      src = x + (row * W + w) * C + c;
+    }
     float v[QV];
     if (vec) {
       // C % 8 == 0: c < C means c + 8 <= C, and c + 8 < C means c + 16 <= C
@@ -530,6 +543,28 @@ int launch_conv(const void* xq, const void* amax, const void* wq, const void* ks
                   : launch_tile<TOut, 1>(xq, amax, wq, ks, bias, y, B, H, W, Cp, F, stream);
 }
 
+template <bool kHalo>
+int launch_quantize(const void* x, const void* left, const void* right, int dtype, const void* amax, void* xq,
+                    long long rows, int W, int C, int Cp, void* stream) {
+  if (Cp % QV != 0 || Cp < C) return static_cast<int>(cudaErrorInvalidValue);
+  const int blocks = grid_stride_blocks(rows * (W + 2) * (Cp / QV));
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const float* a = static_cast<const float*>(amax);
+  int8_t* q = static_cast<int8_t*>(xq);
+  if (dtype == 0) {
+    using T = float;
+    quantize_kernel<T, kHalo><<<blocks, 256, 0, s>>>(static_cast<const T*>(x), static_cast<const T*>(left),
+                                                     static_cast<const T*>(right), a, q, rows, W, C, Cp);
+  } else if (dtype == 1) {
+    using T = __nv_bfloat16;
+    quantize_kernel<T, kHalo><<<blocks, 256, 0, s>>>(static_cast<const T*>(x), static_cast<const T*>(left),
+                                                     static_cast<const T*>(right), a, q, rows, W, C, Cp);
+  } else {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 extern "C" {
@@ -559,19 +594,13 @@ int w8a8_ringconv_launch(const void* xq, const void* amax, const void* wq, const
 // x: (rows = B*H, W, C) in dtype (0 float32, 1 bfloat16) -> xq (rows, W + 2, Cp) s8
 int quantize_launch(const void* x, int dtype, const void* amax, void* xq, long long rows, int W, int C, int Cp,
                     void* stream) {
-  if (Cp % QV != 0 || Cp < C) return static_cast<int>(cudaErrorInvalidValue);
-  const int blocks = grid_stride_blocks(rows * (W + 2) * (Cp / QV));
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const float* a = static_cast<const float*>(amax);
-  int8_t* q = static_cast<int8_t*>(xq);
-  if (dtype == 0)
-    quantize_kernel<float><<<blocks, 256, 0, s>>>(static_cast<const float*>(x), a, q, rows, W, C, Cp);
-  else if (dtype == 1)
-    quantize_kernel<__nv_bfloat16><<<blocks, 256, 0, s>>>(static_cast<const __nv_bfloat16*>(x), a, q, rows, W,
-                                                          C, Cp);
-  else
-    return static_cast<int>(cudaErrorInvalidValue);
-  return static_cast<int>(cudaGetLastError());
+  return launch_quantize<false>(x, nullptr, nullptr, dtype, amax, xq, rows, W, C, Cp, stream);
+}
+
+// the halo'd form: left, right (rows, 1, C) in x's dtype give columns 0 and W + 1
+int quantize_halo_launch(const void* x, const void* left, const void* right, int dtype, const void* amax, void* xq,
+                         long long rows, int W, int C, int Cp, void* stream) {
+  return launch_quantize<true>(x, left, right, dtype, amax, xq, rows, W, C, Cp, stream);
 }
 
 int absmax_launch(const void* x, int dtype, long long n, void* out, void* stream) {

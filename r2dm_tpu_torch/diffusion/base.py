@@ -29,7 +29,9 @@ draw is the whole image's, from the same generators as on one rank, and the
 rank keeps its columns (``normal``/``noise_drawer`` with ``width``), so a
 sharded chain is one rank's chain draw for draw. The full-width inputs
 (``x_T``, ``noise``, RePaint's ``known`` and ``mask``) are cut to the rank's
-columns the same way; the results are the rank's columns.
+columns the same way; the results are the rank's columns. The loss under a
+width axis is the rank's columns' share of one rank's loss
+(``masked_weighted_loss``): the shares sum to it over the width group.
 """
 
 from __future__ import annotations
@@ -38,7 +40,7 @@ from typing import Callable, Iterable, Optional, Sequence, Union
 
 import torch
 
-from ..parallel.width import shard_columns, sharded
+from ..parallel.width import all_reduce_sum_, shard_columns, sharded
 
 Generators = Union[None, torch.Generator, Sequence[torch.Generator]]
 NoiseSource = Union[None, Callable[[tuple], torch.Tensor], Iterable[torch.Tensor]]
@@ -113,17 +115,24 @@ def elementwise_loss(kind: str, prediction: torch.Tensor, target: torch.Tensor) 
     raise ValueError(f"invalid criterion: {kind}")
 
 
-def masked_weighted_loss(loss: torch.Tensor, loss_mask: Optional[torch.Tensor], weight: torch.Tensor) -> torch.Tensor:
+def masked_weighted_loss(loss: torch.Tensor, loss_mask: Optional[torch.Tensor], weight: torch.Tensor,
+                         width=None) -> torch.Tensor:
     """Per-sample masked mean, times that sample's weight, then the batch
     mean. The reference broadcasts its (B, 1) loss against the (B, 1, 1, 1)
     weight and so averages mean(loss) * mean(weight); the JAX package
     applies the weight per sample, as min-SNR (arXiv 2303.09556) intends,
-    and so does the port (r2dm_tpu/diffusion/base.py:83-101)."""
+    and so does the port (r2dm_tpu/diffusion/base.py:83-101). Under a width
+    axis (``width``) each sample's numerator is this rank's columns' and
+    stays differentiable, its denominator (the mask's count) is the whole
+    image's, summed over the width group without grad: the rank's share."""
     if loss_mask is None:
         loss_mask = torch.ones_like(loss)
     axes = tuple(range(1, loss.dim()))
     num = torch.sum(loss * loss_mask, dim=axes)
-    den = torch.sum(loss_mask, dim=axes) + 1e-8
+    den = torch.sum(loss_mask, dim=axes)
+    if sharded(width):
+        den = all_reduce_sum_(den.detach().to(torch.float32, copy=True), width).to(den.dtype)
+    den = den + 1e-8
     per_sample = num / den  # (B,)
     return torch.mean(per_sample * weight.reshape(per_sample.shape))
 
@@ -205,16 +214,17 @@ class GaussianDiffusion:
         x_t = self.q_step_from_x_0(x_0, steps, noise)
         prediction = model(x_t, self.get_network_condition(steps), **(model_kwargs or {})).to(torch.float32)
         loss = elementwise_loss(self.loss_type, prediction, self.get_target(x_0, steps, noise))
-        return masked_weighted_loss(loss, loss_mask, self.get_loss_weight(steps))
+        return masked_weighted_loss(loss, loss_mask, self.get_loss_weight(steps), self._width())
 
     def loss(
         self, model, x_0: torch.Tensor, generator: Generators = None,
         loss_mask: Optional[torch.Tensor] = None, model_kwargs: Optional[dict] = None,
     ) -> torch.Tensor:
         """Timesteps, then noise, drawn from ``generator``, then
-        :meth:`p_loss` (reference base.py:141-149)."""
+        :meth:`p_loss` (reference base.py:141-149); under a width axis the
+        noise is the whole image's, cut to the rank's columns."""
         steps = self.sample_timesteps(x_0.shape[0], generator, x_0.device)
-        noise = normal(generator, tuple(x_0.shape), x_0.device)
+        noise = self._normal(generator, tuple(x_0.shape), x_0.device)
         return self.p_loss(model, x_0, steps, noise, loss_mask, model_kwargs)
 
     # the chain driver of every sampler ---------------------------------------

@@ -329,8 +329,7 @@ class DDPM:
 
     def _width(self, world):
         """``world`` when it splits the columns (the model must run under
-        it: ``set_width_shard`` raises for the RefineNet and the int8 lane),
-        else None."""
+        it: ``set_width_shard`` raises for the RefineNet), else None."""
         if not sharded(world):
             return None
         check_width_shard(self.model, world.width_size)

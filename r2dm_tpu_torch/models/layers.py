@@ -28,9 +28,13 @@ the ``World`` whose width group splits the image's columns
 on the whole image: ``RingConv`` and the resamples pad W from the
 neighbours' columns (``ops/pad.py::ring_pad``), ``ResidualBlock`` runs the
 ring conv's halo'd form on the exchanged columns, ``GroupNorm``/``AdaGN``
-take their statistics across the ranks, and ``SelfAttention`` attends over
-the keys and values of the whole image. The int8 lane and the RefineNet do
-not run under it yet, and neither does training (each a ROADMAP item).
+take their statistics across the ranks, ``SelfAttention`` attends over
+the keys and values of the whole image, and the int8 lane takes its absmax
+across the ranks and quantizes the exchanged columns. Under autograd every
+one of them is differentiable, and a rank's backward gives its own columns'
+share of each parameter gradient (the trainer sums the shares over the
+width group, ``training/step.py``). The RefineNet does not run under it yet
+(``parallel.mesh.WIDTH_REFINENET_ITEM``).
 
 ``FUSED_RESAMPLE`` is the JAX package's switch of the same name
 (``r2dm_tpu/models/layers.py:470-475``), read by ``UNetBlock`` at each
@@ -52,12 +56,12 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from ..ops import fused_resample
-from ..ops.act_ringconv import fused_act_ringconv
+from ..ops.act_ringconv import act_ringconv_sharded, fused_act_ringconv
 from ..ops.gn_silu import fused_group_norm_silu, group_norm_silu_sharded
 from ..ops.pad import ring_pad
 from ..ops.quant import pack_weight, ring_conv_w8a8
-from ..parallel.mesh import WIDTH_INT8_ITEM, WIDTH_REFINENET_ITEM
-from ..parallel.width import gather_columns, halo_exchange, sharded
+from ..parallel.mesh import WIDTH_REFINENET_ITEM
+from ..parallel.width import gather_columns, shard_columns, sharded
 
 QUANT_MODES = (None, "w8a8")
 # the down path composes its conv with the FIR filter; True/"both", "down",
@@ -159,7 +163,7 @@ class RingConv(nn.Module):
             # quantized from the fp32 master weight and the activation as it
             # arrives (JAX layers.py:116-123); the output in the compute dtype
             return ring_conv_w8a8(x, self.hwio(), self.bias, out_dtype=self.compute_dtype or x.dtype,
-                                  packed=self.packed_s8() if x.is_cuda else None)
+                                  packed=self.packed_s8() if x.is_cuda else None, width=self.width_shard)
         cd = _compute_dtype(self.compute_dtype, x, self.weight)
         x = x.to(cd)
         if self.weight.shape[-1] == 3:
@@ -275,11 +279,16 @@ class SelfAttentionBlock(nn.Module):
         return (x + h) * _scale_in(x, RESIDUAL_SCALE)
 
 
-def apply_dropout(h: torch.Tensor, p: float, generator: Optional[torch.Generator]) -> torch.Tensor:
+def apply_dropout(h: torch.Tensor, p: float, generator: Optional[torch.Generator], width=None) -> torch.Tensor:
     """flax ``nn.Dropout``: keep each value with probability 1 - p (a
     Bernoulli mask drawn from ``generator``) and scale the kept ones by
-    1 / (1 - p), in h's dtype."""
-    keep = torch.rand(h.shape, generator=generator, device=h.device) < 1.0 - p
+    1 / (1 - p), in h's dtype. Under a width axis (``width``) the mask is
+    drawn for the whole image and cut to the rank's columns, as the noise
+    is: one rank's mask."""
+    shape = tuple(h.shape)
+    if sharded(width):
+        shape = (*shape[:2], shape[2] * width.width_size, *shape[3:])
+    keep = shard_columns(torch.rand(shape, generator=generator, device=h.device) < 1.0 - p, width)
     return torch.where(keep, h / (1.0 - p), torch.zeros((), dtype=h.dtype, device=h.device))
 
 
@@ -315,14 +324,13 @@ class ResidualBlock(nn.Module):
         hc = h.to(self.compute_dtype) if self.compute_dtype is not None else h
         if self.width_shard is None:
             return fused_act_ringconv(hc, None, None, conv.hwio(), conv.bias, apply_act=False)
-        return fused_act_ringconv(hc, None, None, conv.hwio(), conv.bias, apply_act=False,
-                                  halo=halo_exchange(hc, 1, 1, self.width_shard))
+        return act_ringconv_sharded(hc, conv.hwio(), conv.bias, self.width_shard)
 
     def forward(self, x: torch.Tensor, emb: torch.Tensor, generator: Optional[torch.Generator] = None) -> torch.Tensor:
         h = self._conv(self.conv1, self.norm1(x))
         h = self.norm2(h, emb)
         if self.dropout > 0.0 and self.training:
-            h = apply_dropout(h, self.dropout, generator)
+            h = apply_dropout(h, self.dropout, generator, self.width_shard)
         h = self._conv(self.conv2, h)
         skip = self.skip(x) if self.skip is not None else x
         return (skip + h) * _scale_in(h, RESIDUAL_SCALE)
@@ -335,8 +343,6 @@ def set_quant_conv(model: nn.Module, mode: Optional[str]) -> nn.Module:
     under autograd. Returns the model."""
     if mode not in QUANT_MODES:
         raise ValueError(f"unknown quantization mode {mode!r}; one of {QUANT_MODES}")
-    if mode is not None and width_shard_of(model) is not None:
-        raise ValueError(f"the int8 lane does not run under a width axis yet ({WIDTH_INT8_ITEM})")
     for m in model.modules():
         if isinstance(m, RingConv) and m.quantizable:
             m.quant = mode
@@ -357,9 +363,7 @@ def width_shard_of(model: nn.Module):
 def check_width_shard(model: nn.Module, width_size: int) -> None:
     """Raise unless ``model`` runs under a width axis of ``width_size``
     ranks: its levels must split (its own ``check_width_shard``); a model
-    without that check (the RefineNet) and the int8 lane raise."""
-    if quant_conv_mode(model) is not None:
-        raise ValueError(f"the int8 lane does not run under a width axis yet ({WIDTH_INT8_ITEM})")
+    without that check (the RefineNet) raises."""
     check = getattr(model, "check_width_shard", None)
     if check is None:
         raise ValueError(f"{type(model).__name__} does not run under a width axis yet ({WIDTH_REFINENET_ITEM})")
@@ -371,8 +375,7 @@ def set_width_shard(model: nn.Module, world) -> nn.Module:
     ``world``'s width group (None, or a world of width 1: the whole image):
     every module that pads the ring, normalises or attends takes the group.
     The model checks that its levels split (``check_width_shard``); a model
-    without that check (the RefineNet) and the int8 lane raise. Returns the
-    model."""
+    without that check (the RefineNet) raises. Returns the model."""
     shard = world if sharded(world) else None
     if shard is not None:
         check_width_shard(model, shard.width_size)

@@ -17,8 +17,20 @@ columns that close the ring on this rank's W columns (the left neighbour's
 last, the right neighbour's first: ``parallel/width.py::halo_exchange``):
 ``act_ringconv_halo``, the kernel's halo'd form, reads them in place of the
 wrap and writes W columns. Its launches count in ``act_ringconv_halo
-.launches``, apart from the ring form's. It has no backward: training under
-a width axis is a later item (``parallel.mesh.WIDTH_TRAINING_ITEM``).
+.launches``, apart from the ring form's.
+
+``act_ringconv_sharded(x, kernel, bias, width)`` is the exchange and the
+halo'd conv in one call, and under autograd the ``ActRingConvHalo``
+function. Its backward is the one-rank backward with the ring closed across
+ranks: the adjoint of "close the ring with the neighbours' columns, then 3x3
+conv" is the same halo'd conv of dy, closed with dy's own exchanged strips,
+so dx is one launch of the halo'd kernel (counted in ``act_ringconv_halo
+.launches``) and is the whole gradient of this rank's columns, the terms of
+the neighbours' outputs included. The forward's x strips are therefore not
+differentiated (the exchange runs inside the forward, off the graph): the
+neighbours count those terms. dW and d_bias are this rank's columns' share,
+``ring_conv_weight_grad`` on the strip-padded x; the trainer sums the shares
+over the width group.
 
 Under autograd the call is the ``ActRingConv`` function (``apply_act=False``
 only, the form every path uses; with the prologue it raises). The adjoint of
@@ -37,7 +49,7 @@ import ctypes
 import torch
 import torch.nn.functional as F
 
-from ..parallel.mesh import WIDTH_TRAINING_ITEM
+from ..parallel.width import halo_exchange
 from . import build
 from .pad import ring_pad
 
@@ -155,12 +167,16 @@ def ring_conv_input_grad(dy, kernel):
     return fused_act_ringconv(dy.contiguous(), None, None, flipped, zeros, apply_act=False)
 
 
-def ring_conv_weight_grad(x, dy, kernel_dtype, bias_dtype):
+def ring_conv_weight_grad(x, dy, kernel_dtype, bias_dtype, halo=None):
     """(dW HWIO, d_bias) of y = ring_conv3x3(x, W) + bias, in x's dtype with
     fp32 accumulation, returned in the parameters' dtypes: dW is the
     correlation of the ring-padded x with dy (torch.nn.grad.conv2d_weight),
-    d_bias the sum of dy over (B, H, W)."""
-    xp = ring_pad(x, 1).permute(0, 3, 1, 2)
+    d_bias the sum of dy over (B, H, W). With ``halo=(left, right)`` the
+    ring is closed by those columns (a rank's share under a width axis)."""
+    if halo is None:
+        xp = ring_pad(x, 1).permute(0, 3, 1, 2)
+    else:
+        xp = ring_pad(torch.cat([halo[0], x, halo[1]], dim=2), (0, 0, 1, 1)).permute(0, 3, 1, 2)
     Fo = dy.shape[-1]
     dw = torch.nn.grad.conv2d_weight(xp, (Fo, x.shape[-1], 3, 3), dy.to(x.dtype).permute(0, 3, 1, 2))
     d_bias = dy.to(torch.float32).sum(dim=(0, 1, 2))
@@ -192,14 +208,52 @@ class ActRingConv(torch.autograd.Function):
 def act_ringconv_halo(x, left, right, a, b, kernel, bias, apply_act: bool = True):
     """The halo'd form: y = conv3x3([silu](x*a + b)) + bias over this rank's
     W columns, the ring closed by the (B, H, 1, C) ``left`` and ``right``
-    columns; NHWC, x's dtype. No backward (raises under autograd)."""
+    columns; NHWC, x's dtype. Under autograd use ``act_ringconv_sharded``
+    (a call here with an operand that takes a gradient raises on CUDA)."""
     halo = (left, right)
     if x.device.type == "cpu":
         return act_ringconv_plain(x, a, b, kernel, bias, apply_act, halo=halo)
     if torch.is_grad_enabled() and any(t is not None and t.requires_grad for t in (x, left, right, a, b, kernel, bias)):
-        raise NotImplementedError(
-            f"act_ringconv_halo: no backward; training under a width axis is {WIDTH_TRAINING_ITEM}")
+        raise NotImplementedError("act_ringconv_halo: no backward of its own; under autograd call "
+                                  "act_ringconv_sharded, whose backward closes the ring across ranks")
     return _launch(x, a, b, kernel, bias, apply_act, halo=halo)
+
+
+class ActRingConvHalo(torch.autograd.Function):
+    """``act_ringconv_sharded`` under autograd (the module docstring): the
+    forward exchanges x's edge columns and runs the halo'd kernel (the plain
+    version on a CPU tensor); the backward exchanges dy's, and dx is the
+    halo'd kernel on dy with the flipped, channel-swapped kernel; dW and
+    d_bias this rank's share."""
+
+    @staticmethod
+    def forward(ctx, x, kernel, bias, width):
+        left, right = halo_exchange(x, 1, 1, width)
+        ctx.save_for_backward(x, left, right, kernel)
+        ctx.bias_dtype, ctx.width = bias.dtype, width
+        return act_ringconv_halo(x, left, right, None, None, kernel, bias, apply_act=False)
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, left, right, kernel = ctx.saved_tensors
+        dy = dy.to(x.dtype).contiguous()
+        dx = None
+        if ctx.needs_input_grad[0]:
+            flipped = kernel.flip(0, 1).transpose(2, 3)
+            zeros = torch.zeros(kernel.shape[2], dtype=torch.float32, device=dy.device)
+            dx = act_ringconv_halo(dy, *halo_exchange(dy, 1, 1, ctx.width), None, None, flipped, zeros,
+                                   apply_act=False)
+        dw, d_bias = ring_conv_weight_grad(x, dy, kernel.dtype, ctx.bias_dtype, halo=(left, right))
+        return dx, dw, d_bias, None
+
+
+def act_ringconv_sharded(x, kernel, bias, width):
+    """y = ring_conv3x3(x, kernel) + bias on this rank's columns of a width
+    axis (``width``, a ``World``): the edge columns exchanged, then the
+    halo'd form; under autograd ``ActRingConvHalo``."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (x, kernel, bias)):
+        return ActRingConvHalo.apply(x, kernel, bias, width)
+    return act_ringconv_halo(x, *halo_exchange(x, 1, 1, width), None, None, kernel, bias, apply_act=False)
 
 
 def fused_act_ringconv(x, a, b, kernel, bias, apply_act: bool = True, halo=None):

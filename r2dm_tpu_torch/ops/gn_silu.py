@@ -21,8 +21,15 @@ and x^2 of this rank's pixels, folded across each cluster in rank order),
 ``parallel.all_reduce_sum_`` over the width group, and ``gn_apply`` (each
 group folded from the summed channels in channel order with the whole
 image's count, then v2's apply loop). Each counts its own launches. Their
-plain versions are ``gn_coeffs_plain``'s sums split the same way. The split
-form has no backward: training under a width axis is a later item.
+plain versions are ``gn_coeffs_plain``'s sums split the same way. Under
+autograd the split form is the ``GroupNormSiLUSharded`` function: the same
+three steps forward, the summed statistics saved; its backward is
+``gn_silu_backward``'s formula with the group mean and rstd from those sums
+and the per-(B, C) sums of dz and dz*x all-reduced over the width group
+(one (2, B, C) all-reduce) before the dx coefficients. d_gain and d_shift
+are this rank's share, from its own sums of dz and dz*x with the global
+mean and rstd: the trainer sums the shares over the width group, so the
+all-reduced sums there would count them W times.
 
 Under autograd (grad enabled and an operand that requires grad) the call is
 the ``GroupNormSiLU`` function: its forward is the same kernel launch, its
@@ -39,7 +46,6 @@ from typing import NamedTuple
 
 import torch
 
-from ..parallel.mesh import WIDTH_TRAINING_ITEM
 from ..parallel.width import all_reduce_sum_
 from . import build
 
@@ -263,16 +269,40 @@ def gn_apply(x, sums, count, gain, shift, num_groups: int, eps: float, apply_sil
     return y
 
 
-def group_norm_silu_sharded(x, gain, shift, num_groups: int, eps: float, apply_silu: bool, width):
-    """The split form under a width axis: ``gn_stats``, the sums all-reduced
-    over ``width``'s group, ``gn_apply`` with the whole image's count."""
-    if torch.is_grad_enabled() and (x.requires_grad or gain.requires_grad or shift.requires_grad):
-        raise NotImplementedError(
-            f"fused_group_norm_silu: no backward under a width axis; training there is {WIDTH_TRAINING_ITEM}")
+def _sharded_forward(x, gain, shift, num_groups: int, eps: float, apply_silu: bool, width):
+    """(y, the summed (2, B, C) sums, the count a group)."""
     B, H, W, C = x.shape
     sums = all_reduce_sum_(gn_stats(x), width)
     count = H * W * width.width_size * (C // num_groups)
-    return gn_apply(x, sums, count, gain, shift, num_groups, eps, apply_silu)
+    return gn_apply(x, sums, count, gain, shift, num_groups, eps, apply_silu), sums, count
+
+
+class GroupNormSiLUSharded(torch.autograd.Function):
+    """``group_norm_silu_sharded`` under autograd (the module docstring)."""
+
+    @staticmethod
+    def forward(ctx, x, gain, shift, num_groups: int, eps: float, apply_silu: bool, width):
+        y, sums, count = _sharded_forward(x, gain, shift, num_groups, eps, apply_silu, width)
+        ctx.save_for_backward(x, gain, shift, sums)
+        ctx.args = (num_groups, eps, apply_silu, count, width)
+        return y
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, gain, shift, sums = ctx.saved_tensors
+        num_groups, eps, apply_silu, count, width = ctx.args
+        mean, rstd = _fold(sums, num_groups, count, eps)
+        dx, d_gain, d_shift = _backward(x, gain, shift, num_groups, apply_silu, dy, mean, rstd, count, width)
+        return dx, d_gain, d_shift, None, None, None, None
+
+
+def group_norm_silu_sharded(x, gain, shift, num_groups: int, eps: float, apply_silu: bool, width):
+    """The split form under a width axis: ``gn_stats``, the sums all-reduced
+    over ``width``'s group, ``gn_apply`` with the whole image's count; under
+    autograd ``GroupNormSiLUSharded``."""
+    if torch.is_grad_enabled() and (x.requires_grad or gain.requires_grad or shift.requires_grad):
+        return GroupNormSiLUSharded.apply(x, gain, shift, num_groups, eps, apply_silu, width)
+    return _sharded_forward(x, gain, shift, num_groups, eps, apply_silu, width)[0]
 
 
 # ----------------------------------------------------------------- backward
@@ -292,9 +322,18 @@ def gn_silu_backward(x, gain, shift, num_groups: int, eps: float, apply_silu: bo
     a (B, C) AdaGN gain. dx has x's dtype, d_gain and d_shift their
     operand's."""
     B, H, W, C = x.shape
+    mean, rstd = _group_stats(x.to(torch.float32).reshape(B, H * W, C), num_groups, eps)
+    return _backward(x, gain, shift, num_groups, apply_silu, dy, mean, rstd, H * W * (C // num_groups))
+
+
+def _backward(x, gain, shift, num_groups: int, apply_silu: bool, dy, mean, rstd, cnt, width=None):
+    """``gn_silu_backward`` from the (B, C) group ``mean`` and ``rstd`` over
+    ``cnt`` elements a group; under a width axis (``width``) the sums of dz
+    and dz*x that dx needs are the whole image's, all-reduced over the
+    group, and d_gain, d_shift this rank's share."""
+    B, H, W, C = x.shape
     G = num_groups
     xf = x.to(torch.float32).reshape(B, H * W, C)
-    mean, rstd = _group_stats(xf, G, eps)
     g, s = _affine(gain, shift, B, C)
     a = rstd * g
     if apply_silu:
@@ -305,14 +344,15 @@ def gn_silu_backward(x, gain, shift, num_groups: int, eps: float, apply_silu: bo
         del z, sig
     else:
         dz = dy.to(torch.float32).reshape(B, H * W, C)
-    d_shift = dz.sum(dim=1)  # (B, C)
-    d_gain = rstd * ((dz * xf).sum(dim=1) - mean * d_shift)
-    cnt = H * W * (C // G)
+    own = torch.stack([dz.sum(dim=1), (dz * xf).sum(dim=1)])  # (2, B, C): sums of dz, dz*x
+    total = own if width is None else all_reduce_sum_(own.clone(), width)
+    d_shift = own[0]
+    d_gain = rstd * (own[1] - mean * d_shift)
 
     def group_mean(v):
         return (v.reshape(B, G, -1).sum(-1) / cnt).repeat_interleave(C // G, dim=1)
 
-    m1, m2 = group_mean(g * d_shift), group_mean(g * d_gain)
+    m1, m2 = group_mean(g * total[0]), group_mean(g * (rstd * (total[1] - mean * total[0])))
     coef_x = -rstd * rstd * m2
     dx = torch.addcmul((-rstd * m1 - coef_x * mean)[:, None], dz, a[:, None])
     dx.addcmul_(xf, coef_x[:, None])

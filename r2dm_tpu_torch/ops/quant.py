@@ -25,6 +25,18 @@ zero-padded to Cp) and the s8 conv on that operand, ``ring_conv_s8``,
 counted in ``ring_conv_w8a8.launches``. The lane is inference-only, as in
 the JAX package (round has no gradient): under autograd it raises.
 
+Under a width axis (``width``, a ``World`` whose width group splits the
+columns) the lane computes on a rank's columns what one rank computes on
+the whole image, as the JAX package's ``jnp.max`` over a width-sharded
+tensor is a global max: the absmax is the maximum over the width group,
+reduced on the bits of |x| as int32 (``parallel.all_reduce_max_bits_``,
+the kernel's own encoding, so a NaN in one rank's columns makes every
+rank's scale NaN); the quantize pass's halo'd form, ``act_quantize(halo=)``
+(the kernel's ``kHalo`` form, launches counted in ``act_quantize_halo
+.launches``), writes the ring's two columns from x's exchanged edge columns
+with that scale; the s8 conv is unchanged. Each rank's s8 layout is then its
+window of one rank's, and its output its columns of one rank's, bit for bit.
+
 On CUDA, PyTorch computes ``tensor / python_float`` as a multiplication by
 the reciprocal, which rounds otherwise than the JAX package's division, so
 every division here takes a tensor divisor.
@@ -38,6 +50,7 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
+from ..parallel.width import all_reduce_max_bits_, halo_exchange, sharded
 from . import build
 from .pad import ring_pad
 
@@ -56,6 +69,8 @@ def _lib():
                                         ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_int,
                                         ctypes.c_void_p]
         lib.quantize_launch.restype = ctypes.c_int
+        lib.quantize_halo_launch.argtypes = [ctypes.c_void_p] * 3 + list(lib.quantize_launch.argtypes[1:])
+        lib.quantize_halo_launch.restype = ctypes.c_int
         lib.absmax_launch.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_void_p,
                                       ctypes.c_void_p]
         lib.absmax_launch.restype = ctypes.c_int
@@ -115,11 +130,16 @@ def padded_channels(c: int) -> int:
     return -(-c // K_CHUNK) * K_CHUNK
 
 
-def act_quantize_plain(x: torch.Tensor, amax: torch.Tensor) -> torch.Tensor:
+def act_quantize_plain(x: torch.Tensor, amax: torch.Tensor, halo=None) -> torch.Tensor:
     """The quantize pass's plain version: x (B, H, W, C) -> s8 (B, H, W + 2,
     Cp), the values of ``act_qparams`` for the absmax ``amax``, ring-padded
-    by one column each side and zero-padded to Cp channels."""
-    xq = ring_pad(_quantize(x.to(torch.float32), _scale(amax.to(torch.float32))), (1, 1, 0, 0))
+    by one column each side (with ``halo``, the (B, H, 1, C) columns
+    ``(left, right)``, quantized alike) and zero-padded to Cp channels."""
+    scale = _scale(amax.to(torch.float32))
+    if halo is None:
+        xq = ring_pad(_quantize(x.to(torch.float32), scale), (1, 1, 0, 0))
+    else:
+        xq = _quantize(torch.cat([halo[0], x, halo[1]], dim=2).to(torch.float32), scale)
     return F.pad(xq, (0, padded_channels(x.shape[3]) - x.shape[3]))
 
 
@@ -167,12 +187,16 @@ def _check(x: torch.Tensor, what: str) -> None:
         raise ValueError(f"{what}: expected a contiguous tensor on a 16-byte boundary")
 
 
-def act_absmax(x: torch.Tensor) -> torch.Tensor:
+def act_absmax(x: torch.Tensor, width=None) -> torch.Tensor:
     """max |x| over the whole tensor, as a 0-d fp32 tensor (NaN when x holds
     one): the reduction kernel on a CUDA tensor (every block folds its
     maximum in with an integer atomicMax on the bits of |x|, a NaN as the
     quiet NaN above +inf; exact and independent of the order; the output
-    zero-filled here first), ``x.abs().amax()`` on a CPU one."""
+    zero-filled here first), ``x.abs().amax()`` on a CPU one. Under a width
+    axis (``width``) the maximum over the group's columns, on the same
+    bits."""
+    if sharded(width):
+        return all_reduce_max_bits_(act_absmax(x), width)
     if x.device.type == "cpu":
         return x.to(torch.float32).abs().amax()
     _check(x, "act_absmax")
@@ -190,26 +214,59 @@ def _check_amax(amax: torch.Tensor, x: torch.Tensor, what: str) -> None:
         raise ValueError(f"{what}: amax must be one fp32 value on x's device")
 
 
-def act_quantize(x: torch.Tensor, amax: torch.Tensor) -> torch.Tensor:
+def act_quantize(x: torch.Tensor, amax: torch.Tensor, halo=None) -> torch.Tensor:
     """x (B, H, W, C) fp32 or bf16 quantized once for the s8 conv: s8 (B, H,
     W + 2, Cp), column 0 x's column W - 1 and column W + 1 its column 0 (the
     ring), channels past C zero, each value clip(round_half_even(x / xs),
-    -127, 127) with xs from ``amax`` (x's ``act_absmax``). The quantize
-    kernel on a CUDA tensor, ``act_quantize_plain`` on a CPU one."""
+    -127, 127) with xs from ``amax`` (x's ``act_absmax``). With
+    ``halo=(left, right)``, ``act_quantize_halo``. The quantize kernel on a
+    CUDA tensor, ``act_quantize_plain`` on a CPU one."""
+    if halo is not None:
+        return act_quantize_halo(x, *halo, amax)
     if x.dim() != 4:
         raise ValueError(f"act_quantize: expected NHWC x, got shape {tuple(x.shape)}")
     if x.device.type == "cpu":
         return act_quantize_plain(x, amax)
-    _check(x, "act_quantize")
-    _check_amax(amax, x, "act_quantize")
+    return _quantize_launch(x, amax)
+
+
+def act_quantize_halo(x: torch.Tensor, left: torch.Tensor, right: torch.Tensor, amax: torch.Tensor) -> torch.Tensor:
+    """The quantize pass's halo'd form under a width axis: columns 0 and
+    W + 1 of the s8 layout from the (B, H, 1, C) ``left`` and ``right``
+    columns (the neighbours' edge columns, in x's dtype) in place of the
+    wrap, with the same scale; the kernel's ``kHalo`` form on CUDA tensors
+    (launches counted here), ``act_quantize_plain(halo=)`` on CPU ones."""
+    if x.dim() != 4:
+        raise ValueError(f"act_quantize: expected NHWC x, got shape {tuple(x.shape)}")
+    B, H, _, C = x.shape
+    for name, t in (("left", left), ("right", right)):
+        if t.dtype != x.dtype or tuple(t.shape) != (B, H, 1, C) or t.device != x.device:
+            raise ValueError(f"act_quantize_halo: the {name} halo must be a {x.dtype} ({B}, {H}, 1, {C}) tensor "
+                             f"on {x.device}")
+    if x.device.type == "cpu":
+        return act_quantize_plain(x, amax, halo=(left, right))
+    for t in (left, right):
+        _check(t, "act_quantize_halo")
+    return _quantize_launch(x, amax, (left, right))
+
+
+def _quantize_launch(x, amax, halo=None):
+    what = "act_quantize" if halo is None else "act_quantize_halo"
+    _check(x, what)
+    _check_amax(amax, x, what)
     B, H, W, C = x.shape
     cp = padded_channels(C)
     lib = _lib()
     xq = torch.empty((B, H, W + 2, cp), dtype=torch.int8, device=x.device)
-    rc = lib.quantize_launch(x.data_ptr(), _DTYPE_CODE[x.dtype], amax.data_ptr(), xq.data_ptr(), B * H, W, C, cp,
-                             build.stream_ptr(x.device))
-    build.check(lib, rc, "act_quantize")
-    act_quantize.launches += 1
+    tail = (_DTYPE_CODE[x.dtype], amax.data_ptr(), xq.data_ptr(), B * H, W, C, cp, build.stream_ptr(x.device))
+    if halo is None:
+        rc = lib.quantize_launch(x.data_ptr(), *tail)
+        build.check(lib, rc, what)
+        act_quantize.launches += 1
+    else:
+        rc = lib.quantize_halo_launch(x.data_ptr(), halo[0].data_ptr(), halo[1].data_ptr(), *tail)
+        build.check(lib, rc, what)
+        act_quantize_halo.launches += 1
     return xq
 
 
@@ -250,8 +307,9 @@ def ring_conv_s8(xq: torch.Tensor, amax: torch.Tensor, packed, bias, out_dtype: 
     return y
 
 
-def _launch(x, kernel, packed, bias, out_dtype, amax=None) -> torch.Tensor:
-    """The CUDA route: absmax (unless given) -> quantize -> s8 conv."""
+def _launch(x, kernel, packed, bias, out_dtype, amax=None, width=None) -> torch.Tensor:
+    """The CUDA route: absmax (unless given) -> quantize -> s8 conv; under
+    a width axis the absmax over the group and the halo'd quantize."""
     _check(x, "ring_conv_w8a8")
     if x.dim() != 4:
         raise ValueError(f"ring_conv_w8a8: expected NHWC x, got shape {tuple(x.shape)}")
@@ -268,10 +326,11 @@ def _launch(x, kernel, packed, bias, out_dtype, amax=None) -> torch.Tensor:
         if t.device != x.device:
             raise ValueError(f"ring_conv_w8a8: operands on {t.device} and {x.device}")
     if amax is None:
-        amax = act_absmax(x)
+        amax = act_absmax(x, width)
     else:
         _check_amax(amax, x, "ring_conv_w8a8")
-    return ring_conv_s8(act_quantize(x, amax), amax, (wq, ks), bias, out_dtype)
+    halo = halo_exchange(x, 1, 1, width) if sharded(width) else None
+    return ring_conv_s8(act_quantize(x, amax, halo=halo), amax, (wq, ks), bias, out_dtype)
 
 
 def _no_grad(*tensors) -> None:
@@ -283,19 +342,25 @@ def _no_grad(*tensors) -> None:
 
 
 def ring_conv_w8a8(x, kernel, bias, out_dtype: Optional[torch.dtype] = None, packed=None,
-                   amax: Optional[torch.Tensor] = None) -> torch.Tensor:
+                   amax: Optional[torch.Tensor] = None, width=None) -> torch.Tensor:
     """3x3 ring conv in W8A8, NHWC: x (B, H, W, C) fp32 or bf16, kernel (3,
     3, C, F) HWIO (the fp32 master), bias (F,) or None; the output in
     ``out_dtype`` (x's dtype when None). On the CUDA route (absmax ->
     quantize -> s8 conv), ``packed`` is ``pack_weight(kernel)`` kept by the
     caller (packed here otherwise) and ``amax`` x's ``act_absmax`` when the
     caller has it (launched here otherwise); the plain version takes both
-    from x and kernel."""
+    from x and kernel. ``width``: the ``World`` whose width group holds the
+    image's other columns (the module docstring)."""
     _no_grad(x, kernel, bias)
     out_dtype = out_dtype or x.dtype
-    if x.device.type == "cpu":
+    if x.device.type != "cpu":
+        return _launch(x, kernel, packed, bias, out_dtype, amax, width)
+    if not sharded(width):
         return ring_conv_w8a8_plain(x, kernel, bias, out_dtype)
-    return _launch(x, kernel, packed, bias, out_dtype, amax)
+    # under a width axis the plain versions of the three steps
+    amax = act_absmax(x, width) if amax is None else amax
+    xq = act_quantize(x, amax, halo=halo_exchange(x, 1, 1, width))
+    return ring_conv_s8(xq, amax, pack_weight(kernel), bias, out_dtype)
 
 
 def w8a8_accumulators(x, kernel, packed=None) -> torch.Tensor:
@@ -311,3 +376,4 @@ def w8a8_accumulators(x, kernel, packed=None) -> torch.Tensor:
 ring_conv_w8a8.launches = 0
 act_absmax.launches = 0
 act_quantize.launches = 0
+act_quantize_halo.launches = 0

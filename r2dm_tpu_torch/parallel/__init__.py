@@ -11,9 +11,10 @@ from .mesh import (
     init,
     parse_mesh,
 )
-from .width import all_reduce_sum_, gather_columns, halo_exchange, shard_columns, sharded
+from .width import all_reduce_max_bits_, all_reduce_sum_, gather_columns, halo_exchange, shard_columns, sharded
 
 __all__ = [
-    "World", "all_gather_objects", "all_reduce_sum_", "any_rank", "broadcast_object", "check_mesh_shape",
-    "gather_columns", "gather_objects", "halo_exchange", "init", "parse_mesh", "shard_columns", "sharded",
+    "World", "all_gather_objects", "all_reduce_max_bits_", "all_reduce_sum_", "any_rank", "broadcast_object",
+    "check_mesh_shape", "gather_columns", "gather_objects", "halo_exchange", "init", "parse_mesh", "shard_columns",
+    "sharded",
 ]

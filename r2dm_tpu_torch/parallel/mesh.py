@@ -27,8 +27,8 @@ and the mesh is the process group:
   seeds.
 - ``parse_mesh`` (the CLIs' ``--mesh``) keeps the JAX function's checks and
   messages: ``'N'`` or ``'DxW'`` must multiply to the world size.
-  ``check_mesh_shape`` (``training.mesh_shape``) does the same for the
-  trainer, where a width axis over one still exits (``WIDTH_TRAINING_ITEM``).
+  ``check_mesh_shape`` (``training.mesh_shape``, a tuple) does the same for
+  the trainer, with ValueErrors; ``init(device, mesh=shape)`` takes either.
 """
 
 from __future__ import annotations
@@ -43,9 +43,7 @@ import torch
 import torch.distributed as dist
 
 WIDTH_AXIS_ITEM = "ROADMAP.md queue 1, parallelism (width axis)"
-# what still exits or raises under a width axis over one, each its own item
-WIDTH_TRAINING_ITEM = f"{WIDTH_AXIS_ITEM}: training"
-WIDTH_INT8_ITEM = f"{WIDTH_AXIS_ITEM}: the int8 lane"
+# what still raises under a width axis over one
 WIDTH_REFINENET_ITEM = f"{WIDTH_AXIS_ITEM}: RefineNet"
 
 
@@ -95,11 +93,16 @@ def _launched() -> bool:
 
 def init(device="cuda", mesh=None, batch_size: Optional[int] = None) -> World:
     """This process's ``World``: the caller's group, torchrun's, or none;
-    with ``mesh`` (a ``--mesh`` spec, ``parse_mesh``), laid out on it, the
-    width groups built. A mesh that does not fit exits."""
+    with ``mesh`` laid out on it, the width groups built. ``mesh`` is a
+    ``--mesh`` spec (``parse_mesh``: a mesh that does not fit exits) or a
+    ``training.mesh_shape`` tuple (``check_mesh_shape``: it raises)."""
     world = _join(device)
     try:
-        shape = parse_mesh(mesh, world.size, batch_size)
+        if isinstance(mesh, (tuple, list)):
+            check_mesh_shape(mesh, world.size)
+            shape = tuple(int(s) for s in mesh)
+        else:
+            shape = parse_mesh(mesh, world.size, batch_size)
         if shape is not None and len(shape) == 2 and shape[1] > 1:
             _build_width_groups(world, shape[1])
     except BaseException:
@@ -230,16 +233,12 @@ def parse_mesh(spec, world_size: int, batch_size: Optional[int] = None) -> Optio
 
 def check_mesh_shape(mesh_shape, world_size: int) -> None:
     """``training.mesh_shape`` under the rules of ``parse_mesh``: None puts
-    every rank on the data axis; anything else must match the world. A
-    width axis over one raises: the trainer runs the data axis only."""
+    every rank on the data axis; (N,) or (D, W) must match the world."""
     if mesh_shape is None:
         return
     shape = tuple(int(s) for s in mesh_shape)
     if len(shape) not in (1, 2) or not all(s > 0 for s in shape):
         raise ValueError(f"training.mesh_shape={mesh_shape}: expected (N,) or (D, W) with positive ints")
-    if len(shape) == 2 and shape[1] > 1:
-        raise ValueError(f"training.mesh_shape={mesh_shape} shards the width axis (W = {shape[1]}), which the "
-                         f"trainer does not run yet ({WIDTH_TRAINING_ITEM})")
     msg = _mesh_error(shape, world_size)
     if msg is not None:
         raise ValueError(f"training.mesh_shape={mesh_shape} {msg}")

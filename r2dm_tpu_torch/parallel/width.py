@@ -12,7 +12,21 @@ width group of a ``World`` (``mesh.py``; rank ``w`` of a group holds columns
 - ``halo_exchange``: the left neighbour's last columns and the right
   neighbour's first, the ring wrapping across ranks (rank 0's left
   neighbour is rank W-1), from one ``all_gather`` of the two edge strips;
-- ``all_reduce_sum_``: a sum over the width group, in place.
+- ``all_reduce_sum_``: a sum over the width group, in place;
+- ``all_reduce_max_bits_``: the maximum over the width group of a float's
+  bits as int32 (a NaN as the quiet NaN above +inf, so it survives).
+
+``gather_columns`` and ``halo_exchange`` are differentiable: each backward
+is its forward's adjoint, and so gives each rank the gradient of its own
+columns, with every other rank's share of it added. The adjoint of the
+gather sums each rank's gradient of the whole image over the group (an
+all_reduce in fp32, whatever the dtype) and keeps the rank's columns. The
+adjoint of the exchange sends the gradient of the received left strip back
+to the left neighbour, which adds it to its last columns, and the right
+strip's to the right neighbour's first columns, from one ``all_gather`` of
+the two gradient strips (with W = 2 both neighbours are one rank, which
+adds both). ``all_reduce_sum_`` is not differentiable: a caller that sums
+under autograd writes the adjoint out (``ops/gn_silu.py``).
 
 The W axis is dim 2 of NHWC (the default) and dim 3 of NCHW. Tensors cross
 the group as raw bytes, so any dtype arrives bit for bit. Nothing is copied
@@ -58,20 +72,34 @@ def shard_columns(x: torch.Tensor, world: World, dim: int = 2) -> torch.Tensor:
     return x.narrow(dim, world.width_rank * (W // n), W // n).contiguous()
 
 
+class _GatherColumns(torch.autograd.Function):
+    """``gather_columns`` under autograd; its backward the adjoint."""
+
+    @staticmethod
+    def forward(ctx, x, world, dim):
+        ctx.world, ctx.dim, ctx.width = world, dim, x.shape[dim]
+        return torch.cat(_all_gather(x, world), dim=dim)
+
+    @staticmethod
+    def backward(ctx, dy):
+        world, dim = ctx.world, ctx.dim
+        total = all_reduce_sum_(dy.to(torch.float32, memory_format=torch.contiguous_format, copy=True), world)
+        own = total.narrow(dim, world.width_rank * ctx.width, ctx.width)
+        return own.to(dy.dtype).contiguous(), None, None
+
+
 def gather_columns(x: torch.Tensor, world: World, dim: int = 2) -> torch.Tensor:
-    """The full-width tensor from every width rank's columns, in order."""
+    """The full-width tensor from every width rank's columns, in order;
+    differentiable (the module docstring)."""
     if not sharded(world):
         return x
-    return torch.cat(_all_gather(x, world), dim=dim)
+    return _GatherColumns.apply(x, world, dim)
 
 
-def halo_exchange(x: torch.Tensor, left: int, right: int, world: World, dim: int = 2):
+def _edge_strips(x: torch.Tensor, left: int, right: int, world: World, dim: int):
     """(the left neighbour's last ``left`` columns, the right neighbour's
-    first ``right`` columns) of ``x`` along ``dim``, each contiguous, from
-    one all_gather of this rank's two edge strips."""
+    first ``right``) from one all_gather of this rank's two edge strips."""
     Wl = x.shape[dim]
-    if left > Wl or right > Wl:
-        raise ValueError(f"a halo of ({left}, {right}) columns needs at least that many a rank, have {Wl}")
     edges = torch.cat([x.narrow(dim, 0, right), x.narrow(dim, Wl - left, left)], dim=dim)
     parts = _all_gather(edges, world)
     w, n = world.width_rank, world.width_size
@@ -79,10 +107,64 @@ def halo_exchange(x: torch.Tensor, left: int, right: int, world: World, dim: int
             parts[(w + 1) % n].narrow(dim, 0, right).contiguous())
 
 
+class _HaloExchange(torch.autograd.Function):
+    """``halo_exchange`` under autograd; its backward the adjoint: this
+    rank's received strips' gradients go back to where the strips came
+    from, and the neighbours' come here."""
+
+    @staticmethod
+    def forward(ctx, x, left, right, world, dim):
+        ctx.args = (left, right, world, dim, x.shape[dim])
+        return _edge_strips(x, left, right, world, dim)
+
+    @staticmethod
+    def backward(ctx, d_left, d_right):
+        left, right, world, dim, Wl = ctx.args
+        parts = _all_gather(torch.cat([d_left, d_right], dim=dim), world)
+        w, n = world.width_rank, world.width_size
+        shape = list(d_left.shape)
+        shape[dim] = Wl
+        dx = d_left.new_zeros(shape)
+        # the right neighbour's d_left is the gradient of this rank's last
+        # `left` columns, the left neighbour's d_right of its first `right`
+        dx.narrow(dim, Wl - left, left).add_(parts[(w + 1) % n].narrow(dim, 0, left))
+        dx.narrow(dim, 0, right).add_(parts[(w - 1) % n].narrow(dim, left, right))
+        return dx, None, None, None, None
+
+
+def halo_exchange(x: torch.Tensor, left: int, right: int, world: World, dim: int = 2):
+    """(the left neighbour's last ``left`` columns, the right neighbour's
+    first ``right`` columns) of ``x`` along ``dim``, each contiguous, from
+    one all_gather of this rank's two edge strips; differentiable (the
+    module docstring)."""
+    Wl = x.shape[dim]
+    if left > Wl or right > Wl:
+        raise ValueError(f"a halo of ({left}, {right}) columns needs at least that many a rank, have {Wl}")
+    return _HaloExchange.apply(x, left, right, world, dim)
+
+
 def all_reduce_sum_(t: torch.Tensor, world: World) -> torch.Tensor:
     """``t`` summed over the width group, in place; returns ``t``."""
     t0 = time.perf_counter()
     dist.all_reduce(t, op=dist.ReduceOp.SUM, group=world.width_group)
+    world.collective_seconds += time.perf_counter() - t0
+    world.collective_calls += 1
+    return t
+
+
+QUIET_NAN_BITS = 0x7FC00000  # above +inf (0x7f800000) as an int32
+
+
+def all_reduce_max_bits_(t: torch.Tensor, world: World) -> torch.Tensor:
+    """The maximum over the width group of the non-negative fp32 ``t``, in
+    place, reduced on its bits as int32 (the order of non-negative floats
+    is the order of their bits): exact, and a NaN on any rank, mapped to
+    the quiet NaN above +inf, gives a NaN on every rank, where a float MAX
+    may drop it. Returns ``t``."""
+    bits = t.view(torch.int32)
+    bits.masked_fill_(t.isnan(), QUIET_NAN_BITS)
+    t0 = time.perf_counter()
+    dist.all_reduce(bits, op=dist.ReduceOp.MAX, group=world.width_group)
     world.collective_seconds += time.perf_counter() - t0
     world.collective_calls += 1
     return t

@@ -39,15 +39,30 @@ step: the counterpart of the JAX trainer's ``consensus_any``. With dropout
 > 0 every rank draws its dropout masks from the same generator after the
 global draws, so the masks are not a single process's.
 
+``--training.mesh_shape D,W`` on D·W processes adds the width axis (the JAX
+trainer's GSPMD sharding of W, r2dm_tpu/training/step.py:117-128): rank
+``d*W + w`` holds columns ``[w*Wimg/W, (w+1)*Wimg/W)`` of its data group's
+rows (``parallel/mesh.py``). The W ranks of a data group load the same rows
+(``process_index=world.data_index``); x_0 and the noise are the whole
+image's, drawn as one rank draws them, and cut to the rank's columns; the
+timesteps are shared, and so are the dropout masks, drawn for the whole
+image and cut alike. The model runs ``set_width_shard`` on the world (the
+halo'd conv and the split GroupNorm forward and backward, the differentiable
+halo exchange and key/value gather); each rank's loss and gradients are its
+columns' share, and instead of DDP the step sums the gradients over the
+world and divides by D (``training/step.py``). The EMA copy stays
+whole-image, taken before the model is sharded, so rank 0 samples its
+panels alone. The logged loss is the global batch's: a width sum, then a
+data mean.
+
 Options of the JAX trainer that this one leaves out or ignores:
 - ``max_host_rss_gb``: ignored; the JAX trainer restarts itself to escape a
   TPU runtime's host-memory retention, which has no counterpart here;
 - ``width_merge_l1``: passed to ``build_model`` for an EfficientUNet, as
   the JAX trainer does; the network then runs level 1 on the NHWC kernels
   (``EfficientUNet``), with the same parameters, math and checkpoints;
-- ``mesh_shape`` with a width axis over one: raises (ROADMAP.md queue 1,
-  parallelism (width axis): training); a data axis must equal the world
-  size;
+- ``mesh_shape``: (N,) or (D, W) must multiply to the world size (one
+  process per card), where the JAX trainer takes a mesh over its devices;
 - ``gn_bf16``: the JAX package computes the GroupNorm FMA + SiLU pass in
   bf16 when it is set (the default); the port's kernel computes it in fp32
   and rounds once, about one bf16 ulp apart (ROADMAP, North star).
@@ -73,6 +88,7 @@ from .data import DataLoader, make_dataset, preprocess_batch
 from .diffusion.base import normal
 from .inference import build_diffusion, build_model, count_parameters, model_coords
 from .lidar import LiDARUtility
+from .models.layers import set_width_shard
 from .training import EMAConfig, init_train_state, make_optimizer, make_train_step, schedule_lr, set_schedule_step
 from .utils.logging import MetricLogger, save_image_panels
 from .utils.weights import from_jax
@@ -111,13 +127,15 @@ _NO_BUFFER_SYNC = ({"forward_sync_buffers": False}
                    else {"broadcast_buffers": False})
 
 
-def _rank_draws(diffusion, generator: torch.Generator, global_batch: int, x_0: torch.Tensor, rank: int):
+def _rank_draws(diffusion, generator: torch.Generator, global_batch: int, x_0: torch.Tensor,
+                world: parallel.World):
     """This rank's rows of the global batch's timesteps and noise, drawn in
-    the order ``diffusion.loss`` draws them."""
+    the order ``diffusion.loss`` draws them; the noise of the whole image
+    (``x_0``'s), cut to the rank's columns under a width axis."""
     steps = diffusion.sample_timesteps(global_batch, generator, x_0.device)
     noise = normal(generator, (global_batch, *x_0.shape[1:]), x_0.device)
-    rows = slice(rank * x_0.shape[0], (rank + 1) * x_0.shape[0])
-    return steps[rows], noise[rows]
+    rows = slice(world.data_index * x_0.shape[0], (world.data_index + 1) * x_0.shape[0])
+    return steps[rows], parallel.shard_columns(noise[rows], world)
 
 
 def resume(state, path: str) -> int:
@@ -142,7 +160,7 @@ def resume(state, path: str) -> int:
 def train(cfg: config_lib.Config, device="cuda"):
     """Run the training loop on this process's rank of the data axis (the
     whole of it without a process group); returns the final ``TrainState``."""
-    world = parallel.init(device)
+    world = parallel.init(device, mesh=cfg.training.mesh_shape)
     try:
         return _train(cfg, world)
     finally:
@@ -152,7 +170,6 @@ def train(cfg: config_lib.Config, device="cuda"):
 def _train(cfg: config_lib.Config, world: parallel.World):
     device = world.device
     tcfg = cfg.training
-    parallel.check_mesh_shape(tcfg.mesh_shape, world.size)
     parallel.any_rank(world, False)  # the side group's first round trip, while the ranks are aligned
     is_main = world.is_main
     out_dir = tcfg.output_dir
@@ -188,13 +205,16 @@ def _train(cfg: config_lib.Config, world: parallel.World):
         start_step = resume(state, tcfg.resume)
         if is_main:
             print(f"resumed from {tcfg.resume} at step {start_step}")
+    # after the EMA copy, which stays whole-image and out of the wrapper
+    width = world if parallel.sharded(world) else None
+    set_width_shard(model, width)
     ddp = None
-    if world.distributed:  # after the EMA copy: the wrapper stays out of it
+    if world.distributed and width is None:
         ddp = torch.nn.parallel.DistributedDataParallel(
             model, device_ids=[device.index] if device.type == "cuda" else None, **_NO_BUFFER_SYNC)
     train_step = make_train_step(
         diffusion, optimizer, scheduler, EMAConfig(beta=tcfg.ema_decay, update_every=tcfg.ema_update_every),
-        grad_dtype=torch.bfloat16 if tcfg.grad_bf16 else None, ddp=ddp,
+        grad_dtype=torch.bfloat16 if tcfg.grad_bf16 else None, ddp=ddp, width=width,
     )
     ema_diffusion = build_diffusion(cfg, state.ema_model)
 
@@ -251,8 +271,8 @@ def _train(cfg: config_lib.Config, world: parallel.World):
             )
             g = step_generator(tcfg.seed, global_step, device)
             if world.distributed:
-                steps, noise = _rank_draws(diffusion, g, tcfg.batch_size_train, x_0, world.data_index)
-                metrics = train_step(state, x_0, g, steps=steps, noise=noise)
+                steps, noise = _rank_draws(diffusion, g, tcfg.batch_size_train, x_0, world)
+                metrics = train_step(state, parallel.shard_columns(x_0, world), g, steps=steps, noise=noise)
             else:
                 metrics = train_step(state, x_0, g)
             global_step += 1
@@ -266,7 +286,7 @@ def _train(cfg: config_lib.Config, world: parallel.World):
                 print(f"profile trace written to {tcfg.profile_dir}")
 
             if global_step % 50 == 0 or global_step == 1:
-                if world.distributed:  # the global batch's mean loss
+                if world.distributed:  # the global batch's loss: the width shares summed, the data mean
                     metrics["loss"] = metrics["loss"].clone()
                     torch.distributed.all_reduce(metrics["loss"])
                     metrics["loss"] /= world.data_size

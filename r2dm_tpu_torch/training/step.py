@@ -24,6 +24,16 @@ the whole backward and the gradients are in that type, and the gradients
 are cast to the fp32 masters' ``.grad`` only for the update. The copy
 rounds every parameter as JAX's cast does, GroupNorm's gain and shift
 included (the model's own forward hands them to the kernel in fp32).
+
+Under a width axis (``width``: a ``World`` whose width group splits each
+image's columns, the model ``set_width_shard`` on it) each rank's loss and
+backward give its columns' share of every parameter gradient; DDP, which
+averages over every rank, would divide those shares by D·W. So the step
+sums the gradients over the whole world in one flat all-reduce and divides
+by the data size D: the width sum of the shares, then the data mean (the
+``grad_bf16`` path's all-reduce, in the gradients' dtype). It runs on every
+call, accumulating or not, and before the clip, so every rank clips the
+same gradient.
 """
 
 from __future__ import annotations
@@ -62,8 +72,16 @@ def init_train_state(model: torch.nn.Module, optimizer, scheduler, accumulation_
     return TrainState(model.train(), ema_model, optimizer, scheduler, 0, accumulation_steps, 0, 0, acc)
 
 
+def _all_reduce_mean(grads: list, group, divisor: int) -> list:
+    """``grads`` summed over ``group`` in one flat all-reduce and divided by
+    ``divisor``, in their dtype; the pieces of the flat tensor, in order."""
+    flat = torch.cat([g.reshape(-1) for g in grads]).div_(divisor)
+    dist.all_reduce(flat, group=group)
+    return [t.view(g.shape) for t, g in zip(flat.split([g.numel() for g in grads]), grads)]
+
+
 def make_train_step(diffusion, optimizer, scheduler, ema_cfg: EMAConfig, grad_dtype: Optional[torch.dtype] = None,
-                    ddp: Optional[torch.nn.Module] = None):
+                    ddp: Optional[torch.nn.Module] = None, width=None):
     """``train_step(state, x_0, generator, loss_mask=None, steps=None,
     noise=None) -> {loss, grad_norm, ema_decay}``.
 
@@ -84,7 +102,13 @@ def make_train_step(diffusion, optimizer, scheduler, ema_cfg: EMAConfig, grad_dt
     ``grad_dtype`` the loss runs on the low-precision copy, which DDP's
     hooks never see: those gradients are averaged over ``ddp.process_group``
     explicitly, in ``grad_dtype``, as XLA's psum sums the JAX step's bf16
-    gradient tree."""
+    gradient tree.
+
+    ``width``: the ``World`` of a width axis over more than one rank (the
+    module docstring), in place of ``ddp``: the gradients are summed over
+    the world and divided by its data size after every backward."""
+    if ddp is not None and width is not None:
+        raise ValueError("a width axis sums the gradients itself: pass ddp or width, not both")
 
     def loss_of(net, x_0, generator, loss_mask, steps, noise):
         model_kwargs = {"generator": generator}
@@ -102,13 +126,20 @@ def make_train_step(diffusion, optimizer, scheduler, ema_cfg: EMAConfig, grad_dt
         loss = loss_of(net, *args)
         grads = torch.autograd.grad(loss, list(cast.values()))
         if ddp is not None:
-            world = dist.get_world_size(ddp.process_group)
-            flat = torch.cat([g.reshape(-1) for g in grads]).div_(world)
-            dist.all_reduce(flat, group=ddp.process_group)
-            grads = flat.split([g.numel() for g in grads])
+            grads = _all_reduce_mean(grads, ddp.process_group, dist.get_world_size(ddp.process_group))
+        elif width is not None:
+            grads = _all_reduce_mean(grads, None, width.data_size)
         for (_, p), g in zip(named, grads):
             p.grad = g.reshape(p.shape).to(p.dtype)
         return loss
+
+    def width_reduce(state: TrainState) -> None:
+        """The width axis's reduction of the gradients, in place (every rank
+        runs the same network, so every rank has gradients of the same
+        parameters)."""
+        params = [p for p in state.model.parameters() if p.grad is not None]
+        for p, g in zip(params, _all_reduce_mean([p.grad for p in params], None, width.data_size)):
+            p.grad = g
 
     def accumulate(state: TrainState, params: list) -> torch.Tensor:
         """optax MultiSteps.update: the running mean, and on the k-th call
@@ -140,6 +171,8 @@ def make_train_step(diffusion, optimizer, scheduler, ema_cfg: EMAConfig, grad_dt
         if grad_dtype is None:
             loss = loss_of(ddp if ddp is not None else state.model, *args)
             loss.backward()
+            if width is not None:
+                width_reduce(state)
         else:
             loss = low_precision_backward(state, *args)
         if state.accumulation_steps == 1:

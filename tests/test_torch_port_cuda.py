@@ -142,7 +142,8 @@ def test_residual_block_writes_the_activation_once(dev, monkeypatch):
         y = blk(x, emb)
     launched = {fn.__name__: fn.launches - before[fn.__name__] for fn in ops.KERNEL_WRAPPERS}
     assert launched == {"fused_group_norm_silu": 2, "fused_act_ringconv": 2, "ring_conv_w8a8": 0,
-                        "act_absmax": 0, "act_quantize": 0, "act_ringconv_halo": 0, "gn_stats": 0, "gn_apply": 0}
+                        "act_absmax": 0, "act_quantize": 0, "act_ringconv_halo": 0, "gn_stats": 0, "gn_apply": 0,
+                        "act_quantize_halo": 0}
     monkeypatch.setattr(layers, "fused_group_norm_silu", gn_silu.fused_group_norm_silu_plain)
     monkeypatch.setattr(layers, "fused_act_ringconv", act_ringconv.act_ringconv_plain)
     with torch.no_grad():

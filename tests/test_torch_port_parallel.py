@@ -1,7 +1,8 @@
 """The port's data axis across processes, on the CPU: gloo ranks in
 subprocesses against one process at the same global batch, for the trainer
-(plain, accumulating, bf16 gradients), the stop consensus, sample_and_save
-and evaluate; and the mesh checks, which have no fallback.
+(plain, accumulating, bf16 gradients, and on a (data, width) mesh), the
+stop consensus, sample_and_save and evaluate; and the mesh checks, which
+have no fallback.
 
 Each rank is a subprocess with a deadline (``RANK_TIMEOUT_S``) and a
 ``init_process_group`` timeout of a minute, so a rank that hangs fails its
@@ -11,6 +12,7 @@ runs through the same script without a group, with the same thread count.
 """
 
 import json
+import math
 import os
 import signal
 import subprocess
@@ -151,33 +153,44 @@ def _same_checkpoint_trees(got, ref, rtol, atol_of):
 # gradients the ranks sum bf16 halves where one process rounds the whole
 # gradient once, a bf16 step apart: the metrics and the optimizer state get
 # 2e-2, and the parameters an atol of lr, since an entry within a bf16 step
-# of 0 may flip the sign of its Adam update (0.036 lr measured).
+# of 0 may flip the sign of its Adam update (0.036 lr measured). On a
+# (data, width) mesh (1x2: two ranks, each 64 of the 128 columns; 2x2: four;
+# accumulating too) the plain case's tolerances: the width ranks' gradient
+# shares summed over the world in fp32, in another order.
 CASES = {
     "plain": ([], 1e-5, 1e-4 * LR, 1e-5),
     "accumulating": (["--training.gradient_accumulation_steps", "2"], 1e-5, 1e-4 * LR, 1e-5),
     "grad_bf16": (["--training.mixed_precision", "bf16", "--training.grad_bf16", "true"], 2e-2, LR, 2e-2),
+    "mesh_1x2": (["--training.mesh_shape", "1,2"], 1e-5, 1e-4 * LR, 1e-5),
+    "mesh_2x2": (["--training.mesh_shape", "2,2"], 1e-5, 1e-4 * LR, 1e-5),
+    "mesh_1x2_accumulating": (["--training.mesh_shape", "1,2", "--training.gradient_accumulation_steps", "2"], 1e-5,
+                              1e-4 * LR, 1e-5),
 }
 
 
 @pytest.mark.parametrize("case", list(CASES))
 def test_two_ranks_train_as_one(tmp_path, case):
     """Two gloo ranks of ``python -m r2dm_tpu_torch.train`` at global batch
-    8 (4 a rank) for 3 steps against one process at batch 8: metrics.jsonl,
-    the checkpoint's weights, EMA and optimizer state. Only rank 0 writes
-    (rank 1 is given its own output directory, which stays absent), and the
-    checkpoint has no ``module.`` keys: the JAX trainer's resume path
-    (restore_opt_state into its optax chain) reads it."""
+    8 (4 a rank) for 3 steps against one process at batch 8 (on a mesh, its
+    D·W ranks): metrics.jsonl, the checkpoint's weights, EMA and optimizer
+    state. Only rank 0 writes (the other ranks are given their own output
+    directories, which stay absent), and the checkpoint has no ``module.``
+    keys: the JAX trainer's resume path (restore_opt_state into its optax
+    chain) reads it."""
     flags, rtol, atol_w, atol_opt = CASES[case]
     env = {"R2DM_SYNTH_SCANS": "8"}
+    mesh = flags[:1] == ["--training.mesh_shape"]
+    n = math.prod(int(v) for v in flags[1].split(",")) if mesh else 2
 
-    def argv(out):
+    def argv(out, flags=flags):
         return TINY_FLAGS + flags + ["--training.num_steps", "3", "--training.output_dir", str(out)]
 
-    one, two, other = tmp_path / "one", tmp_path / "two", tmp_path / "rank1"
-    run(tmp_path, "r2dm_tpu_torch.train", [argv(one)], env=env)
-    outs = run(tmp_path, "r2dm_tpu_torch.train", [argv(two), argv(other)], env=env)
-    assert "done: 3 steps" in outs[0] and "done:" not in outs[1]
-    assert not other.exists()
+    one, two = tmp_path / "one", tmp_path / "two"
+    others = [tmp_path / f"rank{r}" for r in range(1, n)]
+    run(tmp_path, "r2dm_tpu_torch.train", [argv(one, flags[2:] if mesh else flags)], env=env)
+    outs = run(tmp_path, "r2dm_tpu_torch.train", [argv(two)] + [argv(o) for o in others], env=env)
+    assert "done: 3 steps" in outs[0] and not any("done:" in o for o in outs[1:])
+    assert not any(o.exists() for o in others)
     assert sorted(p.name for p in two.iterdir()) == sorted(p.name for p in one.iterdir())
 
     m1, m2 = (json.loads((d / "metrics.jsonl").read_text()) for d in (one, two))
@@ -351,12 +364,13 @@ def test_parse_mesh_takes_the_data_axis(spec, world, shape):
 
 @pytest.mark.parametrize("shape,match", [
     ((2,), "needs 2 devices, have 1"),
-    ((1, 2), r"ROADMAP.md queue 1, parallelism \(width axis\): training"),
+    ((1, 2), "needs 2 devices, have 1"),
     ((1, 1, 1), "expected"),
 ])
 def test_mesh_shape_errors_stop_the_trainer(tmp_path, shape, match):
-    """training.mesh_shape under parse_mesh's rules, before anything is
-    built; None and (1,) / (1, 1) train on one process."""
+    """training.mesh_shape under parse_mesh's rules, a width axis too,
+    before anything is built; None and (1,) / (1, 1) train on one
+    process."""
     with pytest.raises(ValueError, match=match):
         parallel.check_mesh_shape(shape, 1)
     flags = TINY_FLAGS + ["--training.mesh_shape", ",".join(map(str, shape)),

@@ -72,7 +72,8 @@ def test_one_rank_nccl_ddp_residual_block_gradients_equal_the_plain_block(dev, t
         assert {fn.__name__: fn.launches for fn in ops.KERNEL_WRAPPERS} == {
             "fused_group_norm_silu": 4, "fused_act_ringconv": 8,  # 2 GN and 2 + 2 conv a block
             "ring_conv_w8a8": 0, "act_absmax": 0, "act_quantize": 0, "act_ringconv_halo": 0, "gn_stats": 0,
-            "gn_apply": 0}
+            "gn_apply": 0,
+            "act_quantize_halo": 0}
         for (name, p), q in zip(block.named_parameters(), plain.parameters()):
             assert p.grad is not None and torch.equal(p.grad, q.grad), name
     finally:
@@ -106,7 +107,8 @@ def test_grad_bf16_step_runs_both_kernels(dev):
 
     metrics, launches, grads = grads_of_one_step()
     assert launches == {"fused_group_norm_silu": 50, "fused_act_ringconv": 96, "ring_conv_w8a8": 0,
-                        "act_absmax": 0, "act_quantize": 0, "act_ringconv_halo": 0, "gn_stats": 0, "gn_apply": 0}
+                        "act_absmax": 0, "act_quantize": 0, "act_ringconv_halo": 0, "gn_stats": 0, "gn_apply": 0,
+                        "act_quantize_halo": 0}
     assert torch.isfinite(metrics["loss"]) and torch.isfinite(metrics["grad_norm"])
     saved = {n: getattr(layers, n) for n in ("fused_group_norm_silu", "fused_act_ringconv")}
     try:
@@ -117,7 +119,8 @@ def test_grad_bf16_step_runs_both_kernels(dev):
         for n, fn in saved.items():
             setattr(layers, n, fn)
     assert plain_launches == {"fused_group_norm_silu": 0, "fused_act_ringconv": 0, "ring_conv_w8a8": 0,
-                              "act_absmax": 0, "act_quantize": 0, "act_ringconv_halo": 0, "gn_stats": 0, "gn_apply": 0}
+                              "act_absmax": 0, "act_quantize": 0, "act_ringconv_halo": 0, "gn_stats": 0, "gn_apply": 0,
+                              "act_quantize_halo": 0}
     flat, flat_plain = (torch.cat([gr.flatten() for gr in gs]) for gs in (grads, plain_grads))
     rel = ((flat - flat_plain).norm() / flat_plain.norm()).item()
     assert rel <= TRAIN_REL_L2, rel

@@ -266,9 +266,9 @@ def _port_lane_run(net, x, cond, monkeypatch, site=None):
     replaces each call's input."""
     meta, real = [], quant.ring_conv_w8a8
 
-    def counted(x, kernel, bias, out_dtype=None, packed=None):
+    def counted(x, kernel, bias, out_dtype=None, packed=None, width=None):
         x = site(x) if site else x
-        y = real(x, kernel, bias, out_dtype, packed)
+        y = real(x, kernel, bias, out_dtype, packed, width=width)
         meta.append((tuple(x.shape), str(x.dtype).split(".")[-1], str(y.dtype).split(".")[-1]))
         return y
 
@@ -327,8 +327,8 @@ def test_every_lane_site_equals_jax_on_its_input(tiny_pair, jax_lane, monkeypatc
     real = quant.ring_conv_w8a8
     got_sites = []
 
-    def recorded(x, kernel, bias, out_dtype=None, packed=None):
-        y = real(x, kernel, bias, out_dtype, packed)
+    def recorded(x, kernel, bias, out_dtype=None, packed=None, width=None):
+        y = real(x, kernel, bias, out_dtype, packed, width=width)
         got_sites.append(y.numpy())
         return y
 

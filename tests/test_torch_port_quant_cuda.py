@@ -116,7 +116,8 @@ def test_one_quantized_conv_is_three_launches(dev):
     quant.ring_conv_w8a8(x, k, None, packed=packed)
     assert {fn.__name__: fn.launches for fn in ops.KERNEL_WRAPPERS} == {
         "fused_group_norm_silu": 0, "fused_act_ringconv": 0, "ring_conv_w8a8": 1, "act_absmax": 1,
-        "act_quantize": 1, "act_ringconv_halo": 0, "gn_stats": 0, "gn_apply": 0}
+        "act_quantize": 1, "act_ringconv_halo": 0, "gn_stats": 0, "gn_apply": 0,
+        "act_quantize_halo": 0}
     quant.ring_conv_w8a8(x, k, None, packed=packed, amax=quant.act_absmax(x))  # the caller's absmax
     assert _counts() == (2, 2, 2)
 
@@ -198,11 +199,12 @@ def test_tiny_network_under_the_lane_on_the_card(dev, monkeypatch):
         torch.cuda.synchronize()
         launches = {fn.__name__: fn.launches for fn in ops.KERNEL_WRAPPERS}
         assert launches == {"fused_group_norm_silu": 18, "fused_act_ringconv": 0, "ring_conv_w8a8": 21,
-                            "act_absmax": 21, "act_quantize": 21, "act_ringconv_halo": 0, "gn_stats": 0, "gn_apply": 0}
+                            "act_absmax": 21, "act_quantize": 21, "act_ringconv_halo": 0, "gn_stats": 0, "gn_apply": 0,
+                            "act_quantize_halo": 0}
         assert packed == [m._packed[1][0].data_ptr() for m in net.modules()
                           if isinstance(m, layers.RingConv) and m.quant]
         monkeypatch.setattr(layers, "ring_conv_w8a8",
-                            lambda x, kernel, bias, out_dtype=None, packed=None:
+                            lambda x, kernel, bias, out_dtype=None, packed=None, width=None:
                             quant.ring_conv_w8a8_plain(x, kernel, bias, out_dtype))
         ref = net(x, cond)
     assert bool(torch.isfinite(y).all())

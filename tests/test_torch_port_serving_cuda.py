@@ -25,7 +25,8 @@ pytestmark = pytest.mark.cuda
 # per forward of the tiny net: 8 ResidualBlocks (2 norms, 2 convs each) and
 # 2 attention norms
 PER_FORWARD = {"fused_group_norm_silu": 18, "fused_act_ringconv": 16, "ring_conv_w8a8": 0, "act_absmax": 0,
-               "act_quantize": 0, "act_ringconv_halo": 0, "gn_stats": 0, "gn_apply": 0}
+               "act_quantize": 0, "act_ringconv_halo": 0, "gn_stats": 0, "gn_apply": 0,
+               "act_quantize_halo": 0}
 
 
 def _ddpm(timestep_type: str) -> DDPM:

@@ -160,7 +160,8 @@ def test_config_h_train_step_matches_plain_path(dev, plain_path):
     got, state = one_step(ddpm.model)
     assert {fn.__name__: fn.launches for fn in ops.KERNEL_WRAPPERS} == {
         "fused_group_norm_silu": 50, "fused_act_ringconv": 96, "ring_conv_w8a8": 0, "act_absmax": 0,
-        "act_quantize": 0, "act_ringconv_halo": 0, "gn_stats": 0, "gn_apply": 0}
+        "act_quantize": 0, "act_ringconv_halo": 0, "gn_stats": 0, "gn_apply": 0,
+        "act_quantize_halo": 0}
     plain_path()
     ref, plain_state = one_step(plain_model)
     assert abs(got["loss"].item() - ref["loss"].item()) <= 2e-2 * abs(ref["loss"].item())

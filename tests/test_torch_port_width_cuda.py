@@ -1,8 +1,8 @@
 """Card-only tests of the width axis's kernel forms: the ring conv's halo'd
-form and GroupNorm's stats + apply pair against their plain versions, with
-their launch counts, at config-H level shapes with W halved (a rank's share
-under ``--mesh 1x2``); and a one-rank width group refusing nothing it should
-run.
+form, GroupNorm's stats + apply pair and the int8 lane's halo'd quantize
+pass against their plain versions, with their launch counts, at config-H
+shapes with W halved (a rank's share under ``--mesh 1x2``); and a one-rank
+width group refusing nothing it should run.
 
 They skip without a CUDA device. This file imports no JAX, so on a machine
 with the card and without JAX it runs as
@@ -12,7 +12,7 @@ with the card and without JAX it runs as
 import pytest
 import torch
 
-from r2dm_tpu_torch.ops import act_ringconv, gn_silu
+from r2dm_tpu_torch.ops import act_ringconv, gn_silu, quant
 
 # one intra-op thread: the suite runs in several processes at once, and each
 # one's default (every core) oversubscribes the machine
@@ -89,3 +89,53 @@ def test_gn_stats_and_apply_match_their_plain_versions(dev, shape, per_batch):
     y = gn_silu.gn_apply(x, sums, H * W * (C // 8), gain, shift, 8, 1e-6, True)
     one = gn_silu.fused_group_norm_silu(x, gain, shift, 8, 1e-6, True)
     assert bool(((y.float() - one.float()).abs() <= 2e-2 + 2e-2 * one.float().abs()).all())
+
+
+def _config_h_lane_sites(dev) -> list:
+    """The distinct (H, W, C, x dtype) of the int8 lane's sites in a config-H
+    forward on the card (bf16 network), from one b1 forward."""
+    from r2dm_tpu_torch import config as config_lib
+    from r2dm_tpu_torch.inference import build_model
+    from r2dm_tpu_torch.models import layers
+
+    net = layers.set_quant_conv(build_model(config_lib.Config(), dtype=torch.bfloat16, device=dev), "w8a8")
+    sites, real = [], layers.ring_conv_w8a8
+
+    def recorded(x, kernel, bias, out_dtype=None, packed=None, width=None):
+        sites.append((*x.shape[1:], x.dtype))
+        return real(x, kernel, bias, out_dtype, packed, width=width)
+
+    layers.ring_conv_w8a8 = recorded
+    try:
+        with torch.inference_mode():
+            net(torch.zeros(1, 64, 1024, 2, device=dev), torch.zeros(1, device=dev))
+    finally:
+        layers.ring_conv_w8a8 = real
+    assert len(sites) == 53
+    return sorted(set(sites), key=str)
+
+
+def test_halo_quantize_matches_its_plain_version_at_every_site(dev):
+    """The quantize pass's halo'd form at every config-H site shape of the
+    int8 lane with W halved, b8: the s8 layout bit for bit against its
+    plain version (columns 0 and W + 1 from the strips, ties on half steps
+    to even, the padded channels zero); one launch each, counted apart from
+    the ring form's; strips that are x's own edge columns give the ring
+    form."""
+    for H, W, C, dtype in _config_h_lane_sites(dev):
+        Wl = W // 2
+        x = _randn((8, H, Wl, C), dev, 11, dtype, scale=1.5)
+        flat = x.view(-1)
+        flat[::7] = ((torch.arange(flat.numel(), device=dev) % 9 - 4) + 0.5)[::7].to(dtype)
+        flat[0] = 127.0  # the scale is then 1 in fp32, and every seventh value a tie
+        left, right = _randn((8, H, 1, C), dev, 12, dtype, scale=1.5), _randn((8, H, 1, C), dev, 13, dtype, scale=1.5)
+        left.view(-1)[::5] = 2.5
+        amax = quant.act_absmax(x)
+        counts = (quant.act_quantize.launches, quant.act_quantize_halo.launches)
+        xq = quant.act_quantize(x, amax, halo=(left, right))
+        torch.cuda.synchronize()
+        assert (quant.act_quantize.launches, quant.act_quantize_halo.launches) == (counts[0], counts[1] + 1)
+        assert tuple(xq.shape) == (8, H, Wl + 2, quant.padded_channels(C)), (H, W, C)
+        assert torch.equal(xq, quant.act_quantize_plain(x, amax, halo=(left, right))), (H, W, C, dtype)
+        own = quant.act_quantize(x, amax, halo=(x[:, :, -1:].contiguous(), x[:, :, :1].contiguous()))
+        assert torch.equal(own, quant.act_quantize(x, amax)), (H, W, C, dtype)
