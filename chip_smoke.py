@@ -137,7 +137,13 @@ bit for bit against one rank), a NaN in one rank's columns, a b8 forward
 (53 absmax + 53 halo'd quantize + 53 s8 conv and 50 + 50 GN launches a
 rank), a DDIM-4 chain and ``sample_and_save`` under R2DM_TPU_INT8 against
 one rank within WIDTH_SPREAD times the lane's kernel-vs-plain distance, and
-``bench --mesh 1x2`` under R2DM_TPU_INT8. Its kernel checks also hold the
+``bench --mesh 1x2`` under R2DM_TPU_INT8; then the LiDARGen RefineNet at
+its published width (phase 15's random weights) under ``--mesh 1x2``: a b8
+forward in fp32 (TF32 off) within REFINENET_WIDTH_FP32_REL_L2 of one rank,
+its collectives a forward (REFINENET_WIDTH_COLLECTIVES) and their host
+seconds, and the bf16 forward and a bf16 DDIM-4 chain through
+``DDPM.sample(world=)`` within WIDTH_SPREAD times one rank's bf16-vs-fp32
+distance on the same input, no hand-written launch. Its kernel checks also hold the
 halo'd conv at its dx shapes and the int8 lane's halo'd quantize pass at
 every site shape (bit for bit), each timed. Last, the width axis for
 training: one b8 loss + backward on each rank's columns against one rank's
@@ -145,7 +151,16 @@ kernel path within WIDTH_SPREAD times that path's distance from its plain
 path (96 halo'd convs and 50 + 50 GN launches a rank, the collectives'
 calls and host seconds), and ``python -m r2dm_tpu_torch.train
 --training.mesh_shape 1,2`` at config H, b8, for WIDTH_TRAIN_STEPS steps
-against one rank's trainer.
+against one rank's trainer; and the same two for the RefineNet: one bf16 b8
+loss + backward on the ranks' columns within TRAIN_REL_L2 of one rank's,
+with its collectives and peak memory a rank, and the trainer with
+``--model.architecture refinenet`` for WIDTH_TRAIN_STEPS steps (the loss
+each step within TRAIN_REL_L2, the updates within TWO_RANK_UPDATE_REL), no
+hand-written launch. Phase 17 runs ``python -m
+r2dm_tpu_torch.validate_pretrained`` on phase 4's checkpoint with phase 9's
+extractor files (``--skip_reference`` unless $R2DM_REFERENCE_DIR names the
+original PyTorch code): every stage ok, and its sample stage's exact
+launches (8 DDPM steps at b2: 400 GN + 384 conv).
 The line before the last is the kernels JSON; the last line is
 {"ok": true, "device": {...}}. Exits non-zero, printing no result, without a
 CUDA device or without the port's package.
@@ -198,6 +213,15 @@ WIDTH_SPREAD = 1.5
 # TWO_RANK_UPDATE_REL against one rank's trainer); one step's loss and
 # gradient held at WIDTH_SPREAD times one rank's kernel-vs-plain distance
 WIDTH_TRAIN_STEPS = 3
+# the LiDARGen RefineNet under the width axis (phase 16 and the width
+# training phase; REFINENET_FLAGS, seed 0 as phase 15): a rank's
+# collectives a forward, 83 halo exchanges (72 circular convs with a margin,
+# in_conv and out_conv, 8 max pools, the upsample) and 34 sums (2 for each
+# of the 17 InstanceNorm++); the fp32 forward (TF32 off) against one rank
+# (the fp64 sums of the norms' statistics round otherwise than one rank's
+# fp32 mean and variance)
+REFINENET_WIDTH_COLLECTIVES = 83 + 34
+REFINENET_WIDTH_FP32_REL_L2 = 1e-4
 # every batch at which this script runs the network: generate b2, RePaint
 # b4, the other paths b8, the memory probe b32; one forward at each is held
 # against the plain path
@@ -2258,6 +2282,203 @@ def width_bench_job(torch) -> dict:
     return bench.main(batch=B, steps=2, trials=1, ddim_steps=2, mesh=WIDTH_MESH)
 
 
+def phase_validate(torch, main_out, eval_out, card):
+    """``python -m r2dm_tpu_torch.validate_pretrained`` on phase 4's
+    r2dm-h-random.pth with phase 9's random extractor files (``--skip_
+    reference`` unless $R2DM_REFERENCE_DIR names the original PyTorch
+    code): rc 0, every stage ok, and exact launches (its sample stage, 8
+    DDPM steps at b2: 50 GN + 48 conv a forward)."""
+    from r2dm_tpu_torch import ops
+
+    reference = os.environ.get("R2DM_REFERENCE_DIR")
+    argv = [main_out["ckpt"], "--json", "--rangenet_tar", eval_out["tar"], "--pointnet_ckpt", eval_out["pth"]]
+    argv += ["--reference_dir", reference] if reference else ["--skip_reference"]
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    t0 = time.time()
+    printed = _run_cli("r2dm_tpu_torch.validate_pretrained", argv)  # raises unless it exits 0
+    torch.cuda.synchronize()
+    out = {"seconds": time.time() - t0, "launches": _launches(ops),
+           "report": json.loads(printed.strip().splitlines()[-1])}
+    print(f"python -m r2dm_tpu_torch.validate_pretrained {' '.join(os.path.basename(a) for a in argv)} ({card}): "
+          f"{json.dumps(out)}")
+    expected = launches_of(50 * 8, 48 * 8)
+    stages = out["report"]["stages"]
+    if not (out["report"]["ok"] and list(stages) == ["import", "ref-parity", "sample", "metrics"]
+            and all(v["ok"] for v in stages.values()) and out["launches"] == expected):
+        raise AssertionError(f"validate_pretrained: {out} (launches {expected})")
+    return out
+
+
+def _refinenet(torch, dtype=None):
+    """(cfg, the RefineNet at REFINENET_FLAGS's width on the card): phase
+    15's random weights (build_model from torch seed 0), computing in
+    ``dtype``."""
+    from r2dm_tpu_torch import config as config_lib
+    from r2dm_tpu_torch.inference import build_model
+
+    cfg = config_lib.Config(model=config_lib.ModelConfig(architecture="refinenet", base_channels=128,
+                                                         channel_multiplier=(1, 2, 2, 2)))
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(0)
+        return cfg, build_model(cfg, dtype=dtype, device="cpu").to("cuda")
+
+
+def width_refinenet_job(torch) -> dict:
+    """One rank of phase 16's RefineNet under ``--mesh 1x2``: a b8 forward
+    in fp32 (TF32 off) and in bf16 on this rank's columns against this
+    rank's whole-image forward, with its collectives and their host
+    seconds; one rank's DDIM-4 chain in bf16 and in fp32 (the yardstick)
+    and the bf16 chain through ``DDPM.sample(world=)``; the hand-written
+    kernels' launches over the job (none: plain PyTorch and cuDNN)."""
+    from r2dm_tpu_torch import ops, parallel
+    from r2dm_tpu_torch.inference import DDPM, build_diffusion
+    from r2dm_tpu_torch.models import layers
+
+    tf32 = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    world = parallel.init("cuda", mesh=WIDTH_MESH)
+    out = {"rank": world.rank, "width_rank": world.width_rank}
+    ddpms = {}
+    try:
+        torch.cuda.empty_cache()
+        ops.reset_launch_counts()
+        x = randn(torch, (B, 64, 1024, 2), 40)
+        cond = torch.linspace(0.0, 1.0, B, device="cuda")
+        xs = parallel.shard_columns(x, world)
+        refs = {}
+        for tag, dtype in (("fp32", None), ("bf16", torch.bfloat16)):
+            cfg, net = _refinenet(torch, dtype)
+            ddpms[tag] = DDPM(build_diffusion(cfg, net), cfg)
+            with torch.inference_mode():
+                ref = refs[tag] = net(x, cond)
+                with layers.width_sharded(net, world):
+                    net(xs, cond)  # warm-up
+                    torch.cuda.synchronize()
+                    world.collective_calls, world.collective_seconds = 0, 0.0
+                    t0 = time.time()
+                    y = net(xs, cond)
+                    torch.cuda.synchronize()
+                    host_s = time.time() - t0
+                    calls, coll_s = world.collective_calls, world.collective_seconds
+                    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+                    start.record()
+                    net(xs, cond)
+                    end.record()
+                    torch.cuda.synchronize()
+                out[f"forward_{tag}"] = {"rel_l2": _rel(parallel.gather_columns(y, world), ref), "host_s": host_s,
+                                         "event_ms": start.elapsed_time(end), "collective_calls": calls,
+                                         "collective_host_s": coll_s}
+        out["forward_bf16"]["bf16_vs_fp32_rel_l2"] = _rel(refs["bf16"], refs["fp32"])
+        seeds = list(range(B))
+        with torch.inference_mode():
+            one = {tag: d.sample(B, WIDTH_DDIM_STEPS, mode="ddim", seeds=seeds, data_format="NHWC")
+                   for tag, d in ddpms.items()}
+            t0 = time.time()
+            two = ddpms["bf16"].sample(B, WIDTH_DDIM_STEPS, mode="ddim", seeds=seeds, data_format="NHWC", world=world)
+            torch.cuda.synchronize()
+        out["ddim"] = {"rel_l2_vs_one_rank": _rel(two, one["bf16"]), "bf16_vs_fp32_rel_l2": _rel(one["bf16"], one["fp32"]),
+                       "seconds": time.time() - t0, "finite": bool(torch.isfinite(two).all())}
+        out["launches"] = _launches(ops)
+    finally:
+        world.close()
+        ddpms.clear()
+        torch.cuda.empty_cache()
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = tf32
+    return out
+
+
+def width_refinenet_train_job(torch) -> dict:
+    """One rank of the width training phase's RefineNet under ``--mesh
+    1x2``: width rank 0 first takes one b8 bf16 loss + backward on the whole
+    image (the trainer's mixed precision); then both ranks take it on their
+    columns, the gradients summed over the world as the trainer sums them,
+    with the collectives' calls and host seconds, the peak memory and the
+    hand-written kernels' launches (none)."""
+    from r2dm_tpu_torch import ops, parallel
+    from r2dm_tpu_torch.diffusion import ContinuousTimeGaussianDiffusion
+    from r2dm_tpu_torch.models import layers
+
+    world = parallel.init("cuda", mesh=WIDTH_MESH)
+    out = {"rank": world.rank, "width_rank": world.width_rank}
+    try:
+        torch.cuda.empty_cache()
+        ops.reset_launch_counts()
+        _, model = _refinenet(torch, torch.bfloat16)
+        diffusion = ContinuousTimeGaussianDiffusion(model.train())
+        g = torch.Generator("cuda").manual_seed(2)
+        x_0 = torch.rand((B, 64, 1024, 2), generator=g, device="cuda") * 2 - 1
+        steps = torch.rand((B,), generator=g, device="cuda")
+        noise = torch.randn((B, 64, 1024, 2), generator=g, device="cuda")
+
+        def loss_and_grad(x_0, noise):
+            model.zero_grad(set_to_none=True)
+            loss = diffusion.p_loss(model, x_0, steps, noise)
+            loss.backward()
+            return loss.detach(), torch.cat([p.grad.flatten() for p in model.parameters()])
+
+        if world.width_rank == 0:
+            loss_1, grad_1 = loss_and_grad(x_0, noise)
+            torch.cuda.empty_cache()
+        layers.set_width_shard(model, world)
+        xs, ns = parallel.shard_columns(x_0, world), parallel.shard_columns(noise, world)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        world.collective_calls, world.collective_seconds = 0, 0.0
+        t0 = time.time()
+        loss_s, grad_s = loss_and_grad(xs, ns)
+        torch.cuda.synchronize()
+        out["step_host_s"] = time.time() - t0
+        out["peak_bytes"] = torch.cuda.max_memory_allocated() - base
+        out["collective_calls"], out["collective_host_s"] = world.collective_calls, world.collective_seconds
+        for t in (loss_s, grad_s):  # the width shares summed (D = 1), as training/step.py sums them
+            torch.distributed.all_reduce(t)
+        if world.width_rank == 0:
+            out["loss"], out["one_rank_loss"] = loss_s.item(), loss_1.item()
+            out["loss_rel"] = ((loss_s - loss_1).abs() / loss_1.abs()).item()
+            out["grad_rel_l2"] = _rel(grad_s, grad_1)
+        out["launches"] = _launches(ops)
+    finally:
+        world.close()
+        torch.cuda.empty_cache()
+    return out
+
+
+def _width_refinenet_checks(r0, r1, card) -> dict:
+    """Phase 16's RefineNet gates on both ranks' ``width_refinenet_job``:
+    the fp32 forward within REFINENET_WIDTH_FP32_REL_L2 of one rank, the
+    bf16 forward and the DDIM-4 chain within WIDTH_SPREAD times one rank's
+    bf16-vs-fp32 distance on the same input (the RefineNet's decoder has no
+    norm, so a bf16 rounding of its convs moves the forward by more than
+    the EfficientUNet's WIDTH_FORWARD_REL_L2: 1.15e-2 against one rank on
+    an NVIDIA H100 80GB HBM3 at 700 W), REFINENET_WIDTH_COLLECTIVES a
+    forward, no hand-written launch."""
+    out = {k: r0[k] for k in ("forward_fp32", "forward_bf16", "ddim")}
+    out["launches_per_rank"] = [r0["launches"], r1["launches"]]
+    print(f"width axis {WIDTH_MESH}, the RefineNet (base 128, (1, 2, 2, 2)) b{B}, two gloo ranks on one card "
+          f"({card}; a correctness check, no scaling number): {json.dumps(out)}")
+    failures = []
+    bf16_limit = WIDTH_SPREAD * r0["forward_bf16"]["bf16_vs_fp32_rel_l2"]
+    for tag, limit in (("fp32", REFINENET_WIDTH_FP32_REL_L2), ("bf16", bf16_limit)):
+        for r in (r0, r1):
+            fwd = r[f"forward_{tag}"]
+            if not (math.isfinite(fwd["rel_l2"]) and fwd["rel_l2"] <= limit):
+                failures.append(f"{tag} forward on rank {r['rank']}: {fwd['rel_l2']} against one rank, limit {limit}")
+            if fwd["collective_calls"] != REFINENET_WIDTH_COLLECTIVES:
+                failures.append(f"{tag} forward on rank {r['rank']}: {fwd['collective_calls']} collectives, "
+                                f"expected {REFINENET_WIDTH_COLLECTIVES}")
+    ddim = out["ddim"]
+    if not (ddim["finite"] and ddim["rel_l2_vs_one_rank"] <= WIDTH_SPREAD * ddim["bf16_vs_fp32_rel_l2"]):
+        failures.append(f"DDIM-{WIDTH_DDIM_STEPS}: {ddim} (limit {WIDTH_SPREAD} x the bf16-vs-fp32 distance)")
+    if out["launches_per_rank"] != [launches_of(0, 0)] * 2:
+        failures.append(f"hand-written launches {out['launches_per_rank']}, expected none")
+    if failures:
+        raise AssertionError("the RefineNet under the width axis: " + "; ".join(failures))
+    out["launches"] = r0["launches"]
+    return out
+
+
 def phase_width(torch, main_out, eval_out, tmp, card):
     """The width axis: two gloo ranks sharing this card with ``--mesh 1x2``
     (a correctness check, no scaling number), each holding 512 of the 1024
@@ -2283,6 +2504,7 @@ def phase_width(torch, main_out, eval_out, tmp, card):
          "argv": ["--ckpt", eval_out["ckpt"], "--output_dir", samples, "--batch_size", str(B), "--num_samples",
                   str(2 * B), "--num_steps", "4", "--mode", "ddim", "--mesh", WIDTH_MESH]},
         {"call": "width_bench_job", "kwargs": {}, "env": {"R2DM_BENCH_BUDGET_S": "300"}},
+        {"call": "width_refinenet_job", "kwargs": {}, "env": {}},
         {"call": "width_int8_job", "kwargs": {"ckpt": main_out["ckpt"], "chain_out": int8_chain_out}, "env": {}},
         {"module": "r2dm_tpu_torch.sample_and_save", "env": {"R2DM_TPU_INT8": "1"},
          "argv": int8_sas_argv + ["--output_dir", int8_samples, "--mesh", WIDTH_MESH]},
@@ -2291,8 +2513,8 @@ def phase_width(torch, main_out, eval_out, tmp, card):
     t0 = time.time()
     ranks = _two_ranks(work, [[{**job, "cwd": work} for job in jobs] for _ in range(2)])
     seconds = time.time() - t0
-    (job0, job1), (sas0, sas1), (bench0, _), (i8_0, i8_1), (i8sas0, i8sas1), (i8bench0, _) = (
-        [rank[i] for rank in ranks] for i in range(6))
+    (job0, job1), (sas0, sas1), (bench0, _), (rn0, rn1), (i8_0, i8_1), (i8sas0, i8sas1), (i8bench0, _) = (
+        [rank[i] for rank in ranks] for i in range(7))
     out = {"card": card, "seconds": seconds}
 
     # ---- one forward, and the chain's steps fed one rank's x_t
@@ -2366,6 +2588,7 @@ def phase_width(torch, main_out, eval_out, tmp, card):
     if not (math.isfinite(bench0["value"]) and bench0["value"] > 0 and bench0["unit"] == "img/s aggregate (2 dev)"):
         raise AssertionError(f"bench --mesh {WIDTH_MESH}: {out['bench']}")
     out["launches"] = job0["ddim_launches"]
+    out["refinenet"] = _width_refinenet_checks(rn0, rn1, card)
     out["int8"] = _width_int8_checks(torch, main_out, ddpm, work, int8_sas_argv, (i8_0, i8_1), (i8sas0, i8sas1),
                                      i8bench0, int8_chain_out, int8_samples, card)
     return out
@@ -2495,22 +2718,30 @@ def phase_width_train(torch, tmp, card):
 
     saved = os.environ.get("R2DM_SYNTH_SCANS")
     os.environ["R2DM_SYNTH_SCANS"] = str(B)
+    rn_one_dir, rn_two_dir = os.path.join(work, "refinenet_one"), os.path.join(work, "refinenet_two")
     try:
         one = counted_main(torch, "r2dm_tpu_torch.train", train_argv(one_dir))
+        rn_one = counted_main(torch, "r2dm_tpu_torch.train", REFINENET_FLAGS + train_argv(rn_one_dir))
     finally:
         if saved is None:
             os.environ.pop("R2DM_SYNTH_SCANS")
         else:
             os.environ["R2DM_SYNTH_SCANS"] = saved
+    torch.cuda.empty_cache()  # the ranks share the card with this process
+    mesh_flags = ["--training.mesh_shape", WIDTH_MESH.replace("x", ",")]
     jobs = [
         {"call": "width_train_job", "kwargs": {}, "env": {}},
         {"module": "r2dm_tpu_torch.train", "env": {"R2DM_SYNTH_SCANS": str(B)},
-         "argv": train_argv(two_dir) + ["--training.mesh_shape", WIDTH_MESH.replace("x", ",")]},
+         "argv": train_argv(two_dir) + mesh_flags},
+        {"call": "width_refinenet_train_job", "kwargs": {}, "env": {}},
+        {"module": "r2dm_tpu_torch.train", "env": {"R2DM_SYNTH_SCANS": str(B)},
+         "argv": REFINENET_FLAGS + train_argv(rn_two_dir) + mesh_flags},
     ]
     t0 = time.time()
     ranks = _two_ranks(work, [[{**job, "cwd": work} for job in jobs] for _ in range(2)])
     seconds = time.time() - t0
-    (step0, step1), (cli0, cli1) = ([rank[i] for rank in ranks] for i in range(2))
+    (step0, step1), (cli0, cli1), (rn_step0, rn_step1), (rn_cli0, rn_cli1) = (
+        [rank[i] for rank in ranks] for i in range(4))
     out = {"card": card, "seconds": seconds}
 
     # ---- one step against one rank's kernel path and its spread
@@ -2553,6 +2784,62 @@ def phase_width_train(torch, tmp, card):
         raise AssertionError(f"the width trainer against one rank: loss {loss_rel} (limit {TRAIN_REL_L2}), "
                              f"update {upd_rel} (limit {TWO_RANK_UPDATE_REL})")
     out["launches_per_rank_per_step"] = out["train"]["launches_per_rank_per_step"]
+    out["refinenet"] = _width_refinenet_train_checks(torch, rn_one, (rn_step0, rn_step1), (rn_cli0, rn_cli1),
+                                                     rn_one_dir, rn_two_dir, card)
+    return out
+
+
+def _width_refinenet_train_checks(torch, one, steps, clis, one_dir, two_dir, card) -> dict:
+    """The width training phase's RefineNet gates: one bf16 b8 loss +
+    backward on the ranks' columns (``width_refinenet_train_job``) within
+    TRAIN_REL_L2 of one rank's, the loss and the gradient; then ``python -m
+    r2dm_tpu_torch.train --model.architecture refinenet
+    --training.mesh_shape 1,2`` for WIDTH_TRAIN_STEPS steps against one
+    rank's trainer (the loss each step within TRAIN_REL_L2, the weights'
+    updates within TWO_RANK_UPDATE_REL); no hand-written launch anywhere."""
+    import numpy as np
+
+    from r2dm_tpu_torch import config as config_lib
+    from r2dm_tpu_torch.checkpoint import load_checkpoint
+    from r2dm_tpu_torch.inference import build_model
+    from r2dm_tpu_torch.utils.weights import to_jax
+
+    step0, step1 = steps
+    out = {"step": {k: step0[k] for k in ("loss", "one_rank_loss", "loss_rel", "grad_rel_l2", "step_host_s",
+                                          "collective_calls", "collective_host_s", "peak_bytes")}}
+    global_loss = [a + b for a, b in zip(clis[0]["losses"], clis[1]["losses"])]  # each rank's loss is its share
+    loss_rel = [abs(a - b) / abs(b) for a, b in zip(global_loss, one["losses"])]
+    cfg = config_lib.Config(model=config_lib.ModelConfig(architecture="refinenet", base_channels=128,
+                                                         channel_multiplier=(1, 2, 2, 2)))
+    with torch.random.fork_rng(devices=[]):  # the trainer's initial weights, from its seed
+        torch.manual_seed(0)
+        w0 = to_jax(build_model(cfg, dtype=torch.bfloat16, device="cpu").state_dict(), "refinenet")
+    w = [load_checkpoint(os.path.join(d, "checkpoint.msgpack"))["weights"] for d in (one_dir, two_dir)]
+    start, w1, w2 = (np.concatenate([np.asarray(a, np.float64).ravel() for a in _leaves(t["params"])])
+                     for t in (w0, w[0], w[1]))
+    out["train"] = {"one_rank_loss": one["losses"], "two_rank_loss": global_loss, "loss_rel": loss_rel,
+                    "update_rel_l2": float(np.linalg.norm(w2 - w1) / np.linalg.norm(w1 - start)),
+                    "seconds": [one["seconds"], clis[0]["seconds"]],
+                    "peak_bytes": [one["peak_bytes"], clis[0]["peak_bytes"]]}
+    launches = [step0["launches"], step1["launches"], one["launches"], clis[0]["launches"], clis[1]["launches"]]
+    out["launches"] = step0["launches"]
+    print(f"width axis {WIDTH_MESH}, the RefineNet: one b{B} loss + backward on each rank's columns and python -m "
+          f"r2dm_tpu_torch.train --model.architecture refinenet --training.mesh_shape "
+          f"{WIDTH_MESH.replace('x', ',')} {WIDTH_TRAIN_STEPS} steps, against one rank ({card}; two gloo ranks on "
+          f"one card): {json.dumps(out)}")
+    failures = []
+    st = out["step"]
+    if not (math.isfinite(st["loss_rel"]) and st["loss_rel"] <= TRAIN_REL_L2 and st["grad_rel_l2"] <= TRAIN_REL_L2):
+        failures.append(f"one step: loss {st['loss_rel']}, gradient {st['grad_rel_l2']} (limit {TRAIN_REL_L2})")
+    tr = out["train"]
+    if not (len(global_loss) == WIDTH_TRAIN_STEPS and max(loss_rel) <= TRAIN_REL_L2
+            and tr["update_rel_l2"] <= TWO_RANK_UPDATE_REL):
+        failures.append(f"the trainer: loss {loss_rel} (limit {TRAIN_REL_L2}), update {tr['update_rel_l2']} "
+                        f"(limit {TWO_RANK_UPDATE_REL})")
+    if launches != [launches_of(0, 0)] * len(launches):
+        failures.append(f"hand-written launches {launches}, expected none")
+    if failures:
+        raise AssertionError("the RefineNet under the width axis, training: " + "; ".join(failures))
     return out
 
 
@@ -3263,7 +3550,7 @@ def main() -> int:
     width_kern = phases.run("width axis: the halo'd conv and the GN pair against their plain versions",
                             phase_width_kernels, torch, card)
     phases.run("conv∘FIR composed against two ops; the W2C record", phase_resample, torch)
-    eval_out = accum = two_ranks = reflowed = int8 = width = width_train = None
+    eval_out = accum = two_ranks = reflowed = int8 = width = width_train = validated = None
     with tempfile.TemporaryDirectory() as tmp:
         main_out = phases.run("main path", phase_main, torch, tmp)
         if main_out is not None:
@@ -3285,6 +3572,8 @@ def main() -> int:
                                        torch, tmp, eval_out, card)
                 width = phases.run(f"width axis: two ranks on one card, --mesh {WIDTH_MESH}", phase_width, torch,
                                    main_out, eval_out, tmp, card)
+                validated = phases.run("python -m r2dm_tpu_torch.validate_pretrained", phase_validate, torch,
+                                       main_out, eval_out, card)
             reflowed = phases.run("reflow", phase_reflow, torch, main_out, tmp, card)
         width_train = phases.run(f"width axis: training, two ranks on one card, --mesh {WIDTH_MESH}",
                                  phase_width_train, torch, tmp, card)
@@ -3324,6 +3613,9 @@ def main() -> int:
         row["width_int8_launches_per_rank"] = width["int8"]["forward_launches"][name]
         row["width_int8_ddim4_launches_per_rank"] = width["int8"]["ddim_launches"][name]
         row["width_train_launches_per_rank_per_step"] = width_train["launches_per_rank_per_step"][name]
+        row["width_refinenet_launches_per_rank"] = width["refinenet"]["launches"][name]
+        row["width_refinenet_train_launches_per_rank"] = width_train["refinenet"]["launches"][name]
+        row["validate_pretrained_launches"] = validated["launches"][name]
     print(f"ddim16_b{B}_img_per_s {main_out['ddim16_img_s']:.4f}")
     print(f"int8_ddim16_b{B}_img_per_s {int8['ddim16']['img_per_s']:.4f}; int8 forward device ms "
           f"{json.dumps(int8['forward_times'])}")

@@ -36,7 +36,7 @@ from .diffusion import ContinuousTimeGaussianDiffusion, DiscreteTimeGaussianDiff
 from .diffusion.base import Generators, NoiseSource, check_repaint_grid
 from .lidar import LiDARUtility, nearest_exact_resize_hw
 from .models.efficient_unet import EfficientUNet
-from .models.layers import check_width_shard, quant_conv_mode, width_sharded
+from .models.layers import quant_conv_mode, width_sharded
 from .models.refinenet import LiDARGenRefineNet
 from .ops.encoding import get_hdl64e_linear_ray_angles
 from .parallel.width import gather_columns, sharded
@@ -116,7 +116,8 @@ def model_coords(cfg: config_lib.Config) -> np.ndarray:
         if not os.path.exists(path):
             raise FileNotFoundError(
                 f"unfolding angle table not found at {path}; generate it with "
-                "tools/make_unfolding_angles.py (requires the raw dataset)"
+                "python -m r2dm_tpu_torch.make_unfolding_angles (requires the raw dataset) or import the "
+                "reference's with python -m r2dm_tpu_torch.import_unfolding_angles"
             )
         with np.load(path) as table:
             angles = table["angles"].astype(np.float32)  # (H, W, 2)
@@ -328,11 +329,11 @@ class DDPM:
         return x
 
     def _width(self, world):
-        """``world`` when it splits the columns (the model must run under
-        it: ``set_width_shard`` raises for the RefineNet), else None."""
+        """``world`` when it splits the columns (the model's levels must
+        split: its ``check_width_shard`` raises), else None."""
         if not sharded(world):
             return None
-        check_width_shard(self.model, world.width_size)
+        self.model.check_width_shard(world.width_size)
         return world
 
     def _chain(self, B, num_steps, mode, ddim_eta, gens, x_T, noise, return_all, show, chunk) -> torch.Tensor:

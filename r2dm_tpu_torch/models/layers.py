@@ -33,8 +33,8 @@ the keys and values of the whole image, and the int8 lane takes its absmax
 across the ranks and quantizes the exchanged columns. Under autograd every
 one of them is differentiable, and a rank's backward gives its own columns'
 share of each parameter gradient (the trainer sums the shares over the
-width group, ``training/step.py``). The RefineNet does not run under it yet
-(``parallel.mesh.WIDTH_REFINENET_ITEM``).
+width group, ``training/step.py``). The RefineNet takes the same setting
+(``models/refinenet.py``).
 
 ``FUSED_RESAMPLE`` is the JAX package's switch of the same name
 (``r2dm_tpu/models/layers.py:470-475``), read by ``UNetBlock`` at each
@@ -60,7 +60,6 @@ from ..ops.act_ringconv import act_ringconv_sharded, fused_act_ringconv
 from ..ops.gn_silu import fused_group_norm_silu, group_norm_silu_sharded
 from ..ops.pad import ring_pad
 from ..ops.quant import pack_weight, ring_conv_w8a8
-from ..parallel.mesh import WIDTH_REFINENET_ITEM
 from ..parallel.width import gather_columns, shard_columns, sharded
 
 QUANT_MODES = (None, "w8a8")
@@ -360,25 +359,15 @@ def width_shard_of(model: nn.Module):
     return next((m.width_shard for m in model.modules() if getattr(m, "width_shard", None) is not None), None)
 
 
-def check_width_shard(model: nn.Module, width_size: int) -> None:
-    """Raise unless ``model`` runs under a width axis of ``width_size``
-    ranks: its levels must split (its own ``check_width_shard``); a model
-    without that check (the RefineNet) raises."""
-    check = getattr(model, "check_width_shard", None)
-    if check is None:
-        raise ValueError(f"{type(model).__name__} does not run under a width axis yet ({WIDTH_REFINENET_ITEM})")
-    check(width_size)
-
-
 def set_width_shard(model: nn.Module, world) -> nn.Module:
     """Run ``model`` on the columns its rank holds of a width axis over
     ``world``'s width group (None, or a world of width 1: the whole image):
     every module that pads the ring, normalises or attends takes the group.
-    The model checks that its levels split (``check_width_shard``); a model
-    without that check (the RefineNet) raises. Returns the model."""
+    The model checks that its levels split (its ``check_width_shard``
+    raises). Returns the model."""
     shard = world if sharded(world) else None
     if shard is not None:
-        check_width_shard(model, shard.width_size)
+        model.check_width_shard(shard.width_size)
     for m in model.modules():
         if hasattr(m, "width_shard"):
             m.width_shard = shard

@@ -18,10 +18,24 @@ reference torch ``state_dict`` names (``d_block2.0.conv2.0.weight``,
 and stay fp32; with ``dtype`` the convolutions and the interpolation compute
 in it, the norms in fp32 (the JAX module's policy). Every operation is plain
 PyTorch: the JAX package has no Pallas kernel behind this network.
+
+Under a width axis (``layers.set_width_shard``; the JAX package's GSPMD
+sharding of W) the network takes and returns its rank's columns of each
+image, and computes on them what one rank computes on the whole image: the
+convs take W's margins from the neighbours' columns (``parallel/width.py::
+pad_columns``; the ring wraps across ranks, and the two zero-padded convs
+see zeros only past the image's outer columns), InstanceNorm++ sums its
+statistics over the width group (``sum_over_width``, differentiable), the
+max pools take 2 columns of each neighbour (-inf past the outer columns),
+the upsample one column of each neighbour inside the image and its rank's
+rows of the interpolation matrix, and ``coords`` is cut to the rank's
+columns. H stays whole on every rank. The average pools are local, since
+every rank's columns start at an even offset (``check_width_shard``).
 """
 
 from __future__ import annotations
 
+import math
 from typing import Optional, Sequence
 
 import numpy as np
@@ -29,15 +43,27 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from ..parallel.width import halo_exchange, pad_columns, shard_columns, sharded, sum_over_width
 from .layers import _compute_dtype
 
 NORM_EPS = 1e-5
 
 
+def pad_hw(x: torch.Tensor, p: int, circular: bool, width=None) -> torch.Tensor:
+    """NCHW ``x`` padded by ``p`` on every side, circularly (both axes wrap,
+    torch's padding_mode='circular') or with zeros. Under a width axis
+    (``width``) W's margins are the neighbours' columns, zeros past the
+    image's outer columns when not circular."""
+    mode = "circular" if circular else "constant"
+    if not sharded(width):
+        return F.pad(x, (p,) * 4, mode=mode)
+    x = pad_columns(x, p, p, width, dim=3, edge=None if circular else 0.0)
+    return F.pad(x, (0, 0, p, p), mode=mode)
+
+
 class Conv(nn.Conv2d):
     """A conv with the flax ``nn.Conv(dtype=...)`` casting policy, padded by
-    ``padding`` in both axes: circularly (``circular``, torch's
-    padding_mode='circular') or with zeros."""
+    ``padding`` in both axes (``pad_hw``)."""
 
     def __init__(self, in_channels: int, out_channels: int, kernel_size: int = 3, padding: int = 1,
                  dilation: int = 1, bias: bool = True, circular: bool = True,
@@ -46,12 +72,13 @@ class Conv(nn.Conv2d):
         self.pad = padding
         self.circular = circular
         self.compute_dtype = dtype
+        self.width_shard = None  # set_width_shard: the World whose width group splits W
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         cd = _compute_dtype(self.compute_dtype, x, self.weight)
         x = x.to(cd)
         if self.pad:
-            x = F.pad(x, (self.pad,) * 4, mode="circular" if self.circular else "constant")
+            x = pad_hw(x, self.pad, self.circular, self.width_shard)
         bias = self.bias.to(cd) if self.bias is not None else None
         return F.conv2d(x, self.weight.to(cd), bias, dilation=self.dilation)
 
@@ -69,33 +96,55 @@ class PostAffine(nn.Module):
 class InstanceNormPlus(nn.Module):
     """InstanceNorm2d+ (NCSNv2; refinenet.py:57-86): the non-affine instance
     norm, scaled by the per-channel means standardised over the channels
-    (unbiased variance), then a per-channel affine; fp32 statistics, the
-    result in x's dtype."""
+    (unbiased variance), then a per-channel affine; the statistics in fp32
+    (fp64 for an fp64 x), the result in x's dtype. The variance is
+    two-pass, the mean of (x - mean)^2, as in JAX. Under a width axis each
+    sum over H x W is the rank's, accumulated in fp64, summed over the group
+    and rounded to fp32 once, so the statistics hardly depend on how the
+    columns are split."""
 
     def __init__(self, channels: int):
         super().__init__()
         self.alpha = nn.Parameter(1.0 + 0.02 * torch.randn(1, channels, 1, 1))
         self.post_affine = PostAffine(channels)
+        self.width_shard = None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        xf = x.to(torch.float32)
-        mean_hw = xf.mean(dim=(2, 3), keepdim=True)  # (B, C, 1, 1)
+        xf = x.to(torch.promote_types(x.dtype, torch.float32))
+        w = self.width_shard
+        if sharded(w):
+            n = xf.shape[2] * xf.shape[3] * w.width_size
+
+            def mean_hw_of(t):
+                return (sum_over_width(t.sum(dim=(2, 3), keepdim=True, dtype=torch.float64), w) / n).to(xf.dtype)
+
+            mean_hw = mean_hw_of(xf)  # (B, C, 1, 1)
+            var_hw = mean_hw_of((xf - mean_hw).square())
+        else:  # torch's fp32 reductions, as close to the flax module's as the fp32 parity tests need
+            mean_hw = xf.mean(dim=(2, 3), keepdim=True)
+            var_hw = xf.var(dim=(2, 3), keepdim=True, correction=0)
         m = mean_hw.mean(dim=1, keepdim=True)
         v = mean_hw.var(dim=1, keepdim=True, correction=1)
         mean_n = (mean_hw - m) / torch.sqrt(v + NORM_EPS)
-        inst = (xf - mean_hw) * torch.rsqrt(xf.var(dim=(2, 3), keepdim=True, correction=0) + NORM_EPS)
+        inst = (xf - mean_hw) * torch.rsqrt(var_hw + NORM_EPS)
         h = inst * self.alpha * mean_n
         h = h * self.post_affine.weight.view(1, -1, 1, 1) + self.post_affine.bias.view(1, -1, 1, 1)
         return h.to(x.dtype)
 
 
-def avg_pool2(x: torch.Tensor) -> torch.Tensor:
-    return F.avg_pool2d(x, 2)
+class MaxPool5(nn.Module):
+    """MaxPool2d(5, 1, 2): -inf padding, stride 1 (refinenet.py:89-102).
+    Under a width axis W's margins are 2 columns of each neighbour, -inf
+    past the image's outer columns (the pool does not wrap)."""
 
+    def __init__(self):
+        super().__init__()
+        self.width_shard = None
 
-def max_pool5(x: torch.Tensor) -> torch.Tensor:
-    """MaxPool2d(5, 1, 2): -inf padding, stride 1 (refinenet.py:89-102)."""
-    return F.max_pool2d(x, 5, 1, 2)
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if not sharded(self.width_shard):
+            return F.max_pool2d(x, 5, 1, 2)
+        return F.max_pool2d(pad_columns(x, 2, 2, self.width_shard, dim=3, edge=-math.inf), 5, 1, (2, 0))
 
 
 def interp_matrix(n_in: int, n_out: int) -> torch.Tensor:
@@ -116,28 +165,47 @@ def interp_matrix(n_in: int, n_out: int) -> torch.Tensor:
     return m
 
 
+def rank_interp_matrix(n_in: int, n_out: int, rank: int, ranks: int) -> torch.Tensor:
+    """Width rank ``rank``'s rows of ``interp_matrix(n_in, n_out)`` (its
+    output columns), on its input columns and one of each neighbour that
+    lies inside the image (the interpolation does not wrap); the whole
+    matrix for one rank. With align_corners a rank's outputs read no column
+    beyond those, whatever the two sizes
+    (tests/test_torch_port_refinenet_width.py)."""
+    m = interp_matrix(n_in, n_out)[rank * (n_out // ranks):(rank + 1) * (n_out // ranks)]
+    return m[:, max(rank * (n_in // ranks) - 1, 0):min((rank + 1) * (n_in // ranks) + 1, n_in)]
+
+
 class BilinearAlignCorners(nn.Module):
     """F.interpolate(mode='bilinear', align_corners=True) of NCHW x as two
     interpolation matmuls in x's dtype (refinenet.py:105-130); the matrices
-    are kept per (size, dtype, device), so none is copied from the host
-    inside a forward after the first."""
+    are kept per (size, width rank, dtype, device), so none is copied from
+    the host inside a forward after the first. Under a width axis ``size``
+    is the rank's, and x takes one column of each neighbour inside the
+    image (``rank_interp_matrix``)."""
 
     def __init__(self):
         super().__init__()
         self._mats: dict = {}
+        self.width_shard = None
 
-    def matrix(self, n_in: int, n_out: int, like: torch.Tensor) -> torch.Tensor:
-        key = (n_in, n_out, like.dtype, like.device)
+    def matrix(self, n_in: int, n_out: int, like: torch.Tensor, rank: int = 0, ranks: int = 1) -> torch.Tensor:
+        key = (n_in, n_out, rank, ranks, like.dtype, like.device)
         if key not in self._mats:
-            self._mats[key] = interp_matrix(n_in, n_out).to(device=like.device, dtype=like.dtype)
+            self._mats[key] = rank_interp_matrix(n_in, n_out, rank, ranks).to(device=like.device, dtype=like.dtype)
         return self._mats[key]
 
     def forward(self, x: torch.Tensor, size: tuple[int, int]) -> torch.Tensor:
         H, W = x.shape[2:]
         if (H, W) == tuple(size):
             return x
+        w = self.width_shard
+        rank, ranks = (w.width_rank, w.width_size) if sharded(w) else (0, 1)
+        if ranks > 1:
+            lft, rgt = halo_exchange(x, 1, 1, w, dim=3)
+            x = torch.cat(([lft] if rank > 0 else []) + [x] + ([rgt] if rank < ranks - 1 else []), dim=3)
         x = torch.einsum("oh,bchw->bcow", self.matrix(H, size[0], x), x)
-        return torch.einsum("ow,bchw->bcho", self.matrix(W, size[1], x), x)
+        return torch.einsum("ow,bchw->bcho", self.matrix(W * ranks, size[1] * ranks, x, rank, ranks), x)
 
 
 class RNResidualBlock(nn.Module):
@@ -197,7 +265,7 @@ class ChainedResidualPooling(nn.Module):
     def __init__(self, channels: int, num_stages: int = 2, dtype: Optional[torch.dtype] = None):
         super().__init__()
         self.convs = nn.ModuleList(
-            nn.Sequential(nn.MaxPool2d(5, 1, 2), Conv(channels, channels, bias=False, dtype=dtype))
+            nn.Sequential(MaxPool5(), Conv(channels, channels, bias=False, dtype=dtype))
             for _ in range(num_stages)
         )
 
@@ -246,6 +314,9 @@ class LiDARGenRefineNet(nn.Module):
     """forward(images NHWC (B, H, W, in_channels), timesteps, generator=None)
     -> NHWC fp32; the timesteps and the generator are ignored."""
 
+    # columns a rank needs at half width: the dilation-4 convs' halo
+    MIN_WIDTH_COLUMNS = 4
+
     architecture = "refinenet"
 
     def __init__(
@@ -276,11 +347,27 @@ class LiDARGenRefineNet(nn.Module):
         self.u_block1 = RefineBlock([C[1], C[1]], C[0], num_end_blocks=3, **kw)
         out_ch = in_channels if out_channels is None else out_channels
         self.out_conv = nn.Sequential(InstanceNormPlus(C[0]), nn.ELU(), Conv(C[0], out_ch, circular=False, **kw))
+        self.width_shard = None
+
+    def check_width_shard(self, width_size: int) -> None:
+        """Raise unless W splits over ``width_size`` ranks into an even
+        number of columns a rank (the average pool to level 2 stays local)
+        with at least ``MIN_WIDTH_COLUMNS`` a rank at half width."""
+        H, W = self.resolution
+        if W % (2 * width_size):
+            raise ValueError(
+                f"a {width_size}-way width axis does not split level 1 (W = {W} at {H}x{W}) into an even number "
+                "of columns a rank (the average pool to level 2)")
+        if W // (2 * width_size) < self.MIN_WIDTH_COLUMNS:
+            raise ValueError(
+                f"a {width_size}-way width axis leaves level 2 (W = {W // 2} at {H // 2}x{W // 2}) "
+                f"{W // (2 * width_size)} columns a rank; it needs at least {self.MIN_WIDTH_COLUMNS} "
+                "(the dilation-4 convs' halo)")
 
     def forward(self, images: torch.Tensor, timesteps: Optional[torch.Tensor] = None,
                 generator: Optional[torch.Generator] = None) -> torch.Tensor:
         x = images.permute(0, 3, 1, 2)
-        coords = self.coords.expand(x.shape[0], -1, -1, -1).to(x.dtype)
+        coords = shard_columns(self.coords, self.width_shard, dim=3).expand(x.shape[0], -1, -1, -1).to(x.dtype)
         h = self.in_conv(torch.cat([x, coords], dim=1))
         h1 = self.d_block1(h)
         h2 = self.d_block2(h1)

@@ -14,7 +14,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from ..parallel.width import halo_exchange, sharded
+from ..parallel.width import pad_columns, sharded
 
 
 def ring_pad(
@@ -36,8 +36,7 @@ def ring_pad(
     if left or right:
         W = x.shape[2]
         if ring and sharded(width):
-            lft, rgt = halo_exchange(x, left, right, width)
-            x = torch.cat([lft, x, rgt], dim=2)
+            x = pad_columns(x, left, right, width)
         elif ring:
             idx = torch.arange(-left, W + right, device=x.device) % W
             x = x.index_select(2, idx)

@@ -42,11 +42,6 @@ from typing import Any, Optional
 import torch
 import torch.distributed as dist
 
-WIDTH_AXIS_ITEM = "ROADMAP.md queue 1, parallelism (width axis)"
-# what still raises under a width axis over one
-WIDTH_REFINENET_ITEM = f"{WIDTH_AXIS_ITEM}: RefineNet"
-
-
 @dataclass
 class World:
     """This process's place on the (data, width) mesh: rank ``d*W + w``."""

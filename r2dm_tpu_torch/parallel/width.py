@@ -12,7 +12,11 @@ width group of a ``World`` (``mesh.py``; rank ``w`` of a group holds columns
 - ``halo_exchange``: the left neighbour's last columns and the right
   neighbour's first, the ring wrapping across ranks (rank 0's left
   neighbour is rank W-1), from one ``all_gather`` of the two edge strips;
-- ``all_reduce_sum_``: a sum over the width group, in place;
+- ``pad_columns``: the exchanged columns concatenated on both sides, the
+  ring wrapping across ranks or, past the image's outer columns, a fill
+  value (zero padding, max pooling's -inf);
+- ``all_reduce_sum_``: a sum over the width group, in place, and
+  ``sum_over_width``, its differentiable form;
 - ``all_reduce_max_bits_``: the maximum over the width group of a float's
   bits as int32 (a NaN as the quiet NaN above +inf, so it survives).
 
@@ -25,8 +29,11 @@ adjoint of the exchange sends the gradient of the received left strip back
 to the left neighbour, which adds it to its last columns, and the right
 strip's to the right neighbour's first columns, from one ``all_gather`` of
 the two gradient strips (with W = 2 both neighbours are one rank, which
-adds both). ``all_reduce_sum_`` is not differentiable: a caller that sums
-under autograd writes the adjoint out (``ops/gn_silu.py``).
+adds both). ``all_reduce_sum_`` is not differentiable; ``sum_over_width``
+is: every rank reads the sum, so the gradient of each rank's term is the
+sum of every rank's gradient of it, one all-reduce of the gradients. (A
+caller may instead write its whole adjoint out, as ``ops/gn_silu.py``
+does.)
 
 The W axis is dim 2 of NHWC (the default) and dim 3 of NCHW. Tensors cross
 the group as raw bytes, so any dtype arrives bit for bit. Nothing is copied
@@ -143,6 +150,22 @@ def halo_exchange(x: torch.Tensor, left: int, right: int, world: World, dim: int
     return _HaloExchange.apply(x, left, right, world, dim)
 
 
+def pad_columns(x: torch.Tensor, left: int, right: int, world: World, dim: int = 2, edge=None) -> torch.Tensor:
+    """``x`` with the left neighbour's last ``left`` columns before it and the
+    right neighbour's first ``right`` after it along ``dim``
+    (``halo_exchange``, differentiable). ``edge`` is what lies past the
+    image's outer columns, rank 0's left margin and the last width rank's
+    right one: None wraps the ring, a number fills them (0.0 for zero
+    padding, -inf for max pooling's)."""
+    lft, rgt = halo_exchange(x, left, right, world, dim)
+    if edge is not None:
+        if world.width_rank == 0:
+            lft = torch.full_like(lft, edge)
+        if world.width_rank == world.width_size - 1:
+            rgt = torch.full_like(rgt, edge)
+    return torch.cat([lft, x, rgt], dim=dim)
+
+
 def all_reduce_sum_(t: torch.Tensor, world: World) -> torch.Tensor:
     """``t`` summed over the width group, in place; returns ``t``."""
     t0 = time.perf_counter()
@@ -168,3 +191,25 @@ def all_reduce_max_bits_(t: torch.Tensor, world: World) -> torch.Tensor:
     world.collective_seconds += time.perf_counter() - t0
     world.collective_calls += 1
     return t
+
+
+class _SumOverWidth(torch.autograd.Function):
+    """``sum_over_width`` under autograd: the backward all-reduces the
+    gradients (every rank reads the sum)."""
+
+    @staticmethod
+    def forward(ctx, t, world):
+        ctx.world = world
+        return all_reduce_sum_(t.to(memory_format=torch.contiguous_format, copy=True), world)
+
+    @staticmethod
+    def backward(ctx, dy):
+        return all_reduce_sum_(dy.to(memory_format=torch.contiguous_format, copy=True), ctx.world), None
+
+
+def sum_over_width(t: torch.Tensor, world) -> torch.Tensor:
+    """``t`` summed over the width group, as a new tensor (``t`` itself
+    without a width axis); differentiable (the module docstring)."""
+    if not sharded(world):
+        return t
+    return _SumOverWidth.apply(t, world)

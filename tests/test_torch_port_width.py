@@ -3,7 +3,8 @@ each image's columns (``--mesh 1x2``, ``1x4`` and ``2x2``) against one
 process with the same inputs and seeds, and against the JAX package's
 forward, its loss and gradients and its int8 convolution; the backward of
 every sharded op; the entry points under ``--mesh 1x2``, the int8 lane's
-too; and the errors of what does not run under a width axis yet.
+too; and the shard check's errors. The RefineNet's width axis is tested in
+``test_torch_port_refinenet_width.py``.
 
 The ranks of each mesh run once a module (``width_runs``) and write every
 result to an npz file; the tests below read them. Each rank is a subprocess
@@ -744,17 +745,17 @@ def test_completion_demo_1x2_writes_one_figure(tmp_path, tiny_msgpack):  # noqa:
     assert not list(cwds[2].iterdir())
 
 
-# ----------------------------------------------- what does not run yet
+# ------------------------------------------------------------- errors
 def _world(width: int) -> parallel.World:
     """A rank of a (1, width) mesh with no group: enough for the checks
     that run before any collective."""
     return parallel.World(rank=0, size=width, width_size=width)
 
 
-def _tiny_cfg(architecture="efficient_unet", resolution=(16, 64)):
+def _tiny_cfg(resolution=(16, 64)):
     return port_config.Config(
         data=port_config.DataConfig(dataset="synthetic", resolution=resolution, projection="spherical-256"),
-        model=port_config.ModelConfig(architecture=architecture, base_channels=8, channel_multiplier=(1, 2, 2, 2),
+        model=port_config.ModelConfig(base_channels=8, channel_multiplier=(1, 2, 2, 2),
                                       num_residual_blocks=(1, 1, 1, 1), gn_num_groups=4, attn_num_heads=2),
     )
 
@@ -769,18 +770,6 @@ def test_a_width_that_does_not_split_the_narrowest_level_raises(resolution, widt
     assert layers.width_shard_of(net) is None
     set_width_shard(net, _world(1))  # a width of one is the whole image
     assert layers.width_shard_of(net) is None
-
-
-def test_refinenet_under_a_width_axis_raises():
-    from r2dm_tpu_torch.inference import DDPM, build_diffusion
-
-    cfg = _tiny_cfg("refinenet")
-    net = build_model(cfg, device="cpu")
-    match = r"ROADMAP.md queue 1, parallelism \(width axis\): RefineNet"
-    with pytest.raises(ValueError, match=match):
-        set_width_shard(net, _world(2))
-    with pytest.raises(ValueError, match=match):
-        DDPM(build_diffusion(cfg, net), cfg).sample(1, 1, seeds=[0], world=_world(2))
 
 
 @pytest.mark.parametrize("spec,world,shape", [("1x2", 2, (1, 2)), ("2x2", 4, (2, 2)), ("1x4", 4, (1, 4))])
