@@ -160,7 +160,19 @@ hand-written launch. Phase 17 runs ``python -m
 r2dm_tpu_torch.validate_pretrained`` on phase 4's checkpoint with phase 9's
 extractor files (``--skip_reference`` unless $R2DM_REFERENCE_DIR names the
 original PyTorch code): every stage ok, and its sample stage's exact
-launches (8 DDPM steps at b2: 400 GN + 384 conv).
+launches (8 DDPM steps at b2: 400 GN + 384 conv). Phase 18 runs both
+relative-quality protocols, ``python -m r2dm_tpu_torch.ddim_quality_check``
+and ``flow_quality_check``, at config H and full width with the scripts'
+full-size spec lists and QUALITY_ENV's cuts (8 train steps at b32, 8 reflow
+fine-tune steps after the 1024 teacher pairs of 32 euler steps, 8 samples a
+leg), each on a fresh workdir, their legs in this process
+(``quality_leg_runner``): every leg runs, with its seconds and exact launches
+(50 GN + 96 conv a train or fine-tune step, 50 + 48 a forward of a sample
+leg or of the reflow teacher, none in evaluate); each table has the
+scripts' key, tags and six rows, every value finite but the BEV MMD of a leg
+with an empty scan (NaN there, as in the reference); then each protocol
+again, as a process on the same workdir, runs no leg, touches no file and
+prints the same table.
 The line before the last is the kernels JSON; the last line is
 {"ok": true, "device": {...}}. Exits non-zero, printing no result, without a
 CUDA device or without the port's package.
@@ -222,6 +234,13 @@ WIDTH_TRAIN_STEPS = 3
 # fp32 mean and variance)
 REFINENET_WIDTH_COLLECTIVES = 83 + 34
 REFINENET_WIDTH_FP32_REL_L2 = 1e-4
+# phase 18, the relative-quality protocols (python -m r2dm_tpu_torch.
+# {ddim,flow}_quality_check) at config H, full width, with the scripts'
+# full-size spec lists, cut in depth: 8 train and 8 reflow fine-tune steps,
+# 8 samples a leg; the synthetic set at the scripts' train batch (32: the
+# loader needs a batch of scans)
+QUALITY_ENV = {"R2DM_QUALITY_TRAIN_STEPS": "8", "R2DM_QUALITY_REFLOW_STEPS": "8", "R2DM_SYNTH_SCANS": "32"}
+QUALITY_SAMPLES = 8
 # every batch at which this script runs the network: generate b2, RePaint
 # b4, the other paths b8, the memory probe b32; one forward at each is held
 # against the plain path
@@ -3090,6 +3109,176 @@ def phase_reflow(torch, main_out, tmp, card):
     return result
 
 
+def quality_leg_runner(torch, legs: list):
+    """A leg runner of the protocols (``quality.Leg``): the leg's module's
+    main in this process, in the leg's working directory, so the launch
+    counters see it (zeroed before, read after); records each leg's module,
+    tag, seconds and launches, the reflow's teacher and fine-tune apart."""
+    import contextlib
+    import importlib
+    import io
+
+    from r2dm_tpu_torch import ops, reflow
+
+    def run(module, argv, cwd):
+        mod = importlib.import_module(f"r2dm_tpu_torch.{module}")
+        counts = {}
+        real_step = reflow.reflow_step
+
+        def counted_step(*args, **kwargs):  # the teacher's launches end where the fine-tune begins
+            if "teacher" not in counts:
+                torch.cuda.synchronize()
+                counts["teacher"] = _launches(ops)
+                ops.reset_launch_counts()
+            return real_step(*args, **kwargs)
+
+        out, saved = io.StringIO(), os.getcwd()
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        t0 = time.time()
+        reflow.reflow_step = counted_step
+        try:
+            os.chdir(cwd)
+            with contextlib.redirect_stdout(out):
+                rc = mod.main(argv) if module in ("train", "reflow") else mod.main(mod.parse_args(argv))
+            torch.cuda.synchronize()
+        finally:
+            reflow.reflow_step = real_step
+            os.chdir(saved)
+        if rc not in (0, None):
+            raise AssertionError(f"python -m r2dm_tpu_torch.{module} exited with {rc}:\n{out.getvalue()[-2000:]}")
+        if module == "reflow":
+            launches = {"teacher": counts.get("teacher"), "finetune": _launches(ops)}
+        else:
+            launches = _launches(ops)
+        dir_flag = {"sample_and_save": "--output_dir", "evaluate": "--sample_dir"}.get(module)
+        tag = os.path.basename(argv[argv.index(dir_flag) + 1])[len("samples_"):] if dir_flag else None
+        legs.append({"module": module, "tag": tag, "seconds": time.time() - t0, "launches": launches})
+
+    return run
+
+
+def _quality_expected(name: str) -> list:
+    """(module, tag, launches) of every leg of protocol ``name`` on a fresh
+    workdir: a train step 50 GN + 96 conv, a forward 50 + 48, evaluate
+    none."""
+    from r2dm_tpu_torch import ddim_quality_check, flow_quality_check, quality
+
+    def fwd(n):
+        return launches_of(50 * n, 48 * n)
+
+    size = quality.sizes(False)
+    batches = math.ceil(QUALITY_SAMPLES / size.sample_batch)
+    legs = [("train", None, launches_of(50 * size.train_steps, 96 * size.train_steps))]
+    if name == "ddim":
+        specs = [(f"{mode}{steps}", steps) for steps, mode in ddim_quality_check.SPECS]
+    else:
+        r = dict(zip(*[iter(flow_quality_check.reflow_args(False))] * 2))
+        teacher = math.ceil(int(r["--num_pairs"]) / int(r["--batch_size"])) * int(r["--teacher_steps"])
+        finetune = int(r["--train_steps"])
+        legs.append(("reflow", None, {"teacher": fwd(teacher), "finetune": launches_of(50 * finetune, 96 * finetune)}))
+        specs = [(tag, steps) for _, tag, steps in flow_quality_check.LEGS]
+    for tag, steps in specs:
+        legs += [("sample_and_save", tag, fwd(batches * steps)), ("evaluate", tag, fwd(0))]
+    return legs
+
+
+def _empty_scan(torch, work: str, tag: str) -> bool:
+    """Whether a sample of ``tag`` has no point in the BEV histogram's range
+    after the evaluation gate: its normalised histogram is 0/0, so its BEV
+    MMD is NaN (in the reference and the JAX package as in the port)."""
+    import numpy as np
+
+    from r2dm_tpu_torch.evaluate import gated
+    from r2dm_tpu_torch.metrics import bev
+
+    d = os.path.join(work, f"samples_{tag}")
+    scans = np.stack([np.load(os.path.join(d, f))["sample"] for f in sorted(os.listdir(d)) if f.endswith(".npz")])
+    clouds = torch.from_numpy(scans[:, 1:4] * gated(scans[:, 0:1])).reshape(len(scans), 3, -1).transpose(1, 2)
+    return bool((bev.point_cloud_to_histogram(clouds).reshape(len(scans), -1).sum(1) == 0).any())
+
+
+def _mtimes(root: str) -> dict:
+    return {os.path.join(d, f): os.stat(os.path.join(d, f)).st_mtime_ns for d, _, files in os.walk(root) for f in files}
+
+
+def _quality_protocol(torch, tmp, card, name: str) -> dict:
+    import contextlib
+    import io
+
+    from r2dm_tpu_torch import ddim_quality_check, flow_quality_check, quality
+
+    module = {"ddim": ddim_quality_check, "flow": flow_quality_check}[name]
+    work = os.path.join(tmp, f"quality_{name}")
+    legs, text = [], io.StringIO()
+    t0 = time.time()
+    with contextlib.redirect_stdout(text):
+        rc = module.main([work, str(QUALITY_SAMPLES)], run=quality_leg_runner(torch, legs))
+    seconds = time.time() - t0
+    expected = _quality_expected(name)
+    tags = [t for m, t, _ in expected if m == "evaluate"]
+    table = quality.summary(work, QUALITY_SAMPLES, tags, module.KEY)
+    printed = json.dumps(table, indent=2)
+    got = [(leg["module"], leg["tag"], leg["launches"]) for leg in legs]
+    per_leg = [{k: leg[k] for k in ("module", "tag", "seconds")} for leg in legs]
+    print(f"quality {name} protocol at config H ({card}): {seconds:.1f} s in all; seconds a leg {json.dumps(per_leg)}")
+    print(f"quality {name} table: {json.dumps(table)}")
+    if rc != 0 or printed not in text.getvalue():
+        raise AssertionError(f"{name} protocol: rc {rc}, its table not printed:\n{text.getvalue()[-2000:]}")
+    if got != expected:
+        raise AssertionError(f"{name} protocol legs and launches {got} != {expected}")
+    rows = table[module.KEY]
+    want_rows = ["img.frechet_distance", "img.squared_mmd", "pts.frechet_distance", "pts.squared_mmd", "bev.jsd",
+                 "bev.mmd"]
+    empty = {t: _empty_scan(torch, work, t) for t in tags}
+    if list(rows) != want_rows or any(list(r) != tags for r in rows.values()):
+        raise AssertionError(f"{name} table rows {list(rows)}, tags {[list(r) for r in rows.values()]}")
+    # finite, but the BEV MMD of a leg with an empty scan (NaN there)
+    bad = [(row, t, v) for row, r in rows.items() for t, v in r.items()
+           if math.isfinite(v) == (row == "bev.mmd" and empty[t])]
+    if bad:
+        raise AssertionError(f"{name} table: values {bad} (legs with an empty scan: {empty})")
+
+    # the second invocation, a process on the same workdir: no leg, the same table
+    before = _mtimes(work)
+    t0 = time.time()
+    proc = subprocess.run([sys.executable, "-m", module.__name__, work, str(QUALITY_SAMPLES)],
+                          cwd=os.path.dirname(os.path.abspath(__file__)), capture_output=True, text=True, timeout=300)
+    again = time.time() - t0
+    after = _mtimes(work)
+    print(f"quality {name} again, python -m {module.__name__} on the same workdir: rc {proc.returncode}, "
+          f"{again:.1f} s, the same table {printed in proc.stdout}, files unchanged {after == before}")
+    if proc.returncode != 0 or "leg " in proc.stdout or printed not in proc.stdout or after != before:
+        raise AssertionError(f"{name} protocol again: rc {proc.returncode}\n{proc.stdout[-2000:]}{proc.stderr[-2000:]}")
+    totals = {}
+    for leg in legs:
+        for counts in (leg["launches"].values() if leg["module"] == "reflow" else [leg["launches"]]):
+            for k, v in counts.items():
+                totals[k] = totals.get(k, 0) + v
+    return {"seconds": seconds, "again_seconds": again, "legs": per_leg, "launches": totals,
+            "empty_scans": empty, "table": table}
+
+
+def phase_quality(torch, tmp, card):
+    """Both relative-quality protocols at config H, full width, on the card,
+    each on a fresh workdir with QUALITY_ENV's cuts: their legs in this
+    process through ``quality_leg_runner`` (exact launches a leg), their
+    tables (the expected tags and rows, finite but where a leg has an empty
+    scan), then each protocol again as a process, which runs no leg."""
+    off = ("R2DM_DDIMQ_SMOKE", "R2DM_FLOWQ_SMOKE", "R2DM_QUALITY_TRAIN_ARGS", "R2DM_QUALITY_TRAIN_ONLY")
+    saved = {k: os.environ.get(k) for k in (*QUALITY_ENV, *off)}
+    os.environ.update(QUALITY_ENV)
+    for k in off:
+        os.environ.pop(k, None)
+    try:
+        return {name: _quality_protocol(torch, tmp, card, name) for name in ("ddim", "flow")}
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
 
 def _lane_sites(torch, net, x, cond):
     """Each ring_conv_w8a8 call of one forward under the lane: (x shape, x
@@ -3550,7 +3739,7 @@ def main() -> int:
     width_kern = phases.run("width axis: the halo'd conv and the GN pair against their plain versions",
                             phase_width_kernels, torch, card)
     phases.run("conv∘FIR composed against two ops; the W2C record", phase_resample, torch)
-    eval_out = accum = two_ranks = reflowed = int8 = width = width_train = validated = None
+    eval_out = accum = two_ranks = reflowed = int8 = width = width_train = validated = quality_out = None
     with tempfile.TemporaryDirectory() as tmp:
         main_out = phases.run("main path", phase_main, torch, tmp)
         if main_out is not None:
@@ -3575,6 +3764,8 @@ def main() -> int:
                 validated = phases.run("python -m r2dm_tpu_torch.validate_pretrained", phase_validate, torch,
                                        main_out, eval_out, card)
             reflowed = phases.run("reflow", phase_reflow, torch, main_out, tmp, card)
+        quality_out = phases.run("quality protocols: ddim_quality_check and flow_quality_check", phase_quality,
+                                 torch, tmp, card)
         width_train = phases.run(f"width axis: training, two ranks on one card, --mesh {WIDTH_MESH}",
                                  phase_width_train, torch, tmp, card)
     step_out = phases.run("training: kernel path against plain path", phase_train_step, torch)
@@ -3616,6 +3807,8 @@ def main() -> int:
         row["width_refinenet_launches_per_rank"] = width["refinenet"]["launches"][name]
         row["width_refinenet_train_launches_per_rank"] = width_train["refinenet"]["launches"][name]
         row["validate_pretrained_launches"] = validated["launches"][name]
+        row["quality_ddim_launches"] = quality_out["ddim"]["launches"][name]
+        row["quality_flow_launches"] = quality_out["flow"]["launches"][name]
     print(f"ddim16_b{B}_img_per_s {main_out['ddim16_img_s']:.4f}")
     print(f"int8_ddim16_b{B}_img_per_s {int8['ddim16']['img_per_s']:.4f}; int8 forward device ms "
           f"{json.dumps(int8['forward_times'])}")
