@@ -1,0 +1,192 @@
+"""What every driver shares: the run's context, seeds derived from the run's
+seed, the program's configuration built from a configuration file, and the
+comparison helpers of the correctness check."""
+
+from __future__ import annotations
+
+import sys
+import time
+from contextlib import contextmanager
+from dataclasses import dataclass, field
+from typing import Optional
+
+import numpy as np
+import torch
+
+from ..trace import Spans
+
+
+@dataclass
+class Context:
+    cell: str
+    seed: int
+    seconds: float
+    trace: bool
+    cfg: dict  # the configuration file
+    traffic: dict  # the workload file
+    device: torch.device
+    t_start: float  # the host clock when the process started
+    control: Optional[str] = None  # the correctness check's control, never set by a timed run
+    spans: Spans = field(default_factory=Spans)
+
+
+@dataclass
+class Outcome:
+    attempted: int
+    failed: int
+    metrics: dict  # end-to-end values, by name
+    observed: dict  # what the per-layer readers read
+    checks: dict  # name -> (value, limit)
+    peak: int = 0  # the device's peak of allocated bytes, read as the window closed
+
+
+def derive(*parts: int) -> int:
+    """A 63-bit seed from the run's seed and indices."""
+    return int(np.random.SeedSequence([int(p) for p in parts]).generate_state(1, np.uint64)[0] >> np.uint64(1))
+
+
+def program_config(cfg: dict):
+    """The port's ``Config`` of a configuration file."""
+    from r2dm_tpu_torch import config as config_lib
+
+    c = config_lib.Config()
+    c.data.dataset, c.data.resolution = "synthetic", tuple(cfg["resolution"])
+    c.data.depth_format, c.data.min_depth, c.data.max_depth = cfg["depth_format"], cfg["min_depth"], cfg["max_depth"]
+    c.data.projection = cfg["projection"]
+    m = c.model
+    m.architecture, m.base_channels = cfg["architecture"], cfg["base_channels"]
+    m.channel_multiplier = tuple(cfg["channel_multiplier"])
+    if cfg["architecture"] == "efficient_unet":
+        m.num_residual_blocks = tuple(cfg["num_residual_blocks"])
+        m.gn_num_groups, m.gn_eps, m.attn_num_heads = cfg["gn_num_groups"], cfg["gn_eps"], cfg["attn_num_heads"]
+        m.coords_encoding = cfg["coords_encoding"]
+    d = c.diffusion
+    d.timestep_type, d.noise_schedule = cfg["timestep_type"], cfg["noise_schedule"]
+    d.prediction_type, d.loss_type = cfg["prediction_type"], cfg["loss_type"]
+    t, tc = c.training, cfg["training"]
+    t.batch_size_train, t.lr, t.lr_warmup_steps, t.num_steps = tc["batch_size"], tc["lr"], tc["lr_warmup_steps"], tc["num_steps"]
+    t.adam_beta1, t.adam_beta2 = tc["adam_betas"]
+    t.adam_epsilon, t.adam_weight_decay = tc["adam_eps"], tc["weight_decay"]
+    t.ema_decay, t.ema_update_every = tc["ema_decay"], tc["ema_update_every"]
+    t.mixed_precision = "bf16" if cfg["compute_dtype"] == "bfloat16" else "no"
+    return c
+
+
+def compute_dtype(cfg: dict, device: torch.device) -> Optional[torch.dtype]:
+    """The configuration's compute type on the card; float32 (None) on the
+    CPU, where the harness's tests drive it."""
+    return torch.bfloat16 if device.type == "cuda" and cfg["compute_dtype"] == "bfloat16" else None
+
+
+def rel_l2(a: torch.Tensor, ref: torch.Tensor) -> float:
+    a, ref = a.double(), ref.double()
+    return float(torch.linalg.vector_norm(a - ref) / torch.linalg.vector_norm(ref).clamp_min(1e-30))
+
+
+def leaf_gap(ours: list, ref: list, keep: Optional[list] = None) -> tuple[float, int]:
+    """The worst leaf of |‖ours‖ - ‖ref‖| / max(‖ref‖, the median leaf's
+    ‖ref‖): (the gap, the leaf's index)."""
+    n_ours = [float(torch.linalg.vector_norm(t.double())) for t in ours]
+    n_ref = [float(torch.linalg.vector_norm(t.double())) for t in ref]
+    med = float(np.median(n_ref))
+    idx = range(len(n_ref)) if keep is None else keep
+    return max((abs(n_ours[i] - n_ref[i]) / max(n_ref[i], med, 1e-30), i) for i in idx)
+
+
+class Recorder:
+    """A forward hook on the network, for the correctness check. While a slot
+    is open it copies each forward's input x_t, condition and output into
+    that slot's pinned host buffers, allocated before the window so that a
+    recorded call pays only the copies (forwards past the buffers are
+    counted, not kept); opened with ``rows`` it also keeps those rows of each
+    forward's input and output on the card."""
+
+    def __init__(self, model: torch.nn.Module, slots: int, forwards: int, shape: tuple, device: torch.device,
+                 rows=None):
+        self.pin = device.type == "cuda"
+
+        def buf(s):
+            return torch.empty(s, dtype=torch.float32, pin_memory=self.pin)
+
+        self.bufs = [[(buf(shape), buf(shape[:1]), buf(shape)) for _ in range(forwards)] for _ in range(slots)]
+        self.rows = None if rows is None else torch.as_tensor(rows, device=device)
+        self.slot, self.at, self.keep_rows, self.on_card = None, 0, False, []
+        self.handle = model.register_forward_hook(self._hook)
+
+    def _hook(self, module, args, output):
+        if self.keep_rows:
+            self.on_card.append((args[0][self.rows].clone(), output[self.rows].clone()))
+        if self.slot is None:
+            return
+        if self.at < len(self.bufs[self.slot]):
+            for dst, src in zip(self.bufs[self.slot][self.at], (args[0], args[1], output)):
+                dst.copy_(src, non_blocking=self.pin)
+        self.at += 1
+
+    def open(self, slot=None, rows: bool = False) -> None:
+        self.slot, self.at, self.keep_rows, self.on_card = slot, 0, rows, []
+
+    def close(self) -> tuple[list, list]:
+        """The slot's host copies, one (input, condition, output) per forward
+        seen (None for each when more came than it holds), and the rows kept
+        on the card, one (input, output) per forward."""
+        host = []
+        if self.slot is not None:
+            slot = self.bufs[self.slot]
+            host = slot[:self.at] if self.at <= len(slot) else [None] * self.at
+        on_card = self.on_card
+        self.slot, self.keep_rows, self.on_card = None, False, []
+        return host, on_card
+
+
+class Fence:
+    """Marks in the device's queue. ``mark()`` after a unit of work, and
+    ``wait(mark)`` blocks until the device has finished it and returns the
+    host clock then. On the CPU, where the harness's tests drive it, the work
+    is done when the call returns."""
+
+    def __init__(self, device: torch.device):
+        self.cuda = device.type == "cuda"
+
+    def mark(self):
+        if not self.cuda:
+            return True
+        event = torch.cuda.Event()
+        event.record()
+        return event
+
+    @staticmethod
+    def wait(mark) -> float:
+        if mark is not True:
+            mark.synchronize()
+        return time.perf_counter()
+
+
+def sync(device: torch.device) -> None:
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def free(device: torch.device) -> None:
+    """Return the program's freed memory to the card before the reference runs."""
+    import gc
+
+    gc.collect()
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+
+
+@contextmanager
+def reference_precision():
+    """float32 matrix products and convolutions in float32, not TF32, for
+    the body; the settings as they were afterwards."""
+    saved = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    try:
+        yield
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = saved
+
+
+def log(msg: str) -> None:
+    print(msg, file=sys.stderr, flush=True)
