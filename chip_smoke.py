@@ -2054,6 +2054,26 @@ def phase_two_ranks(torch, tmp, eval_out, card):
     return out
 
 
+def _trace_collectives(world) -> None:
+    """Zero the world's count of width collectives and trace them from here
+    (``r2dm_tpu_torch/utils/trace.py``)."""
+    from r2dm_tpu_torch.utils import trace
+
+    world.collective_calls = 0
+    trace.reset()
+    trace.enable()
+
+
+def _collectives(world) -> tuple:
+    """The width collectives since ``_trace_collectives``: their count and
+    the host seconds of their ``parallel.collective`` spans; tracing off."""
+    from r2dm_tpu_torch.utils import trace
+
+    seconds = trace.total(trace.snapshot(), "parallel.collective")
+    trace.disable()
+    return world.collective_calls, seconds
+
+
 def _rel(a, b) -> float:
     """Relative L2 of a against b, in float64."""
     a, b = a.double(), b.double()
@@ -2113,13 +2133,13 @@ def width_rank_job(torch, ckpt: str, chain_out: str) -> dict:
                 model(xs, cond)  # warm-up
                 torch.cuda.synchronize()
                 ops.reset_launch_counts()
-                world.collective_calls, world.collective_seconds = 0, 0.0
+                _trace_collectives(world)
                 t0 = time.time()
                 y = model(xs, cond)
                 torch.cuda.synchronize()
                 out["forward_host_s"] = time.time() - t0
                 out["forward_launches"] = _launches(ops)
-                out["collective_calls"], out["collective_host_s"] = world.collective_calls, world.collective_seconds
+                out["collective_calls"], out["collective_host_s"] = _collectives(world)
                 start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
                 start.record()
                 model(xs, cond)
@@ -2214,13 +2234,13 @@ def width_int8_job(torch, ckpt: str, chain_out: str) -> dict:
                 model(xs, cond)  # warm-up
                 torch.cuda.synchronize()
                 ops.reset_launch_counts()
-                world.collective_calls, world.collective_seconds = 0, 0.0
+                _trace_collectives(world)
                 t0 = time.time()
                 y = model(xs, cond)
                 torch.cuda.synchronize()
                 out["forward_host_s"] = time.time() - t0
                 out["forward_launches"] = _launches(ops)
-                out["collective_calls"], out["collective_host_s"] = world.collective_calls, world.collective_seconds
+                out["collective_calls"], out["collective_host_s"] = _collectives(world)
             out["forward_rel_l2"] = _rel(parallel.gather_columns(y, world), ref)
             torch.cuda.synchronize()
             ops.reset_launch_counts()
@@ -2275,13 +2295,13 @@ def width_train_job(torch) -> dict:
         loss_and_grad(xs, ns)  # warm-up
         torch.cuda.synchronize()
         ops.reset_launch_counts()
-        world.collective_calls, world.collective_seconds = 0, 0.0
+        _trace_collectives(world)
         t0 = time.time()
         loss_s, grad_s = loss_and_grad(xs, ns)
         torch.cuda.synchronize()
         out["step_host_s"] = time.time() - t0
         out["launches"] = _launches(ops)
-        out["collective_calls"], out["collective_host_s"] = world.collective_calls, world.collective_seconds
+        out["collective_calls"], out["collective_host_s"] = _collectives(world)
         for t in (loss_s, grad_s):  # the width shares summed (D = 1), as training/step.py sums them
             torch.distributed.all_reduce(t)
         if world.width_rank == 0:
@@ -2374,12 +2394,12 @@ def width_refinenet_job(torch) -> dict:
                 with layers.width_sharded(net, world):
                     net(xs, cond)  # warm-up
                     torch.cuda.synchronize()
-                    world.collective_calls, world.collective_seconds = 0, 0.0
+                    _trace_collectives(world)
                     t0 = time.time()
                     y = net(xs, cond)
                     torch.cuda.synchronize()
                     host_s = time.time() - t0
-                    calls, coll_s = world.collective_calls, world.collective_seconds
+                    calls, coll_s = _collectives(world)
                     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
                     start.record()
                     net(xs, cond)
@@ -2444,13 +2464,13 @@ def width_refinenet_train_job(torch) -> dict:
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         base = torch.cuda.memory_allocated()
-        world.collective_calls, world.collective_seconds = 0, 0.0
+        _trace_collectives(world)
         t0 = time.time()
         loss_s, grad_s = loss_and_grad(xs, ns)
         torch.cuda.synchronize()
         out["step_host_s"] = time.time() - t0
         out["peak_bytes"] = torch.cuda.max_memory_allocated() - base
-        out["collective_calls"], out["collective_host_s"] = world.collective_calls, world.collective_seconds
+        out["collective_calls"], out["collective_host_s"] = _collectives(world)
         for t in (loss_s, grad_s):  # the width shares summed (D = 1), as training/step.py sums them
             torch.distributed.all_reduce(t)
         if world.width_rank == 0:

@@ -21,6 +21,7 @@ import numpy as np
 import torch
 
 from ..lidar import LiDARUtility
+from ..utils import trace
 from .datasets import RangeImageDataset
 
 
@@ -126,7 +127,9 @@ class DataLoader:
         def worker():
             try:
                 for ids in self._index_stream():
-                    if not put(self._make_batch(ids)):
+                    with trace.span("data.make_batch"):
+                        batch = self._make_batch(ids)
+                    if not put(batch):
                         return
             except Exception as exc:  # handed to the consumer, which raises it
                 put(exc)
@@ -135,6 +138,9 @@ class DataLoader:
         t.start()
         try:
             while True:
+                if trace.on():
+                    trace.count("data.gets")
+                    trace.count("data.gets_empty", q.empty())
                 item = q.get()
                 if isinstance(item, Exception):
                     raise item

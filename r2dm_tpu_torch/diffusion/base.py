@@ -41,6 +41,7 @@ from typing import Callable, Iterable, Optional, Sequence, Union
 import torch
 
 from ..parallel.width import all_reduce_sum_, shard_columns, sharded
+from ..utils import trace
 
 Generators = Union[None, torch.Generator, Sequence[torch.Generator]]
 NoiseSource = Union[None, Callable[[tuple], torch.Tensor], Iterable[torch.Tensor]]
@@ -285,21 +286,23 @@ class GaussianDiffusion:
         known = known.to(torch.float32)
         mask = mask.to(torch.float32)
         for step_t, step_s in ts_pairs:
-            for j in range(num_resample_steps):
-                x_s = self._repaint_reverse_jumps(known, mask, x_t, step_t, step_s, draw, jump_length)
-                # re-noise unless this is the last resample of the step
-                if j == num_resample_steps - 1:
-                    x_t = x_s
-                else:
-                    x_t = self._repaint_forward_jumps(x_s, step_t, step_s, draw, jump_length)
+            with trace.span("sampler.step", device=x_t):
+                for j in range(num_resample_steps):
+                    x_s = self._repaint_reverse_jumps(known, mask, x_t, step_t, step_s, draw, jump_length)
+                    # re-noise unless this is the last resample of the step
+                    if j == num_resample_steps - 1:
+                        x_t = x_s
+                    else:
+                        x_t = self._repaint_forward_jumps(x_s, step_t, step_s, draw, jump_length)
         return x_t
 
     def repaint_final(self, known, mask, x_t, step_t, step_s, draw: Draw, jump_length: int = 1) -> torch.Tensor:
         """The last step: one reverse pass, no re-noising (the reference's
         early break, continuous_time.py:305-307)."""
-        return self._repaint_reverse_jumps(
-            known.to(torch.float32), mask.to(torch.float32), x_t, step_t, step_s, draw, jump_length
-        )
+        with trace.span("sampler.step", device=x_t):
+            return self._repaint_reverse_jumps(
+                known.to(torch.float32), mask.to(torch.float32), x_t, step_t, step_s, draw, jump_length
+            )
 
     @torch.inference_mode()
     def repaint(

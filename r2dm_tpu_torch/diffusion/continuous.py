@@ -19,6 +19,7 @@ from typing import Optional, Sequence
 
 import torch
 
+from ..utils import trace
 from . import schedules
 from .base import Draw, GaussianDiffusion, Generators, OnSegment, _b, stack_steps
 
@@ -166,13 +167,14 @@ class ContinuousTimeGaussianDiffusion(GaussianDiffusion):
         stochastic = mode == "ddpm" or ddim_eta != 0.0
         xs = []
         for i in range(ts_seg.shape[0] - 1):
-            if noise is not None:
-                n = noise[i]
-            elif stochastic:
-                n = self._normal(generator, x.shape, x.device)
-            else:
-                n = None
-            x = self.p_step(x, ts_seg[i], ts_seg[i + 1], noise=n, mode=mode, ddim_eta=ddim_eta)
+            with trace.span("sampler.step", device=x):
+                if noise is not None:
+                    n = noise[i]
+                elif stochastic:
+                    n = self._normal(generator, x.shape, x.device)
+                else:
+                    n = None
+                x = self.p_step(x, ts_seg[i], ts_seg[i + 1], noise=n, mode=mode, ddim_eta=ddim_eta)
             if return_all:
                 xs.append(x)
         return (x, stack_steps(xs, x)) if return_all else x
@@ -230,17 +232,18 @@ class ContinuousTimeGaussianDiffusion(GaussianDiffusion):
         B = x.shape[0]
         xs = []
         for i in range(ts_seg.shape[0] - 1):
-            x = x.to(torch.float32)
-            log_snr_t = self._steps(ts_seg[i], B, x.device)
-            log_snr_s = self._steps(ts_seg[i + 1], B, x.device)
-            x0 = self._model_x0(x, log_snr_t)
-            lam_t = 0.5 * _b(log_snr_t)  # lambda := log(alpha / sigma)
-            lam_s = 0.5 * _b(log_snr_s)
-            h = lam_s - lam_t
-            d = x0 + h / (2.0 * (lam_t - prev_lam)) * (x0 - prev_x0) if second_order[i] else x0
-            _, sigma_t = schedules.logsnr_to_alpha_sigma(_b(log_snr_t))
-            alpha_s, sigma_s = schedules.logsnr_to_alpha_sigma(_b(log_snr_s))
-            x = (sigma_s / sigma_t) * x - alpha_s * torch.expm1(-h) * d
+            with trace.span("sampler.step", device=x):
+                x = x.to(torch.float32)
+                log_snr_t = self._steps(ts_seg[i], B, x.device)
+                log_snr_s = self._steps(ts_seg[i + 1], B, x.device)
+                x0 = self._model_x0(x, log_snr_t)
+                lam_t = 0.5 * _b(log_snr_t)  # lambda := log(alpha / sigma)
+                lam_s = 0.5 * _b(log_snr_s)
+                h = lam_s - lam_t
+                d = x0 + h / (2.0 * (lam_t - prev_lam)) * (x0 - prev_x0) if second_order[i] else x0
+                _, sigma_t = schedules.logsnr_to_alpha_sigma(_b(log_snr_t))
+                alpha_s, sigma_s = schedules.logsnr_to_alpha_sigma(_b(log_snr_s))
+                x = (sigma_s / sigma_t) * x - alpha_s * torch.expm1(-h) * d
             prev_x0, prev_lam = x0, lam_t
             if return_all:
                 xs.append(x)

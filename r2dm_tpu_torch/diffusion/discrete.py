@@ -15,6 +15,7 @@ from typing import Optional, Union
 
 import torch
 
+from ..utils import trace
 from . import schedules
 from .base import GaussianDiffusion, Generators, OnSegment, _b, stack_steps
 
@@ -174,13 +175,14 @@ class DiscreteTimeGaussianDiffusion(GaussianDiffusion):
         stochastic = mode == "ddpm" or eta > 0
         xs = []
         for i, t in enumerate(torch.as_tensor(timesteps_seg).tolist()):
-            if noise is not None:
-                n = noise[i]
-            elif stochastic:
-                n = self._normal(generator, x.shape, x.device)
-            else:
-                n = None
-            x = self.p_step(x, int(t), noise=n, mode=mode, eta=eta)
+            with trace.span("sampler.step", device=x):
+                if noise is not None:
+                    n = noise[i]
+                elif stochastic:
+                    n = self._normal(generator, x.shape, x.device)
+                else:
+                    n = None
+                x = self.p_step(x, int(t), noise=n, mode=mode, eta=eta)
             if return_all:
                 xs.append(x)
         return (x, stack_steps(xs, x)) if return_all else x

@@ -20,6 +20,7 @@ from typing import Optional
 
 import torch
 
+from ..utils import trace
 from .base import Draw, GaussianDiffusion, Generators, OnSegment, _b, stack_steps
 
 
@@ -121,7 +122,8 @@ class RectifiedFlow(GaussianDiffusion):
         del ddim_eta, generator, noise
         xs = []
         for i in range(ts_seg.shape[0] - 1):
-            x = self.ode_step(x, ts_seg[i], ts_seg[i + 1], mode=mode)
+            with trace.span("sampler.step", device=x):
+                x = self.ode_step(x, ts_seg[i], ts_seg[i + 1], mode=mode)
             if return_all:
                 xs.append(x)
         return (x, stack_steps(xs, x)) if return_all else x

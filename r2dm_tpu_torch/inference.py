@@ -40,6 +40,7 @@ from .models.layers import quant_conv_mode, width_sharded
 from .models.refinenet import LiDARGenRefineNet
 from .ops.encoding import get_hdl64e_linear_ray_angles
 from .parallel.width import gather_columns, sharded
+from .utils import trace
 from .utils.weights import from_jax, reference_state_dict
 
 # the JAX package's unfolding angle tables, read in place as data
@@ -309,23 +310,24 @@ class DDPM:
             raise ValueError(f"progress_chunk must be >= 1, got {progress_chunk}")
         width = self._width(world)
         chunk = self._batch_chunk(batch_size, batch_chunk, seeds, width.width_size if width else 1)
-        gens = self._generators(seeds)
-        outs = []
-        with width_sharded(self.model, width):
-            for lo in range(0, batch_size, chunk):
-                hi = min(lo + chunk, batch_size)
-                x = self._chain(
-                    hi - lo, num_steps, mode, ddim_eta,
-                    gens if isinstance(gens, torch.Generator) else gens[lo:hi],
-                    None if x_T is None else x_T[lo:hi],
-                    None if noise is None else noise[:, lo:hi],
-                    return_all, progress, progress_chunk,
-                )
-                outs.append(gather_columns(x, width, dim=3 if return_all else 2))
-        x = torch.cat(outs, dim=1 if return_all else 0)
-        if data_format == "NCHW":
-            x = x.permute(0, 1, 4, 2, 3) if return_all else x.permute(0, 3, 1, 2)
-            x = x.contiguous()
+        with trace.span("entry.sample", device=self.model.coords, request=True):
+            gens = self._generators(seeds)
+            outs = []
+            with width_sharded(self.model, width):
+                for lo in range(0, batch_size, chunk):
+                    hi = min(lo + chunk, batch_size)
+                    x = self._chain(
+                        hi - lo, num_steps, mode, ddim_eta,
+                        gens if isinstance(gens, torch.Generator) else gens[lo:hi],
+                        None if x_T is None else x_T[lo:hi],
+                        None if noise is None else noise[:, lo:hi],
+                        return_all, progress, progress_chunk,
+                    )
+                    outs.append(gather_columns(x, width, dim=3 if return_all else 2))
+            x = torch.cat(outs, dim=1 if return_all else 0)
+            if data_format == "NCHW":
+                x = x.permute(0, 1, 4, 2, 3) if return_all else x.permute(0, 3, 1, 2)
+                x = x.contiguous()
         return x
 
     def _width(self, world):
@@ -406,22 +408,23 @@ class DDPM:
         mask = mask.to(device=device, dtype=torch.float32)
         width = self._width(world)
         chunk = self._batch_chunk(bsz, None, seeds, width.width_size if width else 1)
-        gens = self._generators(seeds)
         # with a progress line, segments of about progress_chunk network calls
         segment = max(1, progress_chunk // (num_resample_steps * jump_length)) if progress else None
-        outs = []
-        with width_sharded(self.model, width):
-            for lo in range(0, bsz, chunk):
-                hi = min(lo + chunk, bsz)
-                bar = _Progress("repaint", num_steps, progress, device)
-                outs.append(gather_columns(self.diffusion.repaint(
-                    known[lo:hi], mask[lo:hi] if mask.shape[0] == bsz else mask, num_steps,
-                    num_resample_steps, jump_length,
-                    generator=gens if isinstance(gens, torch.Generator) else gens[lo:hi],
-                    noise=noise, device=device, segment_steps=segment, on_segment=bar.update,
-                ), width))
-        x = torch.cat(outs)
-        return x.permute(0, 3, 1, 2).contiguous() if data_format == "NCHW" else x
+        with trace.span("entry.sample", device=known, request=True):
+            gens = self._generators(seeds)
+            outs = []
+            with width_sharded(self.model, width):
+                for lo in range(0, bsz, chunk):
+                    hi = min(lo + chunk, bsz)
+                    bar = _Progress("repaint", num_steps, progress, device)
+                    outs.append(gather_columns(self.diffusion.repaint(
+                        known[lo:hi], mask[lo:hi] if mask.shape[0] == bsz else mask, num_steps,
+                        num_resample_steps, jump_length,
+                        generator=gens if isinstance(gens, torch.Generator) else gens[lo:hi],
+                        noise=noise, device=device, segment_steps=segment, on_segment=bar.update,
+                    ), width))
+            x = torch.cat(outs)
+            return x.permute(0, 3, 1, 2).contiguous() if data_format == "NCHW" else x
 
     def loss(self, x_0: torch.Tensor, generator: Generators = None, data_format: str = "NHWC") -> torch.Tensor:
         """The training loss of the diffusion on ``x_0`` (JAX
@@ -461,33 +464,37 @@ def setup_model(
     checkpoint (``checkpoint.py``), or an already-loaded dict {cfg, weights,
     ema_weights, ...} of either kind (reference utils/inference.py:16-114).
     ``width_merge_l1``: the small-batch latency layout (``build_model``)."""
-    if isinstance(ckpt, (str, os.PathLike)):
-        ckpt = _load(str(ckpt))
-    _check_dtype(device, dtype)
-    cfg = load_config(ckpt)
-    weights = ckpt.get("ema_weights" if ema else "weights") or ckpt.get("weights")
-    if "params" in weights:  # a flax tree {'params', 'buffers'}
-        sd = from_jax(weights, cfg.model.architecture)
-    else:
-        sd = reference_state_dict(weights)
-    model = build_model(cfg, dtype=dtype, device="cpu", width_merge_l1=width_merge_l1)
-    if "coords" not in sd:
-        # the EfficientUNet's grid is the sensor's ray angles; a RefineNet
-        # keeps its own [0, 1] grid, as the flax module's buffer does
-        sd["coords"] = (torch.from_numpy(np.ascontiguousarray(model_coords(cfg).transpose(2, 0, 1)[None]))
-                        if cfg.model.architecture == "efficient_unet" else model.coords)
-    model.load_state_dict(sd)
-    model = model.to(device)
-    ddpm = DDPM(build_diffusion(cfg, model), cfg)
-    lidar_utils = LiDARUtility(
-        resolution=tuple(cfg.data.resolution),
-        depth_format=cfg.data.depth_format,
-        min_depth=cfg.data.min_depth,
-        max_depth=cfg.data.max_depth,
-        ray_angles=model.coords,
-        data_format="NCHW",
-        device=model.coords.device,
-    )
+    with trace.span("entry.setup_model"):
+        if isinstance(ckpt, (str, os.PathLike)):
+            ckpt = _load(str(ckpt))
+        _check_dtype(device, dtype)
+        cfg = load_config(ckpt)
+        with trace.span("entry.build"):
+            model = build_model(cfg, dtype=dtype, device="cpu", width_merge_l1=width_merge_l1)
+        with trace.span("entry.load_weights"):
+            weights = ckpt.get("ema_weights" if ema else "weights") or ckpt.get("weights")
+            if "params" in weights:  # a flax tree {'params', 'buffers'}
+                sd = from_jax(weights, cfg.model.architecture)
+            else:
+                sd = reference_state_dict(weights)
+            if "coords" not in sd:
+                # the EfficientUNet's grid is the sensor's ray angles; a RefineNet
+                # keeps its own [0, 1] grid, as the flax module's buffer does
+                sd["coords"] = (torch.from_numpy(np.ascontiguousarray(model_coords(cfg).transpose(2, 0, 1)[None]))
+                                if cfg.model.architecture == "efficient_unet" else model.coords)
+            model.load_state_dict(sd)
+        with trace.span("entry.to_device"):
+            model = model.to(device)
+        ddpm = DDPM(build_diffusion(cfg, model), cfg)
+        lidar_utils = LiDARUtility(
+            resolution=tuple(cfg.data.resolution),
+            depth_format=cfg.data.depth_format,
+            min_depth=cfg.data.min_depth,
+            max_depth=cfg.data.max_depth,
+            ray_angles=model.coords,
+            data_format="NCHW",
+            device=model.coords.device,
+        )
     return ddpm, lidar_utils, cfg
 
 

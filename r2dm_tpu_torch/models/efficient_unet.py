@@ -30,6 +30,7 @@ import torch.nn as nn
 from ..ops import encoding as enc
 from ..ops.resample import downsample2x, fir_kernel, upsample2x
 from ..parallel.width import shard_columns
+from ..utils import trace
 from . import layers
 from .layers import Dense, ResidualBlock, RingConv, SelfAttentionBlock
 
@@ -241,22 +242,23 @@ class EfficientUNet(nn.Module):
     def forward(
         self, images: torch.Tensor, timesteps: torch.Tensor, generator: Optional[torch.Generator] = None,
     ) -> torch.Tensor:
-        B = images.shape[0]
-        if timesteps.dim() == 0:
-            timesteps = timesteps.expand(B)
-        temb = self.time_embedding(timesteps)
-        h = images
-        cenc = self._coords_encoding()
-        if cenc is not None:
-            cenc = cenc[None].expand(B, *cenc.shape).to(h.dtype)
-            h = torch.cat([h, cenc], dim=-1)
-        h = self.in_conv(h)
-        h1 = self.d_block1(h, temb, generator)
-        h2 = self.d_block2(h1, temb, generator)
-        h3 = self.d_block3(h2, temb, generator)
-        h4 = self.d_block4(h3, temb, generator)
-        h = self.u_block4(h4, temb, generator)
-        h = self.u_block3(torch.cat([h, h3], dim=-1), temb, generator)
-        h = self.u_block2(torch.cat([h, h2], dim=-1), temb, generator)
-        h = self.u_block1(torch.cat([h, h1], dim=-1), temb, generator)
-        return self.out_conv(h).to(torch.float32)
+        with trace.span("network.forward"):
+            B = images.shape[0]
+            if timesteps.dim() == 0:
+                timesteps = timesteps.expand(B)
+            temb = self.time_embedding(timesteps)
+            h = images
+            cenc = self._coords_encoding()
+            if cenc is not None:
+                cenc = cenc[None].expand(B, *cenc.shape).to(h.dtype)
+                h = torch.cat([h, cenc], dim=-1)
+            h = self.in_conv(h)
+            h1 = self.d_block1(h, temb, generator)
+            h2 = self.d_block2(h1, temb, generator)
+            h3 = self.d_block3(h2, temb, generator)
+            h4 = self.d_block4(h3, temb, generator)
+            h = self.u_block4(h4, temb, generator)
+            h = self.u_block3(torch.cat([h, h3], dim=-1), temb, generator)
+            h = self.u_block2(torch.cat([h, h2], dim=-1), temb, generator)
+            h = self.u_block1(torch.cat([h, h1], dim=-1), temb, generator)
+            return self.out_conv(h).to(torch.float32)

@@ -44,6 +44,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from ..parallel.width import halo_exchange, pad_columns, shard_columns, sharded, sum_over_width
+from ..utils import trace
 from .layers import _compute_dtype
 
 NORM_EPS = 1e-5
@@ -366,15 +367,16 @@ class LiDARGenRefineNet(nn.Module):
 
     def forward(self, images: torch.Tensor, timesteps: Optional[torch.Tensor] = None,
                 generator: Optional[torch.Generator] = None) -> torch.Tensor:
-        x = images.permute(0, 3, 1, 2)
-        coords = shard_columns(self.coords, self.width_shard, dim=3).expand(x.shape[0], -1, -1, -1).to(x.dtype)
-        h = self.in_conv(torch.cat([x, coords], dim=1))
-        h1 = self.d_block1(h)
-        h2 = self.d_block2(h1)
-        h3 = self.d_block3(h2)
-        h4 = self.d_block4(h3)
-        u = self.u_block4([h4], h4.shape[2:])
-        u = self.u_block3([h3, u], h3.shape[2:])
-        u = self.u_block2([h2, u], h2.shape[2:])
-        u = self.u_block1([h1, u], h1.shape[2:])
-        return self.out_conv(u).permute(0, 2, 3, 1).to(torch.float32).contiguous()
+        with trace.span("network.forward"):
+            x = images.permute(0, 3, 1, 2)
+            coords = shard_columns(self.coords, self.width_shard, dim=3).expand(x.shape[0], -1, -1, -1).to(x.dtype)
+            h = self.in_conv(torch.cat([x, coords], dim=1))
+            h1 = self.d_block1(h)
+            h2 = self.d_block2(h1)
+            h3 = self.d_block3(h2)
+            h4 = self.d_block4(h3)
+            u = self.u_block4([h4], h4.shape[2:])
+            u = self.u_block3([h3, u], h3.shape[2:])
+            u = self.u_block2([h2, u], h2.shape[2:])
+            u = self.u_block1([h1, u], h1.shape[2:])
+            return self.out_conv(u).permute(0, 2, 3, 1).to(torch.float32).contiguous()

@@ -55,9 +55,8 @@ class World:
     owns_group: bool = False  # init() created the default group and close() destroys it
     width_size: int = 1  # W: the ranks that split each image's columns
     width_group: Any = None  # this rank's width group (None when W = 1)
-    # the width collectives' host time (parallel/width.py adds to them)
+    # the width collectives made (parallel/width.py counts them)
     collective_calls: int = 0
-    collective_seconds: float = 0.0
 
     @property
     def is_main(self) -> bool:

@@ -38,17 +38,16 @@ does.)
 The W axis is dim 2 of NHWC (the default) and dim 3 of NCHW. Tensors cross
 the group as raw bytes, so any dtype arrives bit for bit. Nothing is copied
 to the host here: a group whose backend cannot take the tensor's device
-raises. Each collective adds its host time to ``world.collective_seconds``
-and one to ``world.collective_calls``.
+raises. Each collective adds one to ``world.collective_calls`` and, while
+tracing is on, records a ``parallel.collective`` span (``utils/trace.py``).
 """
 
 from __future__ import annotations
 
-import time
-
 import torch
 import torch.distributed as dist
 
+from ..utils import trace
 from .mesh import World
 
 
@@ -62,9 +61,8 @@ def _all_gather(t: torch.Tensor, world: World) -> list:
     t = t.contiguous()
     raw = t.view(torch.uint8)
     parts = [torch.empty_like(raw) for _ in range(world.width_size)]
-    t0 = time.perf_counter()
-    dist.all_gather(parts, raw, group=world.width_group)
-    world.collective_seconds += time.perf_counter() - t0
+    with trace.span("parallel.collective", device=raw):
+        dist.all_gather(parts, raw, group=world.width_group)
     world.collective_calls += 1
     return [p.view(t.dtype).reshape(t.shape) for p in parts]
 
@@ -168,9 +166,8 @@ def pad_columns(x: torch.Tensor, left: int, right: int, world: World, dim: int =
 
 def all_reduce_sum_(t: torch.Tensor, world: World) -> torch.Tensor:
     """``t`` summed over the width group, in place; returns ``t``."""
-    t0 = time.perf_counter()
-    dist.all_reduce(t, op=dist.ReduceOp.SUM, group=world.width_group)
-    world.collective_seconds += time.perf_counter() - t0
+    with trace.span("parallel.collective", device=t):
+        dist.all_reduce(t, op=dist.ReduceOp.SUM, group=world.width_group)
     world.collective_calls += 1
     return t
 
@@ -186,9 +183,8 @@ def all_reduce_max_bits_(t: torch.Tensor, world: World) -> torch.Tensor:
     may drop it. Returns ``t``."""
     bits = t.view(torch.int32)
     bits.masked_fill_(t.isnan(), QUIET_NAN_BITS)
-    t0 = time.perf_counter()
-    dist.all_reduce(bits, op=dist.ReduceOp.MAX, group=world.width_group)
-    world.collective_seconds += time.perf_counter() - t0
+    with trace.span("parallel.collective", device=bits):
+        dist.all_reduce(bits, op=dist.ReduceOp.MAX, group=world.width_group)
     world.collective_calls += 1
     return t
 

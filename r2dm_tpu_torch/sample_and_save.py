@@ -40,6 +40,7 @@ from . import parallel
 from .inference import setup_model
 from .lidar import LiDARUtility
 from .models.layers import set_quant_conv
+from .utils import trace
 
 MODES = ("ddpm", "ddim", "dpmpp_2m", "euler", "midpoint")
 
@@ -48,9 +49,10 @@ def postprocess(x: torch.Tensor, lidar_utils: LiDARUtility) -> torch.Tensor:
     """(B, C, H, W) samples in [-1, 1] -> (B, 5, H, W) [depth, x, y, z,
     reflectance] in metres (reference sample_and_save.py:52-57);
     ``lidar_utils`` in NCHW."""
-    x = lidar_utils.denormalize(torch.clamp(x, -1, 1))
-    depth = lidar_utils.revert_depth(x[:, 0:1])
-    return torch.cat([depth, lidar_utils.to_xyz(depth), x[:, 1:2]], dim=1)
+    with trace.span("entry.points", device=x):
+        x = lidar_utils.denormalize(torch.clamp(x, -1, 1))
+        depth = lidar_utils.revert_depth(x[:, 0:1])
+        return torch.cat([depth, lidar_utils.to_xyz(depth), x[:, 1:2]], dim=1)
 
 
 def main(args: argparse.Namespace) -> int:

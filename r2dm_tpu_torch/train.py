@@ -13,8 +13,13 @@ type), AdamW + cosine warmup + global-norm clip, the EMA,
 package's layout every ``steps_save_model`` steps and at the end, resume
 from ``--training.resume``, and SIGTERM/SIGINT: finish the step, write the
 checkpoint, exit 0. ``--training.profile_dir`` writes a ``torch.profiler``
-trace of steps 10-15. On CUDA every train step runs both hand-written
-kernels forward and the ring-conv kernel backward.
+trace of steps 10-15 with the program's spans on (``utils/trace.py``), so
+the train step's phases, the network's forwards and the loader's batches
+show beside the kernels. ``steps_per_sec`` in ``metrics.jsonl`` is the rate
+of the steps since the previous line, timed from the end of that step (after
+its panels and checkpoint); a panel or checkpoint at a step with no line
+falls in the next line's interval. On CUDA every train step runs both
+hand-written kernels forward and the ring-conv kernel backward.
 ``--training.gradient_accumulation_steps`` and ``--training.grad_bf16`` are
 the JAX trainer's (``training/step.py``). ``--model.architecture refinenet``
 trains the LiDARGen RefineNet (plain PyTorch, no hand-written kernel); as
@@ -90,6 +95,7 @@ from .inference import build_diffusion, build_model, count_parameters, model_coo
 from .lidar import LiDARUtility
 from .models.layers import set_width_shard
 from .training import EMAConfig, init_train_state, make_optimizer, make_train_step, schedule_lr, set_schedule_step
+from .utils import trace
 from .utils.logging import MetricLogger, save_image_panels
 from .utils.weights import from_jax
 
@@ -252,6 +258,7 @@ def _train(cfg: config_lib.Config, world: parallel.World):
 
     profiler = None
     t0 = time.time()
+    t_log, step_log = t0, start_step  # the interval that steps_per_sec covers
     global_step = start_step
     stopped = False
     try:
@@ -266,6 +273,7 @@ def _train(cfg: config_lib.Config, world: parallel.World):
                     activities.append(torch.profiler.ProfilerActivity.CUDA)
                 profiler = torch.profiler.profile(activities=activities)
                 profiler.start()
+                trace.enable()
             x_0 = preprocess_batch(
                 lidar_utils, batch, tuple(cfg.data.resolution), cfg.data.train_depth, cfg.data.train_reflectance
             )
@@ -279,6 +287,7 @@ def _train(cfg: config_lib.Config, world: parallel.World):
             if profiler is not None and global_step - start_step == 15:
                 if device.type == "cuda":
                     torch.cuda.synchronize(device)
+                trace.disable()
                 profiler.stop()
                 os.makedirs(tcfg.profile_dir, exist_ok=True)
                 profiler.export_chrome_trace(os.path.join(tcfg.profile_dir, "trace.json"))
@@ -292,8 +301,9 @@ def _train(cfg: config_lib.Config, world: parallel.World):
                     metrics["loss"] /= world.data_size
                 m = {k: float(v) for k, v in metrics.items()}
                 m["lr"] = schedule_lr(scheduler, global_step)
-                m["steps_per_sec"] = (global_step - start_step) / (time.time() - t0)
+                m["steps_per_sec"] = (global_step - step_log) / (time.time() - t_log)
                 logger.log(global_step, m)  # cf. reference train.py:273-277
+                step_log = global_step
 
             if global_step % tcfg.steps_save_image == 0 and is_main:
                 g = step_generator(9, global_step, device)
@@ -302,6 +312,8 @@ def _train(cfg: config_lib.Config, world: parallel.World):
 
             if global_step % tcfg.steps_save_model == 0 and is_main:
                 write_checkpoint()
+            if step_log == global_step:
+                t_log = time.time()
 
         if is_main:
             path = write_checkpoint()
@@ -314,6 +326,7 @@ def _train(cfg: config_lib.Config, world: parallel.World):
         for s, h in prev_handlers.items():
             signal.signal(s, h)
         if profiler is not None:
+            trace.disable()
             profiler.stop()
         batches.close()
         logger.close()

@@ -45,6 +45,7 @@ from typing import Optional
 import torch
 import torch.distributed as dist
 
+from ..utils import trace
 from .ema import EMAConfig, ema_update
 from .optim import CLIP_NORM
 
@@ -118,19 +119,21 @@ def make_train_step(diffusion, optimizer, scheduler, ema_cfg: EMAConfig, grad_dt
 
     def low_precision_backward(state: TrainState, *args) -> torch.Tensor:
         named = list(state.model.named_parameters())
-        cast = {n: p.detach().to(grad_dtype).requires_grad_() for n, p in named}
+        with trace.span("train.loss"):
+            cast = {n: p.detach().to(grad_dtype).requires_grad_() for n, p in named}
 
-        def net(x, cond, **kwargs):
-            return torch.func.functional_call(state.model, cast, (x, cond), kwargs)
+            def net(x, cond, **kwargs):
+                return torch.func.functional_call(state.model, cast, (x, cond), kwargs)
 
-        loss = loss_of(net, *args)
-        grads = torch.autograd.grad(loss, list(cast.values()))
-        if ddp is not None:
-            grads = _all_reduce_mean(grads, ddp.process_group, dist.get_world_size(ddp.process_group))
-        elif width is not None:
-            grads = _all_reduce_mean(grads, None, width.data_size)
-        for (_, p), g in zip(named, grads):
-            p.grad = g.reshape(p.shape).to(p.dtype)
+            loss = loss_of(net, *args)
+        with trace.span("train.backward"):
+            grads = torch.autograd.grad(loss, list(cast.values()))
+            if ddp is not None:
+                grads = _all_reduce_mean(grads, ddp.process_group, dist.get_world_size(ddp.process_group))
+            elif width is not None:
+                grads = _all_reduce_mean(grads, None, width.data_size)
+            for (_, p), g in zip(named, grads):
+                p.grad = g.reshape(p.shape).to(p.dtype)
         return loss
 
     def width_reduce(state: TrainState) -> None:
@@ -167,23 +170,27 @@ def make_train_step(diffusion, optimizer, scheduler, ema_cfg: EMAConfig, grad_dt
         noise: Optional[torch.Tensor] = None,
     ) -> dict:
         args = (x_0, generator, loss_mask, steps, noise)
-        optimizer.zero_grad(set_to_none=True)
-        if grad_dtype is None:
-            loss = loss_of(ddp if ddp is not None else state.model, *args)
-            loss.backward()
-            if width is not None:
-                width_reduce(state)
-        else:
-            loss = low_precision_backward(state, *args)
-        if state.accumulation_steps == 1:
-            params = [p for p in state.model.parameters() if p.grad is not None]
-            grad_norm = torch.nn.utils.clip_grad_norm_(params, CLIP_NORM)
-            optimizer.step()
-            scheduler.step()
-            state.updates += 1
-        else:
-            grad_norm = accumulate(state, list(state.model.parameters()))
-        decay = ema_update(state.ema_model.parameters(), state.model.parameters(), state.step, ema_cfg)
+        with trace.span("train.step", device=x_0):
+            optimizer.zero_grad(set_to_none=True)
+            if grad_dtype is None:
+                with trace.span("train.loss"):
+                    loss = loss_of(ddp if ddp is not None else state.model, *args)
+                with trace.span("train.backward"):
+                    loss.backward()
+                    if width is not None:
+                        width_reduce(state)
+            else:
+                loss = low_precision_backward(state, *args)
+            with trace.span("train.update"):
+                if state.accumulation_steps == 1:
+                    params = [p for p in state.model.parameters() if p.grad is not None]
+                    grad_norm = torch.nn.utils.clip_grad_norm_(params, CLIP_NORM)
+                    optimizer.step()
+                    scheduler.step()
+                    state.updates += 1
+                else:
+                    grad_norm = accumulate(state, list(state.model.parameters()))
+                decay = ema_update(state.ema_model.parameters(), state.model.parameters(), state.step, ema_cfg)
         state.step += 1
         return {"loss": loss.detach(), "grad_norm": grad_norm, "ema_decay": decay}
 
