@@ -13,7 +13,8 @@ Phases (any failure makes the exit code non-zero and suppresses the result):
      and its SiLU over z in [-10, 10] to one bf16 step;
   3. kernel 2 (act_ringconv.cu) against its plain version at every
      (C_in, F, H, W) of the config-H ResidualBlocks, with and without its
-     SiLU prologue (the main path runs it without); then the down convs
+     SiLU prologue (the main path runs it without), in the tile variant
+     ops/act_ringconv.py::tile_variant picks; then the down convs
      composed with their FIR filter (ops/fused_resample.py: cuDNN, one
      sample a call; the JAX package's default down path) against the
      two-op form at every config-H down shape, bf16 and fp32, and the
@@ -26,7 +27,8 @@ Phases (any failure makes the exit code non-zero and suppresses the result):
      16-step DDIM and a 4-step DDPM chain at batch 8 with per-sample seeds,
      then LiDARUtility denormalize -> revert_depth -> to_xyz. The launch
      counters are zeroed just before and read just after (and the composed
-     down convs counted: 3 a forward); one network
+     down convs counted: 3 a forward); one b8 and one b256 forward's ring-conv
+     launches by tile variant against the rule's split; one network
      forward is compared between the kernel path and the plain path at
      every batch at which this script runs the network (2, 4, 8, 32);
   5. every other serving path at full width from that checkpoint, each with
@@ -42,7 +44,10 @@ Phases (any failure makes the exit code non-zero and suppresses the result):
      step against DDPM.MAX_BATCH_PIXELS;
   6. time each kernel, its plain version and the one PyTorch call that
      computes the same function (library_ms, a yardstick the port never
-     calls), beside the least time the card could take (bound_ms);
+     calls), beside the least time the card could take (bound_ms); the
+     ring conv at every ResidualBlock shape at b8 (and its dx shape), and
+     the 48 shapes of a forward summed at b8 and at b256 (each b256 shape
+     checked against its plain version, at phase 3's limit);
   7. one batch-8 network forward: its time as the host drives it, its
      device time and each part's (CUDA graphs), the host's time to enqueue
      it, and the operations that block the host (sync debug mode); the
@@ -502,7 +507,8 @@ def phase_conv(torch):
             if not err <= 1e-2 * scale:
                 raise AssertionError(f"act_ringconv {(C, Fo, H, W)} act={act}: max|err| {err:.3e} vs max|ref| {scale:.3e}")
             worst = max(worst, err)
-        print(f"act_ringconv ok at (B, H, W, C_in, F) = {(B, H, W, C, Fo)}")
+        print(f"act_ringconv ok at (B, H, W, C_in, F) = {(B, H, W, C, Fo)}, "
+              f"tile {act_ringconv.tile_variant(B, H, W, C, Fo, act_ringconv.sm_count(x.device))}")
     torch.cuda.synchronize()
     return worst
 
@@ -707,6 +713,28 @@ def phase_main(torch, tmp):
     print(f"network forward, kernel path vs plain path: relative L2 by batch {json.dumps(rels)} (limit 2e-2)")
     if not all(r <= 2e-2 and math.isfinite(r) for r in rels.values()):
         raise AssertionError(f"kernel path vs plain path relative L2 {rels}")
+    # one forward at b8 and one at b256: the 48 ring convs split over the
+    # tile variants as ops/act_ringconv.py::tile_variant predicts, read
+    # from the program's counters
+    from r2dm_tpu_torch.ops import act_ringconv
+    from r2dm_tpu_torch.utils import trace
+
+    for b in (B, 256):
+        xin = randn(torch, (b, 64, 1024, 2), 10)
+        cond = torch.linspace(-5.0, 5.0, b, device="cuda")
+        ops.reset_launch_counts()
+        with torch.inference_mode():
+            ddpm.model(xin, cond)
+        counters = trace.snapshot()["counters"]
+        got = {t: counters[f"ops.fused_act_ringconv.launches.{t}"] for t in act_ringconv.TILES}
+        want = dict.fromkeys(act_ringconv.TILES, 0)
+        for (C, Fo, H, W), count in CONV_SHAPES.items():
+            want[act_ringconv.tile_variant(b, H, W, C, Fo, act_ringconv.sm_count(xin.device))] += count
+        print(f"ring-conv launches of one b{b} forward by tile variant {json.dumps(got)} (predicted "
+              f"{json.dumps(want)}; all {counters['ops.fused_act_ringconv.launches']})")
+        if got != want or counters["ops.fused_act_ringconv.launches"] != 48:
+            raise AssertionError(f"b{b} forward: ring-conv launches by tile {got} != {want}")
+        del xin
     img_s = B / ddim_s
     print(f"ddim16 b{B}: runs {json.dumps(ddim_runs)} s, median {ddim_s:.4f} s, {img_s:.4f} img/s")
     return {"launches": launches, "ddim16_img_s": img_s, "ddim16_s": ddim_s, "rel_l2": rels, "ddpm": ddpm,
@@ -1346,13 +1374,19 @@ def phase_time(torch, launches, train_launches, errs):
         # PyTorch; the norm before it, GN + SiLU backward in PyTorch ops
         dy = randn(torch, (B, H, W, Fo), 22, torch.bfloat16)
         dx_ms = graph_ms(torch, lambda: act_ringconv.ring_conv_input_grad(dy, k))
+        # the wrapper's packing of the weight, inside ms on every launch
+        sms = act_ringconv.sm_count(x.device)
+        tile = act_ringconv.tile_variant(B, H, W, C, Fo, sms)
+        pack_ms = graph_ms(torch, lambda: act_ringconv.pack_weight(k, tile))
         dx_plain = graph_ms(torch, lambda: act_ringconv.act_ringconv_plain(
             dy, None, None, k.flip(0, 1).transpose(2, 3), torch.zeros(C, device="cuda"), apply_act=False))
         dyc = dy.permute(0, 3, 1, 2)
         dx_lib = graph_ms(torch, lambda: torch.nn.grad.conv2d_input((B, C, H + 2, W + 2), wt, dyc))
         dw_ms = graph_ms(torch, lambda: act_ringconv.ring_conv_weight_grad(x, dy, torch.float32, torch.float32))
         gn_bwd_ms = graph_ms(torch, lambda: gn_silu.gn_silu_backward(x, a[0], b[0], G, eps, True, x))
-        per_shape.append({"cin": C, "f": Fo, "h": H, "w": W, "per_forward": count, "ms": ms,
+        per_shape.append({"cin": C, "f": Fo, "h": H, "w": W, "per_forward": count,
+                          "tile": tile, "pack_ms": pack_ms,
+                          "dx_tile": act_ringconv.tile_variant(B, H, W, Fo, C, sms), "ms": ms,
                           "act_ms": act_ms, "plain_ms": plain, "library_ms": lib, "bound_ms": bound,
                           "tflops": flops / ms / 1e9, "gn_silu_ms": gn_silu_ms, "gn_nosilu_ms": gn_nosilu_ms,
                           "gn_silu_bound_ms": gn_silu_bound, "dx_ms": dx_ms, "dx_plain_ms": dx_plain,
@@ -1365,8 +1399,54 @@ def phase_time(torch, launches, train_launches, errs):
     total = {k: sum(s[k] * s["per_forward"] for s in per_shape)
              for k in ("ms", "act_ms", "plain_ms", "library_ms", "bound_ms", "gn_silu_ms", "gn_nosilu_ms",
                        "gn_silu_bound_ms", "dx_ms", "dx_plain_ms", "dx_library_ms", "dw_ms", "gn_silu_backward_ms",
-                       "gn_silu_backward_bound_ms")}
+                       "gn_silu_backward_bound_ms", "pack_ms")}
     print("ResidualBlock kernels per shape: " + json.dumps({"shapes": per_shape, "per_forward_total": total}))
+    for s_ in per_shape:
+        print(f"ring conv b{B} {s_['cin']}->{s_['f']} at {s_['h']}x{s_['w']} x{s_['per_forward']} ({s_['tile']}): "
+              f"{s_['ms']:.4f} ms, bound {s_['bound_ms']:.4f}, library {s_['library_ms']:.4f}; "
+              f"dx ({s_['dx_tile']}) {s_['dx_ms']:.4f}")
+    # the 48 convs of a b256 forward (one launch each, timed with events:
+    # a graph of 20 would hold 20 outputs of up to 2 GB), each checked
+    # against its plain version: b256 gives tile variants b8 does not
+    Bb = 256
+    per_shape_256 = []
+    for (C, Fo, H, W), count in CONV_SHAPES.items():
+        x = randn(torch, (Bb, H, W, C), 23, torch.bfloat16)
+        k = randn(torch, (3, 3, C, Fo), 24, scale=0.05)
+        bias = randn(torch, (Fo,), 25)
+        ms = cuda_ms(torch, lambda: act_ringconv.fused_act_ringconv(x, None, None, k, bias, apply_act=False),
+                     iters=5, warmup=2)
+        with torch.inference_mode():
+            ref = act_ringconv.act_ringconv_plain(x, None, None, k, bias, apply_act=False).float()
+            err = (act_ringconv.fused_act_ringconv(x, None, None, k, bias, apply_act=False).float()
+                   - ref).abs().max().item()
+            scale = ref.abs().max().item()
+            del ref
+        if not err <= 1e-2 * scale:
+            raise AssertionError(f"act_ringconv b{Bb} {(C, Fo, H, W)}: max|err| {err:.3e} vs max|ref| {scale:.3e}")
+        xp = ring_pad(x, 1).permute(0, 3, 1, 2)
+        wt = k.to(torch.bfloat16).permute(3, 2, 0, 1).contiguous(memory_format=torch.channels_last)
+        lib = cuda_ms(torch, lambda: F.conv2d(xp, wt, bias.to(torch.bfloat16)), iters=5, warmup=2)
+        del xp
+        flops = 2 * 9 * C * Fo * Bb * H * W
+        nbytes = (Bb * H * W * (C + Fo)) * 2 + 9 * C * Fo * 2 + Fo * 4
+        bound = max(flops / PEAK_BF16_FLOPS, nbytes / PEAK_BYTES) * 1e3
+        per_shape_256.append({"cin": C, "f": Fo, "h": H, "w": W, "per_forward": count,
+                              "tile": act_ringconv.tile_variant(Bb, H, W, C, Fo, sms), "ms": ms,
+                              "library_ms": lib, "bound_ms": bound, "roofline_share": bound / ms,
+                              "max_err": err, "max_ref": scale})
+        print(f"ring conv b{Bb} {C}->{Fo} at {H}x{W} x{count} ({per_shape_256[-1]['tile']}): {ms:.4f} ms, "
+              f"bound {bound:.4f} ({100 * bound / ms:.1f} %), library {lib:.4f}; max|err| {err:.3e} "
+              f"of max|ref| {scale:.3e}")
+        del x
+        torch.cuda.empty_cache()
+    total_256 = {k: sum(s[k] * s["per_forward"] for s in per_shape_256)
+                 for k in ("ms", "library_ms", "bound_ms")}
+    print(f"ResidualBlock convs b{Bb}: " + json.dumps({"shapes": per_shape_256, "per_forward_total": total_256}))
+    for b_, tot in ((B, total), (Bb, total_256)):
+        print(f"ring conv, the 48 shapes of a b{b_} forward: {tot['ms']:.3f} ms, bound {tot['bound_ms']:.3f} "
+              f"({100 * tot['bound_ms'] / tot['ms']:.1f} %), library {tot['library_ms']:.3f}")
+    print(f"ring conv, the weight's packing inside those calls, 48 shapes of a b{B} forward: {total['pack_ms']:.3f} ms")
     return rows
 
 def _grads(torch, fn, inputs, dy):

@@ -17,3 +17,5 @@ KERNEL_WRAPPERS = (fused_group_norm_silu, fused_act_ringconv, ring_conv_w8a8, ac
 def reset_launch_counts() -> None:
     for fn in KERNEL_WRAPPERS:
         fn.launches = 0
+        if hasattr(fn, "tile_launches"):  # the ring conv's, by tile variant
+            fn.tile_launches = dict.fromkeys(fn.tile_launches, 0)

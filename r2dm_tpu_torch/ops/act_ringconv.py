@@ -10,7 +10,19 @@ with the same signature and layouts:
 x (B, H, W, C) NHWC; a, b (B, C) fp32; kernel (3, 3, C, F) HWIO; bias (F,).
 W wraps circularly; H is zero-padded AFTER the activation. A CPU tensor takes
 the plain version; a CUDA tensor launches the kernel or raises.
-``fused_act_ringconv.launches`` counts kernel launches.
+``fused_act_ringconv.launches`` counts kernel launches, and
+``fused_act_ringconv.tile_launches`` counts them by tile variant.
+
+The kernel is one template instantiated for a few tile variants (``TILES``:
+BM output pixels x BN output channels, BK input channels a slice; the
+wrapper passes the geometry, and the kernel refuses one it was not built
+for). ``tile_variant`` picks one from the shape and the card's SM count and
+caches the choice per shape, so a launch costs the host one dictionary
+lookup more: 256 x 64 at F <= 64, 128 x 256 at F > 128 where that still
+gives every SM a tile, else 128 x 128. Each launch first packs the weight
+for the chosen variant (``pack_weight``'s layout), reading it where it lies
+(a parameter's ``hwio()`` view, fp32 or bf16), so the wrapper makes no copy
+of its own.
 
 Under a width axis, ``halo=(left, right)`` gives the two (B, H, 1, C)
 columns that close the ring on this rank's W columns (the left neighbour's
@@ -53,8 +65,22 @@ from ..parallel.width import halo_exchange
 from . import build
 from .pad import ring_pad
 
-_ARGS = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
-_HALO_ARGS = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+# the weight as the kernel's pack reads it: the HWIO view's pointer, its
+# strides in elements, fp32 (else bf16)
+_WEIGHT = [ctypes.c_void_p] + [ctypes.c_longlong] * 4 + [ctypes.c_int]
+_ARGS = [ctypes.c_void_p] * 3 + _WEIGHT + [ctypes.c_void_p] * 3 + [ctypes.c_int] * 9 + [ctypes.c_void_p]
+_HALO_ARGS = [ctypes.c_void_p] * 5 + _WEIGHT + [ctypes.c_void_p] * 3 + [ctypes.c_int] * 9 + [ctypes.c_void_p]
+_PACK_ARGS = _WEIGHT + [ctypes.c_int] * 5 + [ctypes.c_void_p] * 2
+
+# the kernel's tile variants, the instantiations of csrc/act_ringconv.cu:
+# name -> (BM output pixels, BN output channels, BK input channels a slice)
+TILES = {
+    "m256n64": (256, 64, 32),
+    "m128n128": (128, 128, 32),
+    "m128n256": (128, 256, 16),
+}
+_tiles: dict[tuple, str] = {}
+_sms: dict = {}
 
 
 def _lib():
@@ -64,7 +90,45 @@ def _lib():
         lib.act_ringconv_launch.restype = ctypes.c_int
         lib.act_ringconv_halo_launch.argtypes = _HALO_ARGS
         lib.act_ringconv_halo_launch.restype = ctypes.c_int
+        lib.act_ringconv_pack.argtypes = _PACK_ARGS
+        lib.act_ringconv_pack.restype = ctypes.c_int
     return lib
+
+
+def sm_count(device) -> int:
+    """The SMs of a CUDA device (the persistent grid is min(tiles, SMs)
+    blocks), read once a device."""
+    n = _sms.get(device)
+    if n is None:
+        n = _sms[device] = torch.cuda.get_device_properties(device).multi_processor_count
+    return n
+
+
+def tile_count(tile: str, B: int, H: int, W: int, F: int) -> int:
+    """The tiles (units of work of the persistent grid) of one launch."""
+    bm, bn, _ = TILES[tile]
+    return B * H * -(-W // bm) * -(-F // bn)
+
+
+def _choose_tile(B: int, H: int, W: int, C: int, F: int, sms: int) -> str:
+    if F <= 64:
+        return "m256n64"
+    if F > 128 and tile_count("m128n256", B, H, W, F) >= sms:
+        return "m128n256"
+    return "m128n128"
+
+
+def tile_variant(B: int, H: int, W: int, C: int, F: int, sms: int) -> str:
+    """The tile variant of a launch on x (B, H, W, C) into F channels on a
+    card of ``sms`` SMs: 256 pixels x 64 channels at F <= 64; at F > 128
+    256 channels where that still gives every SM a tile (a wider N tile
+    reads each staged byte for more products), else 128 x 128. Chosen once
+    per shape."""
+    key = (B, H, W, C, F, sms)
+    tile = _tiles.get(key)
+    if tile is None:
+        tile = _tiles[key] = _choose_tile(B, H, W, C, F, sms)
+    return tile
 
 
 def act_ringconv_plain(x, a, b, kernel, bias, apply_act: bool = True, halo=None):
@@ -87,14 +151,56 @@ def act_ringconv_plain(x, a, b, kernel, bias, apply_act: bool = True, halo=None)
     return y.permute(0, 2, 3, 1).contiguous()
 
 
-def pack_weight(kernel, dtype=torch.bfloat16):
-    """HWIO (3, 3, C, F) -> (F, 9*C) in ``dtype``, column (kh*3 + kw)*C + c:
-    each output channel's taps with the input channels innermost, so one
-    16-byte copy reads 8 input channels of one output channel (the kernel's
-    K-major operand). One pass: the cast and the permute are one copy."""
-    packed = torch.empty(kernel.shape[3], *kernel.shape[:3], dtype=dtype, device=kernel.device)
-    packed.copy_(kernel.permute(3, 0, 1, 2))
-    return packed.view(kernel.shape[3], -1)
+def _packed_shape(tile: str, C: int, Fo: int) -> tuple:
+    _, bn, bk = TILES[tile]
+    return (-(-Fo // bn), 3, -(-C // bk), 3, bk // 8, bn, 8)
+
+
+def _packable(kernel):
+    """An HWIO weight as the kernel's pack reads it: fp32 or bf16, at any
+    strides. Keep it alive until the launch is enqueued."""
+    return kernel if kernel.dtype in (torch.float32, torch.bfloat16) else kernel.float()
+
+
+def _weight_args(kernel) -> tuple:
+    return (kernel.data_ptr(), *kernel.stride(), int(kernel.dtype == torch.float32))
+
+
+def pack_weight(kernel, tile: str, dtype=torch.bfloat16):
+    """HWIO (3, 3, C, F) -> the layout tile variant ``tile`` (BN, BK) reads,
+    in ``dtype``: [F/BN][3 kh][C/BK][3 kw][BK/8][BN][8], C and F zero-padded
+    to multiples of BK and BN. One slice of the kernel's K loop (an N tile,
+    a kernel row, BK input channels) is then one contiguous run, which the
+    kernel brings in with one bulk copy, already in the no-swizzle K-major
+    layout its products read: per tap, 16-byte rows of 8 input channels of
+    one output channel, the BN rows of a channel chunk together.
+
+    On a CUDA tensor (bf16 only) this is the kernel's own pack, the first
+    kernel of every launch, which reads the weight at its strides (a
+    parameter's ``hwio()`` view) and casts in the same pass; on a CPU tensor
+    the same layout in PyTorch, one copy where no padding is needed."""
+    if kernel.is_cuda:
+        if dtype != torch.bfloat16:
+            raise TypeError(f"act_ringconv: the kernel's pack writes bfloat16, not {dtype}")
+        C, Fo = kernel.shape[2], kernel.shape[3]
+        packed = torch.empty(_packed_shape(tile, C, Fo), dtype=dtype, device=kernel.device)
+        lib, k = _lib(), _packable(kernel)
+        rc = lib.act_ringconv_pack(*_weight_args(k), C, Fo, *TILES[tile], packed.data_ptr(),
+                                   build.stream_ptr(kernel.device))
+        build.check(lib, rc, "act_ringconv.pack_weight")
+        return packed
+    _, bn, bk = TILES[tile]
+    C, Fo = kernel.shape[2], kernel.shape[3]
+    Cp, Fp = -(-C // bk) * bk, -(-Fo // bn) * bn
+    if (Cp, Fp) != (C, Fo):
+        kernel = F.pad(kernel, (0, Fp - Fo, 0, Cp - C))
+    s = kernel.stride()
+    # (kh, kw, c, f) seen as (n tile, kh, c slice, kw, chunk, n, c in chunk)
+    view = kernel.as_strided(_packed_shape(tile, Cp, Fp),
+                             (bn * s[3], s[0], bk * s[2], s[1], 8 * s[2], s[3], s[2]), kernel.storage_offset())
+    packed = torch.empty(view.shape, dtype=dtype, device=kernel.device)
+    packed.copy_(view)
+    return packed
 
 
 def _check(x, a, b, kernel, bias, apply_act, halo=None):
@@ -139,21 +245,26 @@ def _launch(x, a, b, kernel, bias, apply_act: bool, halo=None):
     lib = _lib()
     B, H, W, C = x.shape
     Fo = kernel.shape[3]
-    w = pack_weight(kernel)
+    tile = tile_variant(B, H, W, C, Fo, sm_count(x.device))
+    # the launch packs the weight into w (its first kernel), then convolves
+    k = _packable(kernel)
+    w = torch.empty(_packed_shape(tile, C, Fo), dtype=torch.bfloat16, device=x.device)
     bias32 = bias.to(torch.float32).contiguous()
     y = torch.empty((B, H, W, Fo), dtype=torch.bfloat16, device=x.device)
     pa = a.data_ptr() if apply_act else None
     pb = b.data_ptr() if apply_act else None
-    tail = (w.data_ptr(), bias32.data_ptr(), y.data_ptr(), B, H, W, C, Fo, int(apply_act),
-            build.stream_ptr(x.device))
+    tail = (*_weight_args(k), w.data_ptr(), bias32.data_ptr(), y.data_ptr(), B, H, W, C, Fo, int(apply_act),
+            *TILES[tile], build.stream_ptr(x.device))
     if halo is None:
         rc = lib.act_ringconv_launch(x.data_ptr(), pa, pb, *tail)
         build.check(lib, rc, "fused_act_ringconv")
-        fused_act_ringconv.launches += 1
+        counted = fused_act_ringconv
     else:
         rc = lib.act_ringconv_halo_launch(x.data_ptr(), halo[0].data_ptr(), halo[1].data_ptr(), pa, pb, *tail)
         build.check(lib, rc, "act_ringconv_halo")
-        act_ringconv_halo.launches += 1
+        counted = act_ringconv_halo
+    counted.launches += 1
+    counted.tile_launches[tile] += 1
     return y
 
 
@@ -275,3 +386,5 @@ def fused_act_ringconv(x, a, b, kernel, bias, apply_act: bool = True, halo=None)
 
 fused_act_ringconv.launches = 0
 act_ringconv_halo.launches = 0
+fused_act_ringconv.tile_launches = dict.fromkeys(TILES, 0)
+act_ringconv_halo.tile_launches = dict.fromkeys(TILES, 0)

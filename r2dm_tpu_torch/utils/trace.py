@@ -39,7 +39,8 @@ The counters: ``data.gets`` (batches the loader handed out) and
 ``data.gets_empty`` (of those, the ones asked for while its prefetch queue
 was empty), recorded while tracing is on; and, read when ``snapshot()`` is
 taken, the always-on launch counts of ``ops.KERNEL_WRAPPERS``
-(``ops.<wrapper>.launches``), the calls of the composed resample convs
+(``ops.<wrapper>.launches``; the ring conv's also by tile variant,
+``ops.<wrapper>.launches.<variant>``), the calls of the composed resample convs
 (``ops.<function>.calls``), both since ``ops.reset_launch_counts()`` or the
 process's start, and with ``snapshot(world)`` that world's
 ``parallel.collective_calls``.
@@ -237,6 +238,9 @@ def _op_counters() -> dict:
     from ..ops import fused_resample
 
     out = {f"ops.{fn.__name__}.launches": fn.launches for fn in ops.KERNEL_WRAPPERS}
+    for fn in ops.KERNEL_WRAPPERS:
+        for tile, n in getattr(fn, "tile_launches", {}).items():
+            out[f"ops.{fn.__name__}.launches.{tile}"] = n
     for fn in (fused_resample.conv_then_downsample, fused_resample.upsample_then_conv):
         out[f"ops.{fn.__name__}.calls"] = fn.calls
     return out

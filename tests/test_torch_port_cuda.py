@@ -7,6 +7,9 @@ with the card and without JAX it runs as
 ``python -m pytest --noconftest -m cuda tests/test_torch_port_cuda.py``.
 """
 
+import importlib.util
+from pathlib import Path
+
 import pytest
 import torch
 
@@ -57,30 +60,91 @@ def test_gn_kernels_match_plain(dev, shape, groups, per_batch):
         torch.testing.assert_close(y.float(), ref.float(), rtol=2e-2, atol=2e-2)
 
 
-# (B, H, W, C_in), F, shift of b. The kernel's tile is 128 pixels x 64
-# channels x 32 input channels a slice: one block (the descriptor check),
-# W < 128 and W % 128 != 0, C_in % 32 != 0, F % 64 != 0, H = 1 and 2 with
-# silu(b) far from 0 (a non-zero H-pad row would show), B = 1 and 3.
-@pytest.mark.parametrize("shape,F,b_shift", [
-    ((2, 8, 64, 64), 64, 0.0), ((2, 4, 96, 128), 72, 0.0), ((1, 3, 40, 16), 24, 0.0),
-    ((1, 1, 128, 32), 64, 0.0), ((3, 2, 200, 72), 24, 4.0), ((1, 1, 40, 24), 72, 4.0),
-    ((1, 2, 256, 64), 128, 4.0),
+def _chip_smoke():
+    path = Path(__file__).resolve().parent.parent / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+# config H's eleven ResidualBlock (C_in, F) pairs at their real W, small B
+# and H (H = 3: a top, a middle and a bottom row)
+CONFIG_H_CASES = [((1, 3, W, C), F, 0.0) for C, F, _, W in _chip_smoke().CONV_SHAPES]
+
+
+# (B, H, W, C_in), F, shift of b, tile (None: the rule's choice). The ragged
+# cases: one block (the descriptor check), W < 128 and W % 128 != 0 (the
+# cp.async path), C_in % 32 != 0, F % 64 != 0, H = 1 and 2 with silu(b) far
+# from 0 (a non-zero H-pad row would show), B = 1 and 3. Then every tile
+# variant at every config-H pair (the TMA path where W is a multiple of the
+# tile's pixels), and each variant on 256-512 tiles, more than the card's
+# SMs, so that a persistent block takes several tiles in turn (the ring's
+# stages and phases carried from tile to tile, the staging tile reused while
+# the next tile fills), ragged W once. Every case runs twice and must give
+# the same bits: no atomics, a fixed order of the sums.
+@pytest.mark.parametrize("shape,F,b_shift,tile", [
+    ((2, 8, 64, 64), 64, 0.0, None), ((2, 4, 96, 128), 72, 0.0, None), ((1, 3, 40, 16), 24, 0.0, None),
+    ((1, 1, 128, 32), 64, 0.0, None), ((3, 2, 200, 72), 24, 4.0, None), ((1, 1, 40, 24), 72, 4.0, None),
+    ((1, 2, 256, 64), 128, 4.0, None),
+] + [case + (tile,) for case in CONFIG_H_CASES for tile in act_ringconv.TILES] + [
+    ((4, 32, 1024, 64), 64, 0.0, "m256n64"), ((8, 16, 512, 128), 128, 0.0, "m128n128"),
+    ((32, 8, 256, 256), 256, 0.0, "m128n256"), ((8, 16, 200, 72), 72, 4.0, "m128n128"),
 ])
 @pytest.mark.parametrize("apply_act", [True, False])
-def test_act_ringconv_kernel_matches_plain(dev, shape, F, b_shift, apply_act):
-    B, C = shape[0], shape[-1]
+def test_act_ringconv_kernel_matches_plain(dev, shape, F, b_shift, tile, apply_act, monkeypatch):
+    B, H, W, C = shape
     x = _randn(shape, dev, 0, torch.bfloat16)
+    sms = act_ringconv.sm_count(x.device)
+    if tile is not None:  # the rule's cache, seeded with the variant under test
+        monkeypatch.setitem(act_ringconv._tiles, (B, H, W, C, F, sms), tile)
     a = 1.0 + 0.5 * _randn((B, C), dev, 1)
     b = b_shift + 0.2 * _randn((B, C), dev, 2)
     k = _randn((3, 3, C, F), dev, 3) * (9 * C) ** -0.5
     bias = 0.1 * _randn((F,), dev, 4)
     n = act_ringconv.fused_act_ringconv.launches
+    chosen = act_ringconv.tile_variant(B, H, W, C, F, sms)
+    by_tile = act_ringconv.fused_act_ringconv.tile_launches[chosen]
     y = act_ringconv.fused_act_ringconv(x, a, b, k, bias, apply_act=apply_act)
-    assert act_ringconv.fused_act_ringconv.launches == n + 1
+    y2 = act_ringconv.fused_act_ringconv(x, a, b, k, bias, apply_act=apply_act)
+    assert act_ringconv.fused_act_ringconv.launches == n + 2
+    assert act_ringconv.fused_act_ringconv.tile_launches[chosen] == by_tile + 2
     ref = act_ringconv.act_ringconv_plain(x, a, b, k, bias, apply_act=apply_act)
     torch.cuda.synchronize()
     err = (y.float() - ref.float()).abs().max().item()
     assert err <= 1e-2 * ref.float().abs().max().item(), err
+    assert torch.equal(y, y2)
+
+
+def test_tile_table_matches_the_kernel(dev, monkeypatch):
+    """The wrapper names a tile variant to the kernel by its geometry
+    (``TILES``, which the packing and the rule use): every entry launches
+    (the cases above), and a geometry the kernel was not built for is
+    refused with an error, not run with another tile's layout."""
+    x = _randn((1, 2, 128, 64), dev, 0, torch.bfloat16)
+    k = _randn((3, 3, 64, 64), dev, 3) * (9 * 64) ** -0.5
+    bias = torch.zeros(64, device=dev)
+    sms = act_ringconv.sm_count(x.device)
+    monkeypatch.setitem(act_ringconv.TILES, "m128n64", (128, 64, 32))
+    monkeypatch.setitem(act_ringconv.fused_act_ringconv.tile_launches, "m128n64", 0)
+    monkeypatch.setitem(act_ringconv._tiles, (1, 2, 128, 64, 64, sms), "m128n64")
+    with pytest.raises(RuntimeError):
+        act_ringconv.fused_act_ringconv(x, None, None, k, bias, apply_act=False)
+
+
+@pytest.mark.parametrize("tile", list(act_ringconv.TILES))
+@pytest.mark.parametrize("C,F", [(64, 64), (24, 72), (40, 136), (512, 256)])
+def test_kernel_packs_the_weight_as_pack_weight(dev, tile, C, F):
+    """The launch's first kernel packs the weight as ``pack_weight`` lays it
+    out on the CPU, bit for bit: from fp32 and bf16, contiguous HWIO and a
+    parameter's ``hwio()`` view of OIHW storage, C and F zero-padded."""
+    k = _randn((3, 3, C, F), dev, 3)
+    strided = k.permute(3, 2, 0, 1).contiguous().permute(2, 3, 1, 0)
+    for kernel in (k, strided, k.to(torch.bfloat16), strided.to(torch.bfloat16)):
+        want = act_ringconv.pack_weight(kernel.cpu(), tile)
+        got = act_ringconv.pack_weight(kernel, tile)
+        assert got.shape == want.shape
+        assert torch.equal(got.cpu(), want)
 
 
 @pytest.mark.parametrize("apply_silu", [True, False])

@@ -125,27 +125,34 @@ def test_act_ringconv_pads_h_after_the_activation():
     np.testing.assert_array_equal(got.numpy(), 0.0)
 
 
+@pytest.mark.parametrize("tile", list(act_ringconv.TILES))
 @pytest.mark.parametrize("apply_act", [True, False])
-@pytest.mark.parametrize("B,H,W,C,F", [(2, 3, 20, 16, 24), (1, 1, 8, 8, 8), (3, 2, 12, 24, 72)])
-def test_packed_weight_implicit_gemm_matches_plain(B, H, W, C, F, apply_act):
-    """The conv rebuilt as the CUDA kernel computes it, in fp32: for each
-    output row h and kernel row kh whose input row lies inside [0, H) (rows
-    in the H padding are skipped), each tap kw multiplies the ring-wrapped
-    halo (W index taken mod W) by its (F, C) block of the packed weight."""
+@pytest.mark.parametrize("B,H,W,C,F", [(2, 3, 20, 16, 24), (1, 1, 8, 8, 8), (3, 2, 12, 24, 72),
+                                       (1, 2, 10, 40, 136)])
+def test_packed_weight_implicit_gemm_matches_plain(B, H, W, C, F, apply_act, tile):
+    """The conv rebuilt as the CUDA kernel computes it, in fp32, from the
+    weight packed for each tile variant: for each output row h and kernel
+    row kh whose input row lies inside [0, H) (rows in the H padding are
+    skipped), each channel slice and tap kw multiplies the ring-wrapped halo
+    (W index taken mod W) by its [BK/8][BN][8] block of the packed slice,
+    channels past C and outputs past F padded with zeros."""
     rng = np.random.default_rng(4)
     x = t(rng.standard_normal((B, H, W, C), np.float32))
     a = t(rng.standard_normal((B, C), np.float32) * 0.5 + 1.0)
     b = t(rng.standard_normal((B, C), np.float32) * 0.5 + 2.0)  # silu(b) far from 0
     k = t(rng.standard_normal((3, 3, C, F), np.float32) * 0.1)
     bias = t(rng.standard_normal((F,), np.float32) * 0.1)
-    wp = act_ringconv.pack_weight(k, torch.float32)
-    assert wp.shape == (F, 9 * C) and wp.is_contiguous()
+    _, bn, bk = act_ringconv.TILES[tile]
+    n_t, n_c = -(-F // bn), -(-C // bk)
+    wp = act_ringconv.pack_weight(k, tile, torch.float32)
+    assert wp.shape == (n_t, 3, n_c, 3, bk // 8, bn, 8) and wp.is_contiguous()
     if apply_act:
         s = x * a[:, None, None, :] + b[:, None, None, :]
         s = s * torch.sigmoid(s)
     else:
         s = x
-    y = bias.expand(B, H, W, F).clone()
+    s = torch.nn.functional.pad(s, (0, n_c * bk - C))  # the kernel's zero-filled channels
+    y = torch.zeros(B, H, W, n_t * bn)
     for h in range(H):
         for kh in range(3):
             row = h + kh - 1
@@ -153,21 +160,119 @@ def test_packed_weight_implicit_gemm_matches_plain(B, H, W, C, F, apply_act):
                 continue
             for kw in range(3):
                 halo = s[:, row, (torch.arange(W) + kw - 1) % W, :]
-                tap = (kh * 3 + kw) * C
-                y[:, h] += halo @ wp[:, tap:tap + C].T
+                for nt in range(n_t):
+                    for cs in range(n_c):
+                        block = wp[nt, kh, cs, kw].permute(0, 2, 1).reshape(bk, bn)  # (c, n)
+                        y[:, h, :, nt * bn:(nt + 1) * bn] += halo[..., cs * bk:(cs + 1) * bk] @ block
+    y = y[..., :F] + bias
     ref = act_ringconv.act_ringconv_plain(x, a, b, k, bias, apply_act=apply_act)
     torch.testing.assert_close(y, ref, rtol=1e-5, atol=1e-5)
+    assert not wp[n_t - 1, ..., F - (n_t - 1) * bn:, :].any()  # outputs past F are zero
 
 
 @pytest.mark.parametrize("C,F", [(8, 16), (24, 72)])
 def test_pack_weight_casts_in_the_same_pass(C, F):
     """The default packing (bf16, what the kernel reads) is the fp32 packing
-    rounded to bf16, element for element, from a kernel of any dtype."""
+    rounded to bf16, element for element, from a kernel of any dtype and
+    from a strided view (a parameter's ``hwio()`` permute), for every tile
+    variant."""
     k = t(np.random.default_rng(5).standard_normal((3, 3, C, F), np.float32))
-    wp = act_ringconv.pack_weight(k)
-    assert wp.dtype == torch.bfloat16 and wp.shape == (F, 9 * C) and wp.is_contiguous()
-    torch.testing.assert_close(wp, act_ringconv.pack_weight(k, torch.float32).to(torch.bfloat16), rtol=0, atol=0)
-    torch.testing.assert_close(act_ringconv.pack_weight(k.to(torch.bfloat16)), wp, rtol=0, atol=0)
+    strided = k.permute(3, 2, 0, 1).contiguous().permute(2, 3, 1, 0)  # OIHW storage seen as HWIO
+    for tile in act_ringconv.TILES:
+        wp = act_ringconv.pack_weight(k, tile)
+        assert wp.dtype == torch.bfloat16 and wp.is_contiguous()
+        torch.testing.assert_close(wp, act_ringconv.pack_weight(k, tile, torch.float32).to(torch.bfloat16),
+                                   rtol=0, atol=0)
+        torch.testing.assert_close(act_ringconv.pack_weight(k.to(torch.bfloat16), tile), wp, rtol=0, atol=0)
+        torch.testing.assert_close(act_ringconv.pack_weight(strided, tile), wp, rtol=0, atol=0)
+
+
+def _conv_shapes():
+    """(C_in, F, H, W) -> launches a forward of every config-H ResidualBlock
+    conv, and of its input gradient (C_in and F swapped) in a train step."""
+    return _chip_smoke().CONV_SHAPES
+
+
+H100_SMS = 132  # an H100 SXM's SMs, the card the rule is measured on
+
+
+# the rule's choice at config H: (C_in, F, H, W) -> (tile at b8, at b256)
+CONFIG_H_TILES = {
+    (64, 64, 64, 1024): ("m256n64", "m256n64"),
+    (128, 64, 64, 1024): ("m256n64", "m256n64"),
+    (128, 128, 32, 512): ("m128n128", "m128n128"),
+    (256, 64, 32, 512): ("m256n64", "m256n64"),
+    (64, 64, 32, 512): ("m256n64", "m256n64"),
+    (256, 256, 16, 256): ("m128n256", "m128n256"),
+    (512, 128, 16, 256): ("m128n128", "m128n128"),
+    (128, 128, 16, 256): ("m128n128", "m128n128"),
+    (512, 512, 8, 128): ("m128n128", "m128n256"),
+    (512, 256, 8, 128): ("m128n128", "m128n256"),
+    (256, 256, 8, 128): ("m128n128", "m128n256"),
+}
+
+
+@pytest.mark.parametrize("B", [8, 256])
+@pytest.mark.parametrize("shape", list(CONFIG_H_TILES))
+@pytest.mark.parametrize("grad", [False, True])
+def test_tile_rule_fills_the_card_at_config_h(shape, B, grad):
+    """At every config-H ResidualBlock shape (and its input gradient's, C_in
+    and F swapped), at b8 and b256: the chosen variant's N tile covers F in
+    whole tiles (no masked channels on the main path) and its pixel tile
+    divides W; a 256-channel tile is taken only where it gives every SM a
+    tile, and otherwise the 128-channel one, whose grid falls short of a
+    wave at two b8 shapes of level 4 (128 tiles of 132): measured there,
+    it beats 64-channel tiles that fill the card (PERF.md, PR 19)."""
+    C, F, H, W = shape
+    if grad:
+        C, F = F, C
+    tile = act_ringconv.tile_variant(B, H, W, C, F, H100_SMS)
+    bm, bn, _ = act_ringconv.TILES[tile]
+    tiles = act_ringconv.tile_count(tile, B, H, W, F)
+    assert F % bn == 0 and W % bm == 0
+    assert bn == 64 if F == 64 else bn >= 128
+    wide = act_ringconv.tile_count("m128n256", B, H, W, F)
+    assert (bn == 256) == (F > 128 and wide >= H100_SMS)
+    assert tiles >= H100_SMS or (tile == "m128n128" and tiles >= 128)
+    if not grad:
+        assert tile == CONFIG_H_TILES[shape][B == 256]
+
+
+@pytest.mark.parametrize("B", [8, 256])
+def test_tile_rule_splits_a_forward(B):
+    """The 48 ResidualBlock convs of a config-H forward, split over the tile
+    variants as the rule predicts (chip_smoke.py checks the card's counters
+    against this split)."""
+    split = dict.fromkeys(act_ringconv.TILES, 0)
+    for (C, F, H, W), count in _conv_shapes().items():
+        split[act_ringconv.tile_variant(B, H, W, C, F, H100_SMS)] += count
+    assert sum(split.values()) == 48
+    expected = ({"m256n64": 18, "m128n128": 24, "m128n256": 6} if B == 8 else
+                {"m256n64": 18, "m128n128": 12, "m128n256": 18})
+    assert split == expected
+
+
+def test_tile_variant_is_chosen_once_per_shape(monkeypatch):
+    """The choice is cached per shape (and SM count): the second call is a
+    dictionary lookup, and never runs the rule again."""
+    monkeypatch.setattr(act_ringconv, "_tiles", {})
+    first = act_ringconv.tile_variant(8, 64, 1024, 64, 64, H100_SMS)
+    monkeypatch.setattr(act_ringconv, "_choose_tile", lambda *a: pytest.fail("the rule ran again"))
+    assert act_ringconv.tile_variant(8, 64, 1024, 64, 64, H100_SMS) == first == "m256n64"
+    assert act_ringconv._tiles == {(8, 64, 1024, 64, 64, H100_SMS): first}
+
+
+@pytest.mark.parametrize("B,H,W,C,F", [(1, 1, 8, 8, 8), (1, 3, 40, 16, 24), (2, 2, 200, 72, 24),
+                                       (1, 2, 256, 64, 128), (1, 1, 40, 24, 72)])
+def test_tile_rule_takes_the_most_tiles_of_a_small_shape(B, H, W, C, F):
+    """Where no variant gives a wave of tiles, the rule takes, of the
+    variants its F allows (64 channels at F <= 64, else 128 or 256), the
+    one with the most tiles."""
+    tile = act_ringconv.tile_variant(B, H, W, C, F, H100_SMS)
+    allowed = ["m256n64"] if F <= 64 else ["m128n128", "m128n256"]
+    assert tile in allowed
+    assert all(act_ringconv.tile_count(tile, B, H, W, F) >= act_ringconv.tile_count(o, B, H, W, F)
+               for o in allowed)
 
 
 @pytest.mark.parametrize("B,H,W,C,G", GN_LAUNCH_SHAPES)

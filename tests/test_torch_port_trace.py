@@ -259,6 +259,28 @@ def test_counters_report_the_kernel_wrappers_and_the_world():
         fused_resample.conv_then_downsample.calls = 0
 
 
+def test_counters_report_the_ring_conv_by_tile_variant():
+    """Beside ``ops.<wrapper>.launches``, the ring conv's two wrappers are
+    reported by tile variant, ``ops.<wrapper>.launches.<variant>``, and
+    ``reset_launch_counts`` zeroes those too."""
+    from r2dm_tpu_torch.ops import act_ringconv
+
+    ops.reset_launch_counts()
+    try:
+        for fn in (act_ringconv.fused_act_ringconv, act_ringconv.act_ringconv_halo):
+            for k, tile in enumerate(act_ringconv.TILES):
+                fn.tile_launches[tile] = k + 1
+        counters = trace.snapshot()["counters"]
+        for name in ("fused_act_ringconv", "act_ringconv_halo"):
+            assert [counters[f"ops.{name}.launches.{tile}"] for tile in act_ringconv.TILES] == \
+                list(range(1, len(act_ringconv.TILES) + 1))
+        ops.reset_launch_counts()
+        counters = trace.snapshot()["counters"]
+        assert not any(v for k, v in counters.items() if k.startswith("ops.") and ".launches." in k)
+    finally:
+        ops.reset_launch_counts()
+
+
 def test_a_width_collective_is_a_span_and_a_count(tmp_path):
     import torch.distributed as dist
 
