@@ -49,7 +49,7 @@ def main(argv=None) -> int:
         torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = flags
         ctx = Context(cell=cell["name"], seed=seed, seconds=args.seconds, trace=False, cfg=cfg, traffic=traffic,
                       device=torch.device("cuda", 0), t_start=time.perf_counter(), control=args.control)
-        with plant(args.fault, traffic["driver"]) if args.fault else contextlib.nullcontext():
+        with plant(args.fault, ctx) if args.fault else contextlib.nullcontext():
             out = driver.run(ctx)
         print(json.dumps({"cell": cell["name"], "seed": seed, "control": args.control, "fault": args.fault,
                           "attempted": out.attempted,

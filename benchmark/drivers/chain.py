@@ -31,9 +31,11 @@ noise drawn again from the seeds (``step``), on every row at set-up's step
 and the drawn steps (copied to pinned host memory as the window runs) and on
 the check rows at the last.
 
-``--control int8`` runs the network on the program's int8 lane (the eps
-control); ``--control bf16`` takes the step's output from the reference's step
-in bfloat16 in place of the program's (the step control).
+The eps control is the architecture module's (``CONTROLS``): ``--control
+int8`` runs the network on the program's own int8 lane, ``--control fp8`` puts
+the reference network's eps in fp8 in the program's place;
+``--control bf16`` takes the step's output from the reference's step in
+bfloat16 in place of the program's (the step control).
 """
 
 from __future__ import annotations
@@ -45,31 +47,13 @@ import numpy as np
 import torch
 from torch.profiler import record_function
 
+from .. import manifest
 from ..reference import diffusion as ref_diff
-from ..roofline import PEAK_FP32_FLOPS, flops, kernels
+from ..roofline import flops
 from ..trace import profiled
 from ..weights import make_state_dict, reference_net
-from .common import (Fence, Outcome, Recorder, compute_dtype, derive, free, log, program_config,
-                     reference_precision, rel_l2, sync)
-
-
-def wrapped_work():
-    """The program's callables whose calls the traced run attributes, with
-    the least seconds of each call's work."""
-    from r2dm_tpu_torch.models import layers
-
-    def ringconv(args, y):
-        h = args[2]
-        B, H, W, C = h.shape
-        return kernels.least_seconds(*kernels.ringconv(B, H, W, C, y.shape[-1], h.element_size(), y.element_size()))
-
-    def group_norm(args, y):
-        x = args[0]
-        return kernels.least_seconds(*kernels.group_norm(x.numel(), x.element_size(), y.element_size()),
-                                     PEAK_FP32_FLOPS)
-
-    return [(layers.ResidualBlock, "_conv", "ringconv", ringconv),
-            (layers, "fused_group_norm_silu", "group_norm", group_norm)]
+from .common import (Fence, Outcome, Recorder, compute_dtype, derive, free, log, program_config, program_control,
+                     reference_eps, reference_precision, rel_l2, sync)
 
 
 def run(ctx) -> Outcome:
@@ -77,15 +61,13 @@ def run(ctx) -> Outcome:
 
     from r2dm_tpu_torch.diffusion.base import normal
     from r2dm_tpu_torch.inference import setup_model, setup_rng
-    from r2dm_tpu_torch.models.layers import set_quant_conv
 
     tr, cfg, dev = ctx.traffic, ctx.cfg, ctx.device
     B, N, mode = tr["batch"], tr["steps"], tr["mode"]
     weights_seed = derive(ctx.seed, 1)
     ddpm, _, _ = setup_model({"cfg": asdict(program_config(cfg)), "ema_weights": make_state_dict(cfg, weights_seed, dev)},
                              dtype=compute_dtype(cfg, dev), device=dev)
-    if ctx.control == "int8":
-        set_quant_conv(ddpm.model, "w8a8")
+    program_control(ctx, ddpm.model)
     diff = ddpm.diffusion
     rng = np.random.default_rng(derive(ctx.seed, 2))
     rows = sorted(int(r) for r in rng.choice(B, tr["check_rows"], replace=False))
@@ -155,7 +137,8 @@ def run(ctx) -> Outcome:
     if ctx.trace:
         n = tr["profile_steps"]
         observed["profile"] = profiled(lambda: [step(False) for _ in range(n)], (), dev)
-        observed["profile_host"] = profiled(lambda: step(False), wrapped_work(), dev, host=True)
+        observed["profile_host"] = profiled(lambda: step(False), manifest.architecture(cfg).wrapped_work(), dev,
+                                            host=True)
         observed["window"] = {"seconds": window_s, "units": done, "profile_units": n,
                               "flops_per_unit": flops.forward_flops(cfg) * B}
     recorder.handle.remove()
@@ -212,7 +195,9 @@ def check(ctx, records, host, rows, x_T, weights_seed, chain_seeds, ts_len) -> d
         e_in, e_ours = (x_in_all, eps_all) if slot == 0 else (x_in, eps)
         rr, n = tr["reference_rows"], len(rows)
         cond = ref_diff.logsnr(torch.full((len(e_in),), float(ts[k]), device=dev))
-        eps_ref = torch.cat([net(e_in[i:i + rr], cond[i:i + rr]) for i in range(0, len(e_in), rr)])
+        eps_ref = reference_eps(net, e_in, cond, rr)
+        if ctx.control == "fp8":  # the control: the reference's eps in fp8 in the program's place
+            e_ours = reference_eps(net, e_in, cond, rr, "fp8")
         for i in range(0, len(e_in), n):
             gaps["eps"] = max(gaps["eps"], rel_l2(e_ours[i:i + n], eps_ref[i:i + n]))
         if low is not None:  # the control: the reference's step in the precision below in the program's place

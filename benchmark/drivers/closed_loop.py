@@ -23,9 +23,11 @@ eps (``step``: against the next step's input, the last against the returned
 scans), and the points of the returned scans (``points``, the relative L2
 of the program's host copy against the reference's conversion).
 
-``--control int8`` runs the network on the program's int8 lane (the eps
-control); ``--control bf16`` takes the steps' outputs and the points from
-the reference in bfloat16 in place of the program's (their control).
+The eps control is the architecture module's (``CONTROLS``): ``--control
+int8`` runs the network on the program's own int8 lane, ``--control fp8`` puts
+the reference network's eps in fp8 in the program's place; ``--control
+bf16`` takes the steps' outputs and the points from the reference in
+bfloat16 in place of the program's (their control).
 """
 
 from __future__ import annotations
@@ -42,15 +44,14 @@ from ..reference import lidar as ref_lidar
 from ..roofline import flops
 from ..trace import percentile, profiled
 from ..weights import make_state_dict, reference_net
-from .common import (Outcome, Recorder, compute_dtype, derive, free, log, program_config, reference_precision,
-                     rel_l2, sync)
+from .common import (Outcome, Recorder, compute_dtype, derive, free, log, program_config, program_control,
+                     ray_angles, reference_eps, reference_precision, rel_l2, sync)
 
 
 def run(ctx) -> Outcome:
     from dataclasses import asdict
 
     from r2dm_tpu_torch.inference import setup_model
-    from r2dm_tpu_torch.models.layers import set_quant_conv
     from r2dm_tpu_torch.sample_and_save import postprocess
 
     tr, cfg, dev = ctx.traffic, ctx.cfg, ctx.device
@@ -59,8 +60,7 @@ def run(ctx) -> Outcome:
     ddpm, lidar_utils, _ = setup_model(
         {"cfg": asdict(program_config(cfg)), "ema_weights": make_state_dict(cfg, weights_seed, dev)},
         dtype=compute_dtype(cfg, dev), device=dev)
-    if ctx.control == "int8":
-        set_quant_conv(ddpm.model, "w8a8")
+    program_control(ctx, ddpm.model)
     rng = np.random.default_rng(derive(ctx.seed, 2))
     checked = sorted(int(i) for i in rng.choice(tr["check_within"], tr["check_requests"], replace=False))
     recorder = Recorder(ddpm.model, len(checked), S, (B, *ddpm.sampling_shape), dev)
@@ -129,16 +129,10 @@ def run(ctx) -> Outcome:
 
     t = time.perf_counter()
     with reference_precision():
-        checks = check(ctx, records, weights_seed, seeds, lidar_utils_angles(cfg, dev))
+        checks = check(ctx, records, weights_seed, seeds, ray_angles(cfg, dev))
     log(f"the check took {time.perf_counter() - t:.3f} s")
     return Outcome(attempted=len(latencies), failed=failed, metrics=metrics, observed=observed, checks=checks,
                    peak=peak)
-
-
-def lidar_utils_angles(cfg: dict, dev) -> torch.Tensor:
-    from ..reference.unet import hdl64e_angles
-
-    return hdl64e_angles(*cfg["resolution"], device=dev)
 
 
 @torch.no_grad()
@@ -168,12 +162,14 @@ def check(ctx, records, weights_seed, seeds, angles) -> dict:
         for k, (x_in, _, eps) in enumerate(kept):
             x_in, eps = x_in.to(dev), eps.to(dev)
             cond = ref_diff.logsnr(torch.full((x_in.shape[0],), float(ts[k]), device=dev))
-            rr = tr["reference_rows"]
-            eps_ref = torch.cat([net(x_in[j:j + rr], cond[j:j + rr]) for j in range(0, x_in.shape[0], rr)])
+            eps_ref = reference_eps(net, x_in, cond, tr["reference_rows"])
+            eps_ours = eps
+            if ctx.control == "fp8":  # the control: the reference's eps in fp8 in the program's place
+                eps_ours = reference_eps(net, x_in, cond, tr["reference_rows"], "fp8")
             x_next = kept[k + 1][0].to(dev) if k + 1 < len(kept) else x.to(dev).permute(0, 2, 3, 1)
             if low is not None:  # the control: the reference's step in the precision below in the program's place
                 x_next = step(x_in, eps, float(ts[k]), float(ts[k + 1]), low)
-            gaps["eps"] = max(gaps["eps"], rel_l2(eps, eps_ref))
+            gaps["eps"] = max(gaps["eps"], rel_l2(eps_ours, eps_ref))
             gaps["step"] = max(gaps["step"], rel_l2(x_next, step(x_in, eps, float(ts[k]), float(ts[k + 1]))))
         ours = torch.from_numpy(points).to(dev)
         if low is not None:

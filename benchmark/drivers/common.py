@@ -1,6 +1,6 @@
 """What every driver shares: the run's context, seeds derived from the run's
-seed, the program's configuration built from a configuration file, and the
-comparison helpers of the correctness check."""
+seed, the program's configuration built from a configuration file, the
+sensor's ray angles, and the comparison helpers of the correctness check."""
 
 from __future__ import annotations
 
@@ -13,6 +13,8 @@ from typing import Optional
 import numpy as np
 import torch
 
+from .. import manifest
+from ..reference.unet import hdl64e_angles
 from ..trace import Spans
 
 
@@ -46,20 +48,16 @@ def derive(*parts: int) -> int:
 
 
 def program_config(cfg: dict):
-    """The port's ``Config`` of a configuration file."""
+    """The port's ``Config`` of a configuration file: the data, diffusion,
+    training and precision every configuration states, and the network's
+    fields from its architecture module."""
     from r2dm_tpu_torch import config as config_lib
 
     c = config_lib.Config()
     c.data.dataset, c.data.resolution = "synthetic", tuple(cfg["resolution"])
     c.data.depth_format, c.data.min_depth, c.data.max_depth = cfg["depth_format"], cfg["min_depth"], cfg["max_depth"]
     c.data.projection = cfg["projection"]
-    m = c.model
-    m.architecture, m.base_channels = cfg["architecture"], cfg["base_channels"]
-    m.channel_multiplier = tuple(cfg["channel_multiplier"])
-    if cfg["architecture"] == "efficient_unet":
-        m.num_residual_blocks = tuple(cfg["num_residual_blocks"])
-        m.gn_num_groups, m.gn_eps, m.attn_num_heads = cfg["gn_num_groups"], cfg["gn_eps"], cfg["attn_num_heads"]
-        m.coords_encoding = cfg["coords_encoding"]
+    manifest.architecture(cfg).program_model(cfg, c.model)
     d = c.diffusion
     d.timestep_type, d.noise_schedule = cfg["timestep_type"], cfg["noise_schedule"]
     d.prediction_type, d.loss_type = cfg["prediction_type"], cfg["loss_type"]
@@ -70,6 +68,36 @@ def program_config(cfg: dict):
     t.ema_decay, t.ema_update_every = tc["ema_decay"], tc["ema_update_every"]
     t.mixed_precision = "bf16" if cfg["compute_dtype"] == "bfloat16" else "no"
     return c
+
+
+def ray_angles(cfg: dict, device) -> torch.Tensor:
+    """The sensor's ray angles on the configuration's grid, as the reference
+    computes them: what the port's ``LiDARUtility`` projects with."""
+    return hdl64e_angles(*cfg["resolution"], device=device)
+
+
+def program_control(ctx: Context, model: torch.nn.Module) -> None:
+    """For the control ``int8``, the program's own int8 lane on ``model``, by
+    the architecture module's ``quantize``. Refused where the network has no
+    such lane or the lane switches no module: the control would then be the
+    program itself. Any other control is the check's to apply."""
+    if ctx.control != "int8":
+        return
+    arch = manifest.architecture(ctx.cfg)
+    if not hasattr(arch, "quantize") or arch.quantize(model) == 0:
+        raise ValueError(f"the port's {ctx.cfg['architecture']!r} network has no int8 lane; "
+                         f"its controls are {arch.CONTROLS}")
+
+
+def reference_eps(net: torch.nn.Module, x: torch.Tensor, cond: torch.Tensor, rows: int,
+                  quant: Optional[str] = None) -> torch.Tensor:
+    """The reference network's output on ``x``, ``rows`` rows at a time; with
+    ``quant`` (the control ``fp8``) computed in that precision."""
+    net.set_quant(quant)
+    try:
+        return torch.cat([net(x[i:i + rows], cond[i:i + rows]) for i in range(0, len(x), rows)])
+    finally:
+        net.set_quant(None)
 
 
 def compute_dtype(cfg: dict, device: torch.device) -> Optional[torch.dtype]:

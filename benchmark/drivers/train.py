@@ -6,9 +6,10 @@ starts at), ``probe_steps`` and ``profile_steps`` (the traced run's),
 ``reference_rows`` and ``limits``; the batch and the optimiser's settings are
 the configuration's ``training``.
 
-The model is built as the trainer builds it (``build_model``, the sensor's
-ray angles in ``coords``) and loads the benchmark's weights; the state is
-``init_train_state`` with ``make_optimizer``'s AdamW and schedule, put at
+The model is built as the trainer builds it (``build_model``) and loads
+the benchmark's weights, the sensor's ray angles in ``coords`` where the
+network carries them; ``LiDARUtility`` projects with the same angles. The
+state is ``init_train_state`` with ``make_optimizer``'s AdamW and schedule, put at
 ``first_update`` (the scheduler with ``set_schedule_step``, the step count
 the EMA sees alike). A step: the next raw batch from ``DataLoader`` over the
 pool (its prefetch thread running), pinned and copied to the card,
@@ -50,7 +51,7 @@ from ..reference.train import BETA1, RefTrainer
 from ..roofline import flops
 from ..trace import profiled
 from ..weights import make_state_dict, reference_net
-from .common import (Fence, Outcome, compute_dtype, derive, free, leaf_gap, log, program_config,
+from .common import (Fence, Outcome, compute_dtype, derive, free, leaf_gap, log, program_config, ray_angles,
                      reference_precision, rel_l2, sync)
 
 KEYS = ("depth", "reflectance")
@@ -70,6 +71,8 @@ def run(ctx) -> Outcome:
                                          set_schedule_step)
 
     tr, cfg, dev = ctx.traffic, ctx.cfg, ctx.device
+    if ctx.control not in (None, "fp8"):  # the int8 lane raises under autograd, and bf16 is the step's
+        raise ValueError(f"training's control is fp8, the reference in fp8 in the program's place, not {ctx.control!r}")
     tc = cfg["training"]
     B, first = tc["batch_size"], tr["first_update"]
     pcfg = program_config(cfg)
@@ -81,7 +84,7 @@ def run(ctx) -> Outcome:
     model.load_state_dict(sd)
     names = [n for n, _ in model.named_parameters()]
     lidar_utils = LiDARUtility(tuple(cfg["resolution"]), cfg["depth_format"], cfg["min_depth"], cfg["max_depth"],
-                               ray_angles=sd["coords"], data_format="NHWC", device=dev)
+                               ray_angles=ray_angles(cfg, dev), data_format="NHWC", device=dev)
     del sd
     diffusion = build_diffusion(pcfg, model)
     optimizer, scheduler = make_optimizer(model.parameters(), pcfg.training)

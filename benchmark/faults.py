@@ -5,8 +5,9 @@ the program's callables and puts it back.
 
 - ``unchanged_state``: a sampler step returns its input; a train step's
   AdamW update does nothing;
-- ``half_batch``: the network runs on the first half of the rows and the
-  rest get their mean; the training loss is the mean over the first half;
+- ``half_batch``: the network (the port's class of the configuration's
+  architecture) runs on the first half of the rows and the rest get their
+  mean; the training loss is the mean over the first half;
 - ``altered_answer``: a scan's depth moved by half a metre after the
   conversion to points (closed loop), one row of a step's output moved by 0.1
   (chain), one leaf's clipped gradient scaled by 1.5 (training).
@@ -17,6 +18,8 @@ from __future__ import annotations
 from contextlib import contextmanager
 
 import torch
+
+from . import manifest
 
 FAULTS = ("unchanged_state", "half_batch", "altered_answer")
 
@@ -29,19 +32,6 @@ def _patched(owner, name: str, replacement):
         yield
     finally:
         setattr(owner, name, original)
-
-
-def _forward_patch(make):
-    """Patch the forward of both networks."""
-    from r2dm_tpu_torch.models.efficient_unet import EfficientUNet
-    from r2dm_tpu_torch.models.refinenet import LiDARGenRefineNet
-
-    @contextmanager
-    def both():
-        with _patched(EfficientUNet, "forward", make), _patched(LiDARGenRefineNet, "forward", make):
-            yield
-
-    return both()
 
 
 def _half_rows(original):
@@ -97,12 +87,14 @@ def _gradient_scaled(original):
     return clip_grad_norm_
 
 
-def plant(fault: str, driver: str):
-    """The context manager that plants ``fault`` under ``driver``'s timed path."""
+def plant(fault: str, ctx):
+    """The context manager that plants ``fault`` under the timed path of the
+    run ``ctx`` describes: its driver's, on its configuration's network."""
     import r2dm_tpu_torch.diffusion.base as base
     import r2dm_tpu_torch.sample_and_save as sas
     from r2dm_tpu_torch.diffusion.continuous import ContinuousTimeGaussianDiffusion
 
+    driver = ctx.traffic["driver"]
     if driver == "train":
         return {
             "unchanged_state": lambda: _patched(torch.optim.AdamW, "step", lambda original: lambda self, closure=None: None),
@@ -112,7 +104,7 @@ def plant(fault: str, driver: str):
     if fault == "unchanged_state":
         return _patched(ContinuousTimeGaussianDiffusion, "p_step", _same_state)
     if fault == "half_batch":
-        return _forward_patch(_half_rows)
+        return _patched(manifest.architecture(ctx.cfg).program_net(), "forward", _half_rows)
     if driver == "closed_loop":
         return _patched(sas, "postprocess", _depth_moved)
     return _patched(ContinuousTimeGaussianDiffusion, "p_step", _step_moved)

@@ -1,13 +1,16 @@
 """``BENCHMARK.json`` and the files it names, found by name.
 
 A cell's traffic mix is ``workloads/<cell>.json``, its configuration
-``configs/<config>.json`` (the manifest's ``file``), and each per-layer
-metric ``metrics/<metric>.py``, whose ``read(observed)`` returns the number or
-None. Nothing here knows a cell, a configuration or a metric by name.
+``configs/<config>.json`` (the manifest's ``file``), the network of a
+configuration ``architectures/<architecture>.py`` (the file's
+``architecture``), and each per-layer metric ``metrics/<metric>.py``, whose
+``read(observed)`` returns the number or None. Nothing here knows a cell, a
+configuration, an architecture or a metric by name.
 """
 
 from __future__ import annotations
 
+import functools
 import importlib.util
 import json
 import re
@@ -56,10 +59,49 @@ def per_layer(manifest: dict, cell_name: str) -> list[dict]:
             if (cell_name in m["workloads"] if "workloads" in m else m["moves"] in moved)]
 
 
+def architecture(cfg: dict, root: Path = ROOT):
+    """``benchmark/architectures/<architecture>.py`` of the checkout at
+    ``root``, for a configuration file: all that the harness knows of a
+    network. It gives
+
+    - ``TINY``: the sizes the CPU tests cut the configuration to;
+    - ``GAINS``: the suffixes of the parameter names that ``weights.py``
+      draws as a norm's gain;
+    - ``CONTROLS``: the correctness check's control of each driver (``int8``,
+      the program's own int8 lane; ``fp8``, the reference in fp8 in the
+      program's place);
+    - ``reference_net(cfg)``: the plain reference network (``reference/``),
+      whose ``set_quant("fp8")`` computes it in the control's precision;
+    - ``extra_state(cfg, device)``: the state the benchmark's weights carry
+      beyond the parameters;
+    - ``program_model(cfg, m)``: sets the port's ``Config.model`` fields;
+    - ``program_net()``: the port's network class;
+    - ``quantize(model)``, where the port's network has an int8 lane: turns
+      it on and returns how many modules it switched;
+    - ``flops(cfg)``: the operations of one forward of one image, by kind;
+    - ``wrapped_work()``: the port's callables the traced chain attributes,
+      as ``(owner, attribute, label, least seconds of a call's work)``.
+    """
+    name = cfg["architecture"]
+    path = root / "benchmark" / "architectures" / f"{name}.py"
+    if not NAME.match(name) or not path.is_file():
+        raise KeyError(f"configuration {cfg.get('name')!r} names the architecture {name!r}, and there is no {path}")
+    return _architecture(name, path)
+
+
+@functools.cache
+def _architecture(name: str, path: Path):
+    """One module object per file, however often a run looks it up."""
+    return _module(f"benchmark.architectures.{name.replace('.', '_')}", path)
+
+
 def reader(metric: str):
     """``metrics/<metric>.py``'s ``read``."""
-    path = HERE / "metrics" / f"{metric}.py"
-    spec = importlib.util.spec_from_file_location(f"benchmark.metrics.{metric.replace('.', '_')}", path)
+    return _module(f"benchmark.metrics.{metric.replace('.', '_')}", HERE / "metrics" / f"{metric}.py").read
+
+
+def _module(name: str, path: Path):
+    spec = importlib.util.spec_from_file_location(name, path)
     module = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(module)
-    return module.read
+    return module

@@ -4,8 +4,8 @@ broken underneath fail it, once for each fault the cell can have (a step
 that returns its state unchanged; half of the batch left out, the mean taken
 over the rest; an answer altered where it is produced). The four cells run
 on one card, so there is no exchange between chips to leave out. The
-control (the program's int8 lane, or the reference in fp8) needs the card and
-its sizes: the ``cuda`` tests run it through ``python -m benchmark.run``."""
+control (the program's int8 lane, or the reference in fp8, as the
+architecture module names it) needs the card and its sizes: the ``cuda`` tests run it through ``python -m benchmark.run``."""
 
 from __future__ import annotations
 
@@ -36,8 +36,9 @@ def test_sound_run_is_correct(cell):
 @pytest.mark.parametrize("fault", FAULTS)
 @pytest.mark.parametrize("cell", tiny.CELLS)
 def test_broken_run_is_not_correct(cell, fault):
-    with plant(fault, manifest.traffic(cell)["driver"]):
-        out = tiny.run(tiny.context(cell))
+    ctx = tiny.context(cell)
+    with plant(fault, ctx):
+        out = tiny.run(ctx)
     assert not tiny.correct(out), out.checks
 
 
@@ -47,17 +48,23 @@ def card():
         pytest.skip("needs an NVIDIA card with CUDA")
 
 
-CONTROL = {"chain": "int8", "closed_loop": "int8", "train": "fp8"}
+def control(cell: str) -> str:
+    """The cell's control, as its architecture module names it for its
+    driver."""
+    m = manifest.load()
+    cfg = manifest.config(m, manifest.cell(m, cell)["config"])
+    return manifest.architecture(cfg).CONTROLS[manifest.traffic(cell)["driver"]]
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("cell", tiny.CELLS)
 def test_control_is_not_correct(card, cell):
-    """The control at the cell's own sizes, a short window: the program's
-    int8 lane for the sampling cells, the reference in fp8 for training."""
+    """The control at the cell's own sizes, a short window: the one the
+    architecture module names (the program's int8 lane for the U-Net's
+    sampling cells, the reference in fp8 elsewhere)."""
     proc = subprocess.run(
         [sys.executable, "-m", "benchmark.run", "--workload", cell, "--seed", str(2**33 + 101), "--seconds", "3",
-         "--trace", "0", "--control", CONTROL[manifest.traffic(cell)["driver"]]],
+         "--trace", "0", "--control", control(cell)],
         cwd=manifest.ROOT, capture_output=True, text=True, timeout=900, env=dict(os.environ))
     assert proc.returncode == 0, proc.stderr[-4000:]
     assert json.loads(proc.stdout.strip().splitlines()[-1])["correct"] is False

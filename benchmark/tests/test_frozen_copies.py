@@ -1,5 +1,5 @@
 """The yardstick's frozen copies against the port as it stands: the FLOP
-counts of both networks, the roofline arithmetic of ``chip_smoke.py``, the
+counts of both networks (each architecture module's ``flops``), the roofline arithmetic of ``chip_smoke.py``, the
 synthetic scans, the trainer's step seeds, and the plain references (the
 networks on the reference ``state_dict`` names, the sampler's steps, the
 range-image conversions, the loss) against the port's plain CPU path."""
@@ -17,15 +17,14 @@ from benchmark import data, manifest, weights
 from benchmark.reference import diffusion as ref_diff
 from benchmark.reference import lidar as ref_lidar
 from benchmark.roofline import PEAK_BF16_FLOPS, PEAK_BYTES, PEAK_FP32_FLOPS, flops, kernels
-from benchmark.drivers.common import program_config, rel_l2
+from benchmark.drivers.common import program_config, ray_angles, rel_l2
 from benchmark.drivers.train import step_seed
-
-from .tiny import REFINENET, UNET
 
 torch.set_num_threads(1)
 M = manifest.load()
 H_CFG = manifest.config(M, "r2dm-h")
 RN_CFG = manifest.config(M, "lidargen-refinenet")
+UNET, REFINENET = (manifest.architecture(c).TINY for c in (H_CFG, RN_CFG))
 
 
 def _tiny(cfg, cut):
@@ -43,9 +42,10 @@ def test_unet_flops_match_the_port(cut):
     from r2dm_tpu_torch.bench import forward_flops
 
     cfg = H_CFG if cut is None else _tiny(H_CFG, cut)
-    assert flops.efficient_unet(cfg) == forward_flops(_port_model(cfg))
+    count = manifest.architecture(cfg).flops
+    assert count(cfg) == forward_flops(_port_model(cfg))
     if cut is None:  # 229.0 GFLOP of convs and resampling, 234.9 in all
-        assert sum(flops.efficient_unet(cfg)[k] for k in ("conv", "resample")) == 228_958_666_752
+        assert sum(count(cfg)[k] for k in ("conv", "resample")) == 228_958_666_752
         assert flops.forward_flops(cfg) == 234_868_932_608
 
 
@@ -159,7 +159,7 @@ def test_reference_conversions_match_the_port():
     from r2dm_tpu_torch.sample_and_save import postprocess
 
     planes = torch.from_numpy(np.stack([data.scan(9, i, 16, 64) for i in range(2)]))
-    angles = weights.hdl64e_angles(16, 64)
+    angles = ray_angles({"resolution": [16, 64]}, "cpu")
     lu = LiDARUtility((16, 64), "log_depth", 1.45, 80.0, ray_angles=angles, data_format="NHWC")
     got = preprocess_batch(lu, {"depth": planes[..., 4:5], "reflectance": planes[..., 3:4]}, (16, 64))
     torch.testing.assert_close(ref_lidar.preprocess(planes[..., 4:5], planes[..., 3:4]), got)

@@ -1,5 +1,6 @@
 """Tiny versions of the cells, for the harness's CPU tests: the same drivers,
-configurations cut to a few channels at 16 x 64, short windows."""
+configurations cut to their architecture module's ``TINY`` sizes, short
+windows."""
 
 from __future__ import annotations
 
@@ -11,9 +12,6 @@ import torch
 from benchmark import manifest
 from benchmark.drivers.common import Context
 
-UNET = {"resolution": [16, 64], "base_channels": 8, "channel_multiplier": [1, 2, 2, 2],
-        "num_residual_blocks": [1, 1, 1, 1], "gn_num_groups": 4, "attn_num_heads": 2}
-REFINENET = {"resolution": [16, 64], "base_channels": 8}
 TRAFFIC = {
     "chain": {"batch": 4, "steps": 8, "check_rows": 4, "check_steps": 2, "check_within": 3, "reference_rows": 2},
     "closed_loop": {"batch": 2, "steps": 4, "check_requests": 2, "check_within": 3, "reference_rows": 2},
@@ -26,7 +24,7 @@ def context(cell: str, seed: int = 2**33 + 17, seconds: float = 0.5, control=Non
     m = manifest.load()
     entry = manifest.cell(m, cell)
     cfg = manifest.config(m, entry["config"])
-    cfg = dict(cfg, **(UNET if cfg["architecture"] == "efficient_unet" else REFINENET))
+    cfg = dict(cfg, **manifest.architecture(cfg).TINY)
     cfg["training"] = dict(cfg["training"], batch_size=4)
     traffic = manifest.traffic(cell)
     traffic = dict(traffic, **TRAFFIC[traffic["driver"]])
