@@ -131,5 +131,14 @@ def wrapped_work() -> list:
             (layers, "fused_group_norm_silu", "group_norm", group_norm)]
 
 
+def wrapped_probes() -> dict:
+    """Each wrapped work's probes, by label: the arguments and result of a
+    call at a level-1 shape at b8 (64 x 1024, 64 channels in, 128 out), the
+    result in bfloat16 and in float32, as meta tensors."""
+    h = torch.empty(8, 64, 1024, 64, dtype=torch.bfloat16, device="meta")
+    y, y32 = (torch.empty(8, 64, 1024, 128, dtype=d, device="meta") for d in (torch.bfloat16, torch.float32))
+    return {label: [((h, h, h), y), ((h, h, h), y32)] for label in ("ringconv", "group_norm")}
+
+
 def _ceil_log2(n: int) -> int:
     return (n - 1).bit_length()

@@ -67,3 +67,7 @@ def flops(cfg: dict) -> dict:
 def wrapped_work() -> list:
     """No call of the RefineNet is attributed: it runs no hand-written kernel."""
     return []
+
+
+def wrapped_probes() -> dict:
+    return {}

@@ -53,7 +53,7 @@ from ..roofline import flops
 from ..trace import profiled
 from ..weights import make_state_dict, reference_net
 from .common import (Fence, Outcome, Recorder, compute_dtype, derive, free, log, program_config, program_control,
-                     reference_eps, reference_precision, rel_l2, sync)
+                     program_traced, reference_eps, reference_precision, rel_l2, sync)
 
 
 def run(ctx) -> Outcome:
@@ -141,6 +141,7 @@ def run(ctx) -> Outcome:
                                             host=True)
         observed["window"] = {"seconds": window_s, "units": done, "profile_units": n,
                               "flops_per_unit": flops.forward_flops(cfg) * B}
+        observed["program"] = program_traced(lambda: [step(False) for _ in range(n)], n, dev)
     recorder.handle.remove()
     host = [(b[0][0], b[0][2], out) for b, out in zip(recorder.bufs, out_host)]  # x_t, eps, the step's output
     del ddpm, diff, x, recorder

@@ -45,7 +45,7 @@ from ..roofline import flops
 from ..trace import percentile, profiled
 from ..weights import make_state_dict, reference_net
 from .common import (Outcome, Recorder, compute_dtype, derive, free, log, program_config, program_control,
-                     ray_angles, reference_eps, reference_precision, rel_l2, sync)
+                     program_traced, ray_angles, reference_eps, reference_precision, rel_l2, sync)
 
 
 def run(ctx) -> Outcome:
@@ -67,7 +67,7 @@ def run(ctx) -> Outcome:
 
     def seeds(i: int, stream: int = 3) -> list:
         """Request i's seeds: stream 3 the window's, 7 set-up's, 8 the
-        traced segment's."""
+        profiled windows', 9 the program-traced segment's."""
         return [derive(ctx.seed, stream, i, j) for j in range(B)]
 
     def request(i: int, stream: int = 3):
@@ -123,6 +123,7 @@ def run(ctx) -> Outcome:
         observed["window"] = {"seconds": window_s, "units": len(latencies) - failed, "profile_units": n,
                               "flops_per_unit": flops.forward_flops(cfg) * B * S}
         observed["denoising_steps"] = S * n
+        observed["program"] = program_traced(lambda: [request(j, stream=9) for j in range(n)], n, dev)
     recorder.handle.remove()
     del ddpm, recorder
     free(dev)

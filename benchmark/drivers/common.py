@@ -195,6 +195,32 @@ def sync(device: torch.device) -> None:
         torch.cuda.synchronize(device)
 
 
+def program_traced(segment, units: int, device: torch.device) -> dict:
+    """``segment()``, ``units`` steps or requests, with the program's own
+    tracing on for it alone; off and emptied afterwards. What
+    ``program_trace.py`` reads: the program's ``snapshot()``, its counters
+    counted over the segment (the kernel wrappers' launch counts are always
+    on, so their count before it is taken off), the host clock at the
+    segment's ends (``t0``, ``t1``) and ``units``."""
+    from r2dm_tpu_torch.utils import trace
+
+    sync(device)
+    trace.reset()
+    before = trace.snapshot()["counters"]
+    trace.enable()
+    try:
+        t0 = time.perf_counter()
+        segment()
+        sync(device)
+        t1 = time.perf_counter()
+        snap = trace.snapshot()
+    finally:
+        trace.disable()
+        trace.reset()
+    counters = {k: v - before.get(k, 0) for k, v in snap["counters"].items()}
+    return {"spans": snap["spans"], "counters": counters, "t0": t0, "t1": t1, "units": units}
+
+
 def free(device: torch.device) -> None:
     """Return the program's freed memory to the card before the reference runs."""
     import gc

@@ -51,8 +51,8 @@ from ..reference.train import BETA1, RefTrainer
 from ..roofline import flops
 from ..trace import profiled
 from ..weights import make_state_dict, reference_net
-from .common import (Fence, Outcome, compute_dtype, derive, free, leaf_gap, log, program_config, ray_angles,
-                     reference_precision, rel_l2, sync)
+from .common import (Fence, Outcome, compute_dtype, derive, free, leaf_gap, log, program_config, program_traced,
+                     ray_angles, reference_precision, rel_l2, sync)
 
 KEYS = ("depth", "reflectance")
 
@@ -169,6 +169,18 @@ def run(ctx) -> Outcome:
         observed["profile_host"] = profiled(lambda: one(), (), dev, host=True)
         observed["window"] = {"seconds": window_s, "units": done, "profile_units": n,
                               "flops_per_unit": 3 * flops.forward_flops(cfg) * B}
+
+        def queued():  # one step queued ahead, as in the window
+            pending = None
+            for _ in range(n):
+                one()
+                mark = fence.mark()
+                if pending is not None:
+                    fence.wait(pending)
+                pending = mark
+            fence.wait(pending)
+
+        observed["program"] = program_traced(queued, n, dev)
     losses = [float(f["loss"]) for f in followed]
     first_grad = [m / (1.0 - BETA1) for m in first_moment]
     by_name = dict(zip(names, zip(first_grad, after["params"], after["ema"])))

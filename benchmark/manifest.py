@@ -80,7 +80,10 @@ def architecture(cfg: dict, root: Path = ROOT):
       it on and returns how many modules it switched;
     - ``flops(cfg)``: the operations of one forward of one image, by kind;
     - ``wrapped_work()``: the port's callables the traced chain attributes,
-      as ``(owner, attribute, label, least seconds of a call's work)``.
+      as ``(owner, attribute, label, least seconds of a call's work)``;
+    - ``wrapped_probes()``: for each label of ``wrapped_work``, the
+      ``(args, result)`` meta tensors its work is frozen on
+      (``tests/readings.py``), at two result dtypes.
     """
     name = cfg["architecture"]
     path = root / "benchmark" / "architectures" / f"{name}.py"

@@ -94,10 +94,46 @@ def _profile():
                            "group_norm": {"calls": 50, "device_s": 0.1, "least_s": 0.04}})
 
 
+def _span(name, t0, t1, d0=None, d1=None, request=None, thread="MainThread"):
+    return {"name": name, "t0": t0, "t1": t1, "d0": d0, "d1": d1, "request": request, "thread": thread,
+            "parent": None}
+
+
+def _program():
+    """A program-traced segment from 20.0 to 20.5 s of the host's clock
+    (``program_traced``), with three requests' denoising steps before it (the
+    readers of spans do not clip them to the segment) and two train steps."""
+    return {"t0": 20.0, "t1": 20.5, "units": 3, "counters": {"data.gets": 4, "data.gets_empty": 1},
+            "spans": [
+                # request 1: two steps (host 20 and 24 ms, leads 1 and 5 ms), a forward of 16 ms
+                _span("sampler.step", 10.000, 10.020, 10.001, 10.025, 1),
+                _span("network.forward", 10.002, 10.018, request=1),
+                _span("sampler.step", 10.020, 10.044, 10.025, 10.050, 1),
+                # request 2: 4 ms after request 1's last step on the device; host 28 and 16, leads 2 and 5
+                _span("sampler.step", 10.052, 10.080, 10.054, 10.085, 2),
+                _span("sampler.step", 10.080, 10.096, 10.085, 10.100, 2),
+                # request 3: 6 ms after; host 28, lead 4
+                _span("sampler.step", 10.102, 10.130, 10.106, 10.140, 3),
+                # two train steps, leads 0.5 and 1.5 ms, updates of 7 and 9 ms
+                _span("train.step", 20.000, 20.200, 20.0005, 20.260),
+                _span("train.update", 20.190, 20.197),
+                _span("train.step", 20.300, 20.500, 20.3015, 20.560),
+                _span("train.update", 20.490, 20.499),
+                # the loader's thread: 10 ms inside the segment of a batch begun before it, and 10 ms
+                _span("data.make_batch", 19.990, 20.010, thread="loader"),
+                _span("data.make_batch", 20.250, 20.260, thread="loader")]}
+
+
+PROGRAM_METRICS = ("host_step_ms.serve", "host_forward_ms.serve", "device_lead_ms.serve", "device_gap_ms.serve",
+                   "device_lead_ms.train", "host_update_ms.train", "loader_empty_share.train",
+                   "loader_busy_share.train")
+
+
 def test_readers_on_a_trace():
     obs = {"profile": _profile(), "profile_host": _profile(), "denoising_steps": 4, "enqueue_s": 0.9,
            "step_wall_s": 1.0, "loader_wait_s": [0.001, 0.003],
-           "window": {"seconds": 40.0, "units": 100, "profile_units": 5, "flops_per_unit": 0.2 * 989e12}}
+           "window": {"seconds": 40.0, "units": 100, "profile_units": 5, "flops_per_unit": 0.2 * 989e12},
+           "program": _program()}
     got = {m["name"]: mf.reader(m["name"])(obs) for m in M["per_layer"]}
     assert got["roofline.ringconv.sample"] == pytest.approx(25.0)
     assert got["roofline.gn.sample"] == pytest.approx(40.0)
@@ -107,6 +143,17 @@ def test_readers_on_a_trace():
     assert got["launches_per_step.serve"] == 300
     assert got["enqueue_share.train"] == pytest.approx(90.0)
     assert got["loader_wait_ms.train"] == pytest.approx(2.0)
+    # (20 + 24 + 28 + 16 + 28) / 5 ms a step; one forward of 16 ms; leads (1 + 5 + 2 + 5 + 4) / 5
+    assert got["host_step_ms.serve"] == pytest.approx(23.2)
+    assert got["host_forward_ms.serve"] == pytest.approx(16.0)
+    assert got["device_lead_ms.serve"] == pytest.approx(3.4)
+    assert got["device_gap_ms.serve"] == pytest.approx(5.0)  # (4 + 6) / 2
+    assert got["device_lead_ms.train"] == pytest.approx(1.0)
+    assert got["host_update_ms.train"] == pytest.approx(8.0)
+    assert got["loader_empty_share.train"] == pytest.approx(25.0)  # 1 of 4 gets
+    assert got["loader_busy_share.train"] == pytest.approx(4.0)  # 20 ms of the segment's 500
+    without = {k: v for k, v in obs.items() if k != "program"}
+    assert {m: mf.reader(m)(without) for m in PROGRAM_METRICS} == dict.fromkeys(PROGRAM_METRICS)
 
 
 @pytest.mark.parametrize("trace", [False, True])
