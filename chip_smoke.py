@@ -25,14 +25,17 @@ Phases (any failure makes the exit code non-zero and suppresses the result):
   4. the main path at full width: random config-H weights saved as a
      reference-layout .pth, loaded by setup_model in bf16 on the card, a
      16-step DDIM and a 4-step DDPM chain at batch 8 with per-sample seeds,
-     then LiDARUtility denormalize -> revert_depth -> to_xyz. The launch
-     counters are zeroed just before and read just after (and the composed
-     down convs counted: 3 a forward); one b8 and one b256 forward's ring-conv
-     launches by tile variant against the rule's split; one network
-     forward is compared between the kernel path and the plain path at
-     every batch at which this script runs the network (2, 4, 8, 32);
+     then LiDARUtility denormalize -> revert_depth -> to_xyz. Its forwards
+     replay a CUDA graph (models/forward_graph.py), which launches the
+     kernels with no wrapper call, so its launches are the kernels that ran
+     on the card, read from a torch.profiler record (``device_launches``);
+     so are those of one b8 and one b256 forward's ring convs by tile
+     variant, against the rule's split (the b256 forward, eager, also
+     counts its composed down convs: 3); one network forward is compared
+     between the kernel path and the plain path at every batch at which
+     this script runs the network (2, 4, 8, 32);
   5. every other serving path at full width from that checkpoint, each with
-     its seconds and exact launch counts: dpmpp_2m, flow euler and
+     its seconds (the profiler on) and exact launches on the card: dpmpp_2m, flow euler and
      midpoint, discrete ddpm and ddim, return_all, RePaint at b4 over the
      four masks of completion_demo.py (known pixels kept to 1e-2),
      ``python -m r2dm_tpu_torch.generate`` (b2, 4 DDIM steps), again with
@@ -41,7 +44,7 @@ Phases (any failure makes the exit code non-zero and suppresses the result):
      finite); the .pth exporter's round trip (msgpack -> ``python -m
      r2dm_tpu_torch.export_torch_ckpt`` -> setup_model, the same forward);
      then the peak memory per image of one sampling step and one RePaint
-     step against DDPM.MAX_BATCH_PIXELS;
+     step (from b32 and b64, eager) against DDPM.MAX_BATCH_PIXELS;
   6. time each kernel, its plain version and the one PyTorch call that
      computes the same function (library_ms, a yardstick the port never
      calls), beside the least time the card could take (bound_ms); the
@@ -50,7 +53,7 @@ Phases (any failure makes the exit code non-zero and suppresses the result):
      checked against its plain version, at phase 3's limit);
   7. one batch-8 network forward: its time as the host drives it, its
      device time and each part's (CUDA graphs), the host's time to enqueue
-     it, and the operations that block the host (sync debug mode); the
+     it replayed and eager, and the operations that block the host (sync debug mode); the
      three down paths composed against two ops on their real inputs, and
      the forward's device time both ways (relative L2 <= 2e-2);
   8. training: each kernel's backward against autograd of its plain version
@@ -621,7 +624,7 @@ def phase_resample(torch):
 
 def phase_main(torch, tmp):
     from r2dm_tpu_torch import config as config_lib
-    from r2dm_tpu_torch import ops, setup_model
+    from r2dm_tpu_torch import setup_model
     from r2dm_tpu_torch.inference import build_model, model_coords
     from r2dm_tpu_torch.models import layers
     from r2dm_tpu_torch.ops import fused_resample
@@ -649,34 +652,22 @@ def phase_main(torch, tmp):
     ddpm, lidar, cfg = setup_model(path, dtype=torch.bfloat16, device="cuda")
     print(f"config H on the card: {ddpm.num_parameters} parameters, bf16 compute")
 
-    ddpm.sample(batch_size=B, num_steps=1, mode="ddim", seeds=range(B))  # warm-up
-    torch.cuda.synchronize()
-    ops.reset_launch_counts()
-    fused_resample.conv_then_downsample.calls = fused_resample.upsample_then_conv.calls = 0
-    t0 = time.time()
-    x = ddpm.sample(batch_size=B, num_steps=16, mode="ddim", seeds=range(B))
-    torch.cuda.synchronize()
-    ddim_s = time.time() - t0
-    x2 = ddpm.sample(batch_size=B, num_steps=4, mode="ddpm", seeds=range(B, 2 * B))
-    torch.cuda.synchronize()
-    launches = {fn.__name__: fn.launches for fn in ops.KERNEL_WRAPPERS}
+    ddpm.sample(batch_size=B, num_steps=1, mode="ddim", seeds=range(B))  # warm-up: captures the forward's graph
+    # the main path's kernels as they ran on the card: its forwards replay a
+    # CUDA graph, which launches them with no wrapper call
+    with device_launches(torch) as ran:
+        x = ddpm.sample(batch_size=B, num_steps=16, mode="ddim", seeds=range(B))
+        x2 = ddpm.sample(batch_size=B, num_steps=4, mode="ddpm", seeds=range(B, 2 * B))
+    launches = ran.counts
     forwards = 16 + 4
     # per forward: 48 ResidualBlock norms and 2 attention norms through the
-    # whole function, 48 convs without their prologue; the three down convs
-    # composed with their FIR filter (layers.FUSED_RESAMPLE "down"), the up
-    # path in two ops
+    # whole function, 48 convs without their prologue
     expected = launches_of(50 * forwards, 48 * forwards)
-    composed = {"conv_then_downsample": fused_resample.conv_then_downsample.calls,
-                "upsample_then_conv": fused_resample.upsample_then_conv.calls}
-    print(f"main path launches {json.dumps(launches)} (expected {json.dumps(expected)}); composed resample "
-          f"calls {json.dumps(composed)} (expected {3 * forwards} down, 0 up; FUSED_RESAMPLE = "
-          f"{layers.FUSED_RESAMPLE!r})")
+    print(f"main path launches on the card {json.dumps(launches)} (expected {json.dumps(expected)})")
     if launches != expected:
         raise AssertionError(f"launch counts {launches} != {expected}")
-    if composed != {"conv_then_downsample": 3 * forwards, "upsample_then_conv": 0}:
-        raise AssertionError(f"the down path did not run composed: {composed}")
-    ddim_runs = [ddim_s]  # two more timed runs (host clock); the median is reported
-    for _ in range(2):
+    ddim_runs = []  # three timed runs (host clock); the median is reported
+    for _ in range(3):
         t0 = time.time()
         ddpm.sample(batch_size=B, num_steps=16, mode="ddim", seeds=range(B))
         torch.cuda.synchronize()
@@ -713,28 +704,35 @@ def phase_main(torch, tmp):
     print(f"network forward, kernel path vs plain path: relative L2 by batch {json.dumps(rels)} (limit 2e-2)")
     if not all(r <= 2e-2 and math.isfinite(r) for r in rels.values()):
         raise AssertionError(f"kernel path vs plain path relative L2 {rels}")
-    # one forward at b8 and one at b256: the 48 ring convs split over the
-    # tile variants as ops/act_ringconv.py::tile_variant predicts, read
-    # from the program's counters
+    # one forward at b8 (it replays the main path's graph) and one at b256
+    # (eager, over forward_graph.MAX_GRAPH_PIXELS): the 48 ring convs split
+    # over the tile variants as ops/act_ringconv.py::tile_variant predicts,
+    # read from the kernels that ran; at b256 the three down convs composed
+    # with their FIR filter (layers.FUSED_RESAMPLE "down"), the up path in
+    # two ops, read from the composed convs' calls
     from r2dm_tpu_torch.ops import act_ringconv
-    from r2dm_tpu_torch.utils import trace
 
     for b in (B, 256):
         xin = randn(torch, (b, 64, 1024, 2), 10)
         cond = torch.linspace(-5.0, 5.0, b, device="cuda")
-        ops.reset_launch_counts()
-        with torch.inference_mode():
+        fused_resample.conv_then_downsample.calls = fused_resample.upsample_then_conv.calls = 0
+        with torch.inference_mode(), device_launches(torch) as ran:
             ddpm.model(xin, cond)
-        counters = trace.snapshot()["counters"]
-        got = {t: counters[f"ops.fused_act_ringconv.launches.{t}"] for t in act_ringconv.TILES}
+        got = {t: ran.tiles.get(t, 0) for t in act_ringconv.TILES}
         want = dict.fromkeys(act_ringconv.TILES, 0)
         for (C, Fo, H, W), count in CONV_SHAPES.items():
             want[act_ringconv.tile_variant(b, H, W, C, Fo, act_ringconv.sm_count(xin.device))] += count
         print(f"ring-conv launches of one b{b} forward by tile variant {json.dumps(got)} (predicted "
-              f"{json.dumps(want)}; all {counters['ops.fused_act_ringconv.launches']})")
-        if got != want or counters["ops.fused_act_ringconv.launches"] != 48:
+              f"{json.dumps(want)}; all {ran.counts['fused_act_ringconv']})")
+        if got != want or ran.counts["fused_act_ringconv"] != 48:
             raise AssertionError(f"b{b} forward: ring-conv launches by tile {got} != {want}")
         del xin
+    composed = {"conv_then_downsample": fused_resample.conv_then_downsample.calls,
+                "upsample_then_conv": fused_resample.upsample_then_conv.calls}
+    print(f"composed resample calls of the b256 forward {json.dumps(composed)} (expected 3 down, 0 up; "
+          f"FUSED_RESAMPLE = {layers.FUSED_RESAMPLE!r})")
+    if composed != {"conv_then_downsample": 3, "upsample_then_conv": 0}:
+        raise AssertionError(f"the down path did not run composed: {composed}")
     img_s = B / ddim_s
     print(f"ddim16 b{B}: runs {json.dumps(ddim_runs)} s, median {ddim_s:.4f} s, {img_s:.4f} img/s")
     return {"launches": launches, "ddim16_img_s": img_s, "ddim16_s": ddim_s, "rel_l2": rels, "ddpm": ddpm,
@@ -759,7 +757,7 @@ def phase_serving(torch, main_out, tmp):
 
     import numpy as np
 
-    from r2dm_tpu_torch import bench, ops, setup_model
+    from r2dm_tpu_torch import bench, setup_model
     from r2dm_tpu_torch.inference import DDPM, build_diffusion
 
     ddpm = main_out["ddpm"]
@@ -771,15 +769,15 @@ def phase_serving(torch, main_out, tmp):
         return DDPM(build_diffusion(cfg, ddpm.model), cfg)
 
     def run(name, forwards, fn, limit=1.02):
-        """Run one path with the counters zeroed; check its launches and that
-        its output is finite with max|x| <= limit."""
-        torch.cuda.synchronize()
-        ops.reset_launch_counts()
-        t0 = time.time()
-        out = fn()
-        torch.cuda.synchronize()
-        seconds[name] = time.time() - t0
-        launches = {fn_.__name__: fn_.launches for fn_ in ops.KERNEL_WRAPPERS}
+        """Run one path under device_launches (its seconds with the
+        profiler on); check the kernels that ran and that its output is
+        finite with max|x| <= limit."""
+        with device_launches(torch) as ran:
+            t0 = time.time()
+            out = fn()
+            torch.cuda.synchronize()
+            seconds[name] = time.time() - t0
+        launches = ran.counts
         expected = launches_of(50 * forwards, 48 * forwards)
         x = out if isinstance(out, torch.Tensor) else None
         peak = x.abs().max().item() if x is not None else float("nan")
@@ -883,9 +881,11 @@ def phase_serving(torch, main_out, tmp):
     del exported
 
     # peak memory per image of one DDIM step and of one RePaint step (T=1:
-    # one forward, the known pixels blended in), from b8 and b32, against
+    # one forward, the known pixels blended in), from b32 and b64, against
     # the chunking bound DDPM.MAX_BATCH_PIXELS and the rule that sets it
-    # (the largest power of two of images within 70 % of the card)
+    # (the largest power of two of images within 70 % of the card); both
+    # batches over forward_graph.MAX_GRAPH_PIXELS, so their forwards run
+    # eagerly and allocate their activations, as a chunk of that bound does
     probes = {
         "ddim step": lambda b: ddpm.sample(b, 1, mode="ddim", seeds=range(b)),
         "repaint step": lambda b: ddpm.repaint(known[:1].expand(b, -1, -1, -1).contiguous(), mask[3:], 1,
@@ -894,14 +894,14 @@ def phase_serving(torch, main_out, tmp):
     peaks, per_image = {}, {}
     for name, probe in probes.items():
         peaks[name] = {}
-        for b in (B, 4 * B):
+        for b in (4 * B, 8 * B):
             torch.cuda.synchronize()
             base = torch.cuda.memory_allocated()
             torch.cuda.reset_peak_memory_stats()
             probe(b)
             torch.cuda.synchronize()
             peaks[name][b] = torch.cuda.max_memory_allocated() - base
-        per_image[name] = (peaks[name][4 * B] - peaks[name][B]) / (3 * B)
+        per_image[name] = (peaks[name][8 * B] - peaks[name][4 * B]) / (4 * B)
     m = max(per_image.values())
     total = torch.cuda.get_device_properties(0).total_memory
     bound_images = DDPM.MAX_BATCH_PIXELS // (H * W)
@@ -974,6 +974,70 @@ def launches_of(gn: int, conv: int, s8: int = 0, halo: int = 0, gn_pair: int = 0
             "gn_apply": gn_pair, "act_quantize_halo": s8_halo}
 
 
+# a hand-written kernel's name in a profiler trace: one of the port's own
+# (an anonymous namespace at the top, not ATen's), its template arguments
+_OWN_KERNEL = re.compile(r"(?<![\w:])\(anonymous namespace\)::(\w+_kernel)(?:<([^<>]*)>)?(?:\(|$)")
+_KERNEL_WRAPPER = {"gn_kernel": "fused_group_norm_silu", "gn_stats_kernel": "gn_stats", "gn_apply_kernel": "gn_apply",
+                   "w8a8_ringconv_kernel": "ring_conv_w8a8", "absmax_kernel": "act_absmax"}
+
+
+def device_kernel(name: str):
+    """(wrapper, tile variant) of a kernel in a profiler trace, by the
+    wrapper whose call launches it (``launches_of``'s keys), or None for a
+    kernel that no wrapper counts (ATen's, cuDNN's, the ring conv's weight
+    pack). The ring conv and the quantize pass are templates on kHalo, their
+    last argument, which tells the halo'd forms apart; the ring conv's tile
+    is Tile<BN, MT>, BM = 128 MT pixels by BN channels."""
+    m = _OWN_KERNEL.search(name)
+    if m is None:
+        return None
+    kernel, args = m.group(1), [a.strip() for a in (m.group(2) or "").split(",")]
+    if kernel == "act_ringconv_kernel":
+        return ("act_ringconv_halo" if args[-1] == "true" else "fused_act_ringconv"), f"m{128 * int(args[1])}n{args[0]}"
+    if kernel == "quantize_kernel":
+        return ("act_quantize_halo" if args[-1] == "true" else "act_quantize"), None
+    wrapper = _KERNEL_WRAPPER.get(kernel)
+    return (wrapper, None) if wrapper else None
+
+
+class device_launches:
+    """The hand-written kernels that ran on the card inside the block, from
+    a torch.profiler record of its kernels: a forward that replays a CUDA
+    graph (models/forward_graph.py) runs them with no wrapper call, so the
+    wrappers' own counters do not see them. ``counts`` (``launches_of``'s
+    keys) and ``tiles`` (the ring conv's launches by tile variant) are
+    filled when the block ends, or by ``stop()``."""
+
+    def __init__(self, torch):
+        from torch.profiler import ProfilerActivity, profile
+
+        self.torch, self.counts, self.tiles = torch, {}, {}
+        self.prof = profile(activities=[ProfilerActivity.CUDA])
+
+    def __enter__(self):
+        self.torch.cuda.synchronize()
+        self.prof.__enter__()
+        return self
+
+    def __exit__(self, *exc):
+        self.stop()
+
+    def stop(self) -> dict:
+        if self.prof is None:
+            return self.counts
+        self.torch.cuda.synchronize()
+        prof, self.prof = self.prof, None
+        prof.__exit__(None, None, None)
+        self.counts.update(launches_of(0, 0))
+        for e in prof.events():
+            hit = e.device_type == self.torch.autograd.DeviceType.CUDA and device_kernel(e.name)
+            if hit:
+                self.counts[hit[0]] += 1
+                if hit[1]:
+                    self.tiles[hit[1]] = self.tiles.get(hit[1], 0) + 1
+        return self.counts
+
+
 def phase_eval(torch, main_out, tmp, card):
     """The evaluation path at config H and full width, on phase_main's random
     U-Net (its config set to the synthetic set) and random extractor weights
@@ -1008,14 +1072,13 @@ def phase_eval(torch, main_out, tmp, card):
 
     # sample_and_save: 2 batches x 4 DDIM steps = 8 forwards
     samples = os.path.join(work, "samples")
-    torch.cuda.synchronize()
-    ops.reset_launch_counts()
-    t0 = time.time()
-    _run_cli("r2dm_tpu_torch.sample_and_save", ["--ckpt", ckpt_path, "--output_dir", samples, "--batch_size",
-                                                str(B), "--num_samples", str(2 * B), "--num_steps", "4",
-                                                "--mode", "ddim"])
-    seconds["sample_and_save"] = time.time() - t0
-    launches = path_launches["sample_and_save"] = _launches(ops)
+    with device_launches(torch) as ran:
+        t0 = time.time()
+        _run_cli("r2dm_tpu_torch.sample_and_save", ["--ckpt", ckpt_path, "--output_dir", samples, "--batch_size",
+                                                    str(B), "--num_samples", str(2 * B), "--num_steps", "4",
+                                                    "--mode", "ddim"])
+        seconds["sample_and_save"] = time.time() - t0
+    launches = path_launches["sample_and_save"] = ran.counts
     expected = launches_of(50 * 8, 48 * 8)
     files = sorted(os.listdir(samples))
     arrays = [np.load(os.path.join(samples, f))["sample"] for f in files]
@@ -1083,17 +1146,17 @@ def phase_eval(torch, main_out, tmp, card):
 
     # completion_demo with the RangeNet-53 labels: RePaint T=2, r=2, j=1 at
     # b4 = 1 x 2 + 1 forwards
-    ops.reset_launch_counts()
-    t0 = time.time()
-    try:
-        os.chdir(work)  # the figure goes to the working directory
-        _run_cli("r2dm_tpu_torch.completion_demo", ["--ckpt", ckpt_path, "--num_steps", "2",
-                                                    "--num_resample_steps", "2", "--rangenet_tar", tar])
-    finally:
-        os.chdir(cwd)
-    torch.cuda.synchronize()
-    seconds["completion_demo"] = time.time() - t0
-    launches = path_launches["completion_demo"] = _launches(ops)
+    with device_launches(torch) as ran:
+        t0 = time.time()
+        try:
+            os.chdir(work)  # the figure goes to the working directory
+            _run_cli("r2dm_tpu_torch.completion_demo", ["--ckpt", ckpt_path, "--num_steps", "2",
+                                                        "--num_resample_steps", "2", "--rangenet_tar", tar])
+        finally:
+            os.chdir(cwd)
+        torch.cuda.synchronize()
+        seconds["completion_demo"] = time.time() - t0
+    launches = path_launches["completion_demo"] = ran.counts
     expected = launches_of(50 * 3, 48 * 3)
     size = _png_size(os.path.join(work, "completion_T-0002_r-0002_j-0001.png"))
     want = (2 * H + 800 + 2 * H + H + 800 + 5 * 4, 4 * max(W, 800) + 3 * 8)
@@ -1254,19 +1317,21 @@ def phase_breakdown(torch, ddpm):
     xin = randn(torch, (B, 64, 1024, 2), 10)
     cond = torch.linspace(-5.0, 5.0, B, device="cuda")
     try:
-        with torch.inference_mode():
-            net(xin, cond)
+        with torch.inference_mode():  # the eager body: a replayed forward runs no part's Python, so no hook
+            net._forward(xin, cond)
     finally:
         for h in hooks:
             h.remove()
     with torch.inference_mode():
         forward_ms = cuda_ms(torch, lambda: net(xin, cond), iters=5, warmup=2)
-        # host time to enqueue one forward: below forward_ms, the host keeps
-        # the card fed at this batch
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        net(xin, cond)
-        enqueue_ms = (time.perf_counter() - t0) * 1e3
+        # host time to enqueue one forward, as it replays its CUDA graph and
+        # eagerly: below forward_ms, the host keeps the card fed at this batch
+        enqueue_ms = {}
+        for what, fn in (("replayed", net), ("eager", net._forward)):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn(xin, cond)
+            enqueue_ms[what] = (time.perf_counter() - t0) * 1e3
         torch.cuda.synchronize()
         # operations that block the host until the card drains its queue,
         # in two forwards one after the other and in one 2-step sampling call
@@ -1921,7 +1986,9 @@ print("RANK_RESULT " + json.dumps(results), flush=True)
 def counted_main(torch, module: str, argv: list) -> dict:
     """``module``'s main on ``argv`` in this process with the launch counters
     zeroed before and read after; the train module's loss of each step is
-    recorded (this rank's rows)."""
+    recorded (this rank's rows). A sample_and_save with no width axis
+    replays its forwards' CUDA graph, so its launches are the kernels that
+    ran on the card (``device_launches``)."""
     import importlib
 
     from r2dm_tpu_torch import ops
@@ -1944,15 +2011,20 @@ def counted_main(torch, module: str, argv: list) -> dict:
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     ops.reset_launch_counts()
+    ran = device_launches(torch) if module.endswith(".sample_and_save") and "--mesh" not in argv else None
     t0 = time.time()
     try:
+        if ran is not None:
+            ran.__enter__()
         rc = mod.main(argv) if module.endswith(".train") else mod.main(mod.parse_args(argv))
         torch.cuda.synchronize()
     finally:
+        if ran is not None:
+            ran.stop()
         if saved is not None:
             mod.make_train_step = saved
     return {"module": module, "rc": rc, "seconds": time.time() - t0, "losses": losses,
-            "peak_bytes": torch.cuda.max_memory_allocated(), "launches": _launches(ops)}
+            "peak_bytes": torch.cuda.max_memory_allocated(), "launches": ran.counts if ran else _launches(ops)}
 
 
 def _two_ranks(work: str, jobs_by_rank: list) -> list:
@@ -2286,8 +2358,8 @@ def width_int8_job(torch, ckpt: str, chain_out: str) -> dict:
 
         with torch.inference_mode():
             layers.ring_conv_w8a8 = recorded
-            try:
-                ref = model(x, cond)
+            try:  # the eager body: a graphed forward's first call runs its Python twice
+                ref = model._forward(x, cond)
             finally:
                 layers.ring_conv_w8a8 = real
             exact = []
@@ -2406,19 +2478,18 @@ def phase_validate(torch, main_out, eval_out, card):
     r2dm-h-random.pth with phase 9's random extractor files (``--skip_
     reference`` unless $R2DM_REFERENCE_DIR names the original PyTorch
     code): rc 0, every stage ok, and exact launches (its sample stage, 8
-    DDPM steps at b2: 50 GN + 48 conv a forward)."""
-    from r2dm_tpu_torch import ops
+    DDPM steps at b2: 50 GN + 48 conv a forward, read from the kernels that
+    ran on the card)."""
 
     reference = os.environ.get("R2DM_REFERENCE_DIR")
     argv = [main_out["ckpt"], "--json", "--rangenet_tar", eval_out["tar"], "--pointnet_ckpt", eval_out["pth"]]
     argv += ["--reference_dir", reference] if reference else ["--skip_reference"]
-    torch.cuda.synchronize()
-    ops.reset_launch_counts()
-    t0 = time.time()
-    printed = _run_cli("r2dm_tpu_torch.validate_pretrained", argv)  # raises unless it exits 0
-    torch.cuda.synchronize()
-    out = {"seconds": time.time() - t0, "launches": _launches(ops),
-           "report": json.loads(printed.strip().splitlines()[-1])}
+    with device_launches(torch) as ran:
+        t0 = time.time()
+        printed = _run_cli("r2dm_tpu_torch.validate_pretrained", argv)  # raises unless it exits 0
+        torch.cuda.synchronize()
+        seconds = time.time() - t0
+    out = {"seconds": seconds, "launches": ran.counts, "report": json.loads(printed.strip().splitlines()[-1])}
     print(f"python -m r2dm_tpu_torch.validate_pretrained {' '.join(os.path.basename(a) for a in argv)} ({card}): "
           f"{json.dumps(out)}")
     expected = launches_of(50 * 8, 48 * 8)
@@ -3169,8 +3240,7 @@ def phase_reflow(torch, main_out, tmp, card):
 
     def counted_step(*args, **kwargs):  # the teacher's launches end where the fine-tune begins
         if "teacher" not in counts:
-            torch.cuda.synchronize()
-            counts["teacher"] = _launches(ops)
+            counts["teacher"] = teacher.stop()  # its forwards replay a CUDA graph: the card's kernels
             counts["teacher_s"] = time.time() - t0
             ops.reset_launch_counts()
         return real_step(*args, **kwargs)
@@ -3181,13 +3251,14 @@ def phase_reflow(torch, main_out, tmp, card):
     torch.cuda.reset_peak_memory_stats()
     base = torch.cuda.memory_allocated()
     reflow.reflow_step = counted_step
-    ops.reset_launch_counts()
+    teacher = device_launches(torch).__enter__()
     t0 = time.time()
     try:
         with contextlib.redirect_stdout(text):
             rc = reflow.main(argv)
         torch.cuda.synchronize()
     finally:
+        teacher.stop()
         reflow.reflow_step = real_step
     seconds = time.time() - t0
     counts["finetune"] = _launches(ops)
@@ -3227,14 +3298,16 @@ def quality_leg_runner(torch, legs: list):
 
         def counted_step(*args, **kwargs):  # the teacher's launches end where the fine-tune begins
             if "teacher" not in counts:
-                torch.cuda.synchronize()
-                counts["teacher"] = _launches(ops)
+                counts["teacher"] = ran.stop()
                 ops.reset_launch_counts()
             return real_step(*args, **kwargs)
 
         out, saved = io.StringIO(), os.getcwd()
         torch.cuda.synchronize()
         ops.reset_launch_counts()
+        # sampling replays the forward's CUDA graph: its launches are the
+        # kernels that ran on the card; training's, the wrappers' counts
+        ran = device_launches(torch).__enter__() if module in ("sample_and_save", "reflow") else None
         t0 = time.time()
         reflow.reflow_step = counted_step
         try:
@@ -3243,6 +3316,8 @@ def quality_leg_runner(torch, legs: list):
                 rc = mod.main(argv) if module in ("train", "reflow") else mod.main(mod.parse_args(argv))
             torch.cuda.synchronize()
         finally:
+            if ran is not None:
+                ran.stop()
             reflow.reflow_step = real_step
             os.chdir(saved)
         if rc not in (0, None):
@@ -3250,7 +3325,7 @@ def quality_leg_runner(torch, legs: list):
         if module == "reflow":
             launches = {"teacher": counts.get("teacher"), "finetune": _launches(ops)}
         else:
-            launches = _launches(ops)
+            launches = ran.counts if module == "sample_and_save" else _launches(ops)
         dir_flag = {"sample_and_save": "--output_dir", "evaluate": "--sample_dir"}.get(module)
         tag = os.path.basename(argv[argv.index(dir_flag) + 1])[len("samples_"):] if dir_flag else None
         legs.append({"module": module, "tag": tag, "seconds": time.time() - t0, "launches": launches})
@@ -3393,8 +3468,8 @@ def _lane_sites(torch, net, x, cond):
 
     layers.ring_conv_w8a8 = recorded
     try:
-        with torch.inference_mode():
-            net(x, cond)
+        with torch.inference_mode():  # the eager body: a graphed forward's first call runs its Python twice
+            net._forward(x, cond)
     finally:
         layers.ring_conv_w8a8 = real
     return sites
@@ -3412,7 +3487,6 @@ def phase_int8(torch, main_out, tmp, card):
     and the device time of a b8 and a b256 forward on both lanes."""
     import numpy as np
 
-    from r2dm_tpu_torch import ops
     from r2dm_tpu_torch.models import layers
     from r2dm_tpu_torch.ops import act_ringconv, quant
 
@@ -3435,10 +3509,9 @@ def phase_int8(torch, main_out, tmp, card):
 
         # (b) one forward: exact launches, and the distance from the bf16 forward
         with torch.inference_mode():
-            ops.reset_launch_counts()
-            y8 = net(xin, cond)
-            torch.cuda.synchronize()
-            launches = _launches(ops)
+            with device_launches(torch) as ran:
+                y8 = net(xin, cond)
+            launches = ran.counts
             layers.set_quant_conv(net, None)
             y16 = net(xin, cond)
             layers.set_quant_conv(net, "w8a8")
@@ -3451,13 +3524,14 @@ def phase_int8(torch, main_out, tmp, card):
 
         # the lane's main path: a DDIM-16 b8 chain, counters zeroed just before
         ddpm.sample(B, 1, mode="ddim", seeds=range(B))  # warm-up
+        with device_launches(torch) as ran:
+            ddpm.sample(B, INT8_DDIM_STEPS, mode="ddim", seeds=range(B))
+        launches = ran.counts
         torch.cuda.synchronize()
-        ops.reset_launch_counts()
-        t0 = time.time()
+        t0 = time.time()  # timed apart from the profiled run
         x = ddpm.sample(B, INT8_DDIM_STEPS, mode="ddim", seeds=range(B))
         torch.cuda.synchronize()
         chain_s = time.time() - t0
-        launches = _launches(ops)
         peak = x.abs().max().item()
         gap = (x - main_out["ddim16"]).abs().max().item()
         out["ddim16"] = {"seconds": chain_s, "img_per_s": B / chain_s, "launches": launches, "max_abs": peak,
@@ -3472,22 +3546,19 @@ def phase_int8(torch, main_out, tmp, card):
 
     # generate --int8 (b2, 4 DDIM steps) and sample_and_save under R2DM_TPU_INT8
     gen_dir = os.path.join(tmp, "generate_int8")
-    torch.cuda.synchronize()
-    ops.reset_launch_counts()
-    _run_cli("r2dm_tpu_torch.generate", ["--ckpt", main_out["ckpt"], "--int8", "--batch_size", "2",
-                                         "--sampling_steps", "4", "--mode", "ddim", "--out_dir", gen_dir])
-    torch.cuda.synchronize()
-    gen = _launches(ops)
+    with device_launches(torch) as ran:
+        _run_cli("r2dm_tpu_torch.generate", ["--ckpt", main_out["ckpt"], "--int8", "--batch_size", "2",
+                                             "--sampling_steps", "4", "--mode", "ddim", "--out_dir", gen_dir])
+    gen = ran.counts
     sizes = {n: _png_size(os.path.join(gen_dir, n)) for n in ("samples_img.png", "samples_bev.png")}
     sas_dir = os.path.join(tmp, "samples_int8")
     os.environ["R2DM_TPU_INT8"] = "1"
     try:
-        ops.reset_launch_counts()
-        _run_cli("r2dm_tpu_torch.sample_and_save", ["--ckpt", main_out["ckpt"], "--output_dir", sas_dir,
-                                                    "--num_samples", str(B), "--batch_size", str(B),
-                                                    "--num_steps", "2", "--mode", "ddim"])
-        torch.cuda.synchronize()
-        sas = _launches(ops)
+        with device_launches(torch) as ran:
+            _run_cli("r2dm_tpu_torch.sample_and_save", ["--ckpt", main_out["ckpt"], "--output_dir", sas_dir,
+                                                        "--num_samples", str(B), "--batch_size", str(B),
+                                                        "--num_steps", "2", "--mode", "ddim"])
+        sas = ran.counts
     finally:
         os.environ.pop("R2DM_TPU_INT8")
     files = sorted(os.listdir(sas_dir))

@@ -10,7 +10,10 @@ the up path FIR upsample then conv; as in the JAX package, each side listed
 in ``models.layers.FUSED_RESAMPLE`` (default "down") runs as one composed
 conv (``ops/fused_resample.py``), with the same parameters. The output is
 always fp32. ``dropout`` acts in the ResidualBlocks in training mode only,
-its masks drawn from the ``generator`` given to forward.
+its masks drawn from the ``generator`` given to forward. An inference
+forward on a card at up to ``forward_graph.MAX_GRAPH_PIXELS`` pixels
+replays a CUDA graph of itself (``models/forward_graph.py``): the same
+kernels, launched by one call.
 
 Under a width axis (``layers.set_width_shard``) the network takes and
 returns its rank's columns of each image, and its coordinate encoding is
@@ -31,7 +34,7 @@ from ..ops import encoding as enc
 from ..ops.resample import downsample2x, fir_kernel, upsample2x
 from ..parallel.width import shard_columns
 from ..utils import trace
-from . import layers
+from . import forward_graph, layers
 from .layers import Dense, ResidualBlock, RingConv, SelfAttentionBlock
 
 
@@ -171,6 +174,7 @@ class EfficientUNet(nn.Module):
         super().__init__()
         self.width_merge_l1 = width_merge_l1
         self.width_shard = None
+        self._graphs = forward_graph.ForwardGraphs()
         if coords_encoding not in (None, "spherical_harmonics", "polar_coordinates", "fourier_features"):
             raise ValueError(f"unknown coords_encoding: {coords_encoding}")
         self.in_channels = in_channels
@@ -242,23 +246,33 @@ class EfficientUNet(nn.Module):
     def forward(
         self, images: torch.Tensor, timesteps: torch.Tensor, generator: Optional[torch.Generator] = None,
     ) -> torch.Tensor:
+        """The forward, replayed as a CUDA graph (``forward_graph``) unless
+        ``forward_graph.eager_reason`` names a reason to run it eagerly."""
         with trace.span("network.forward"):
-            B = images.shape[0]
-            if timesteps.dim() == 0:
-                timesteps = timesteps.expand(B)
-            temb = self.time_embedding(timesteps)
-            h = images
-            cenc = self._coords_encoding()
-            if cenc is not None:
-                cenc = cenc[None].expand(B, *cenc.shape).to(h.dtype)
-                h = torch.cat([h, cenc], dim=-1)
-            h = self.in_conv(h)
-            h1 = self.d_block1(h, temb, generator)
-            h2 = self.d_block2(h1, temb, generator)
-            h3 = self.d_block3(h2, temb, generator)
-            h4 = self.d_block4(h3, temb, generator)
-            h = self.u_block4(h4, temb, generator)
-            h = self.u_block3(torch.cat([h, h3], dim=-1), temb, generator)
-            h = self.u_block2(torch.cat([h, h2], dim=-1), temb, generator)
-            h = self.u_block1(torch.cat([h, h1], dim=-1), temb, generator)
-            return self.out_conv(h).to(torch.float32)
+            trace.count("network.forwards")
+            if self._graphs.eager_reason(self, images, generator) is None:
+                return self._graphs(self, images, timesteps)
+            return self._forward(images, timesteps, generator)
+
+    def _forward(
+        self, images: torch.Tensor, timesteps: torch.Tensor, generator: Optional[torch.Generator] = None,
+    ) -> torch.Tensor:
+        B = images.shape[0]
+        if timesteps.dim() == 0:
+            timesteps = timesteps.expand(B)
+        temb = self.time_embedding(timesteps)
+        h = images
+        cenc = self._coords_encoding()
+        if cenc is not None:
+            cenc = cenc[None].expand(B, *cenc.shape).to(h.dtype)
+            h = torch.cat([h, cenc], dim=-1)
+        h = self.in_conv(h)
+        h1 = self.d_block1(h, temb, generator)
+        h2 = self.d_block2(h1, temb, generator)
+        h3 = self.d_block3(h2, temb, generator)
+        h4 = self.d_block4(h3, temb, generator)
+        h = self.u_block4(h4, temb, generator)
+        h = self.u_block3(torch.cat([h, h3], dim=-1), temb, generator)
+        h = self.u_block2(torch.cat([h, h2], dim=-1), temb, generator)
+        h = self.u_block1(torch.cat([h, h1], dim=-1), temb, generator)
+        return self.out_conv(h).to(torch.float32)

@@ -9,7 +9,9 @@ from .act_ringconv import act_ringconv_halo, fused_act_ringconv
 from .gn_silu import fused_group_norm_silu, gn_apply, gn_stats
 from .quant import act_absmax, act_quantize, act_quantize_halo, ring_conv_w8a8
 
-# every wrapper that launches a CUDA kernel; each counts its launches
+# every wrapper that launches a CUDA kernel; each counts its launches (its
+# calls: one into a CUDA graph's capture records the kernel, and a replay
+# of that graph runs it with no call)
 KERNEL_WRAPPERS = (fused_group_norm_silu, fused_act_ringconv, ring_conv_w8a8, act_absmax, act_quantize,
                    act_ringconv_halo, gn_stats, gn_apply, act_quantize_halo)
 

@@ -37,13 +37,17 @@ The spans, by layer (a name is its layer, a dot, and the work):
 
 The counters: ``data.gets`` (batches the loader handed out) and
 ``data.gets_empty`` (of those, the ones asked for while its prefetch queue
-was empty), recorded while tracing is on; and, read when ``snapshot()`` is
+was empty); ``network.forwards`` (forwards of the EfficientUNet),
+``network.graph_captures`` and ``network.graph_replays`` (of those, the ones
+that captured or replayed a CUDA graph, ``models/forward_graph.py``),
+recorded while tracing is on; and, read when ``snapshot()`` is
 taken, the always-on launch counts of ``ops.KERNEL_WRAPPERS``
 (``ops.<wrapper>.launches``; the ring conv's also by tile variant,
 ``ops.<wrapper>.launches.<variant>``), the calls of the composed resample convs
 (``ops.<function>.calls``), both since ``ops.reset_launch_counts()`` or the
 process's start, and with ``snapshot(world)`` that world's
-``parallel.collective_calls``.
+``parallel.collective_calls``. The launch counts and the calls count the
+wrappers' calls: a replayed CUDA graph runs its kernels with none.
 
 A span record is a dict: ``name``; ``t0`` and ``t1``, the host clock
 (``time.perf_counter``) at its start and end; ``parent``, the index of the

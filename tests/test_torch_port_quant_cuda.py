@@ -191,13 +191,14 @@ def test_tiny_network_under_the_lane_on_the_card(dev, monkeypatch):
     net = layers.set_quant_conv(net.to(dev).eval(), "w8a8")
     x = _randn((3, 16, 128, 2), dev, 5)
     cond = torch.tensor([0.1, 0.5, 0.9], device=dev)
+    import chip_smoke
+
     with torch.inference_mode():
-        net(x, cond)  # packs the weights
+        net(x, cond)  # packs the weights, and captures the forward's CUDA graph
         packed = [m._packed[1][0].data_ptr() for m in net.modules() if isinstance(m, layers.RingConv) and m.quant]
-        ops.reset_launch_counts()
-        y = net(x, cond)
-        torch.cuda.synchronize()
-        launches = {fn.__name__: fn.launches for fn in ops.KERNEL_WRAPPERS}
+        with chip_smoke.device_launches(torch) as ran:  # the replay's kernels, as they ran on the card
+            y = net(x, cond)
+        launches = ran.counts
         assert launches == {"fused_group_norm_silu": 18, "fused_act_ringconv": 0, "ring_conv_w8a8": 21,
                             "act_absmax": 21, "act_quantize": 21, "act_ringconv_halo": 0, "gn_stats": 0, "gn_apply": 0,
                             "act_quantize_halo": 0}

@@ -93,7 +93,9 @@ def test_gn_stats_and_apply_match_their_plain_versions(dev, shape, per_batch):
 
 def _config_h_lane_sites(dev) -> list:
     """The distinct (H, W, C, x dtype) of the int8 lane's sites in a config-H
-    forward on the card (bf16 network), from one b1 forward."""
+    forward on the card (bf16 network), from one b1 eager forward (the
+    first call of a forward that replays a CUDA graph runs its Python twice,
+    as the warm-up and into the capture)."""
     from r2dm_tpu_torch import config as config_lib
     from r2dm_tpu_torch.inference import build_model
     from r2dm_tpu_torch.models import layers
@@ -108,7 +110,7 @@ def _config_h_lane_sites(dev) -> list:
     layers.ring_conv_w8a8 = recorded
     try:
         with torch.inference_mode():
-            net(torch.zeros(1, 64, 1024, 2, device=dev), torch.zeros(1, device=dev))
+            net._forward(torch.zeros(1, 64, 1024, 2, device=dev), torch.zeros(1, device=dev))
     finally:
         layers.ring_conv_w8a8 = real
     assert len(sites) == 53
